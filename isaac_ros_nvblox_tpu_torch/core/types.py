@@ -1,0 +1,180 @@
+"""Core geometric types (port of isaac_ros_nvblox_tpu/core/types.py).
+
+Plain tensors stand in for nvblox's Eigen types:
+
+  * a point/vector is `f32[3]` (batched: `f32[..., 3]`)
+  * a rigid transform is a homogeneous `f32[4, 4]`
+  * a block index is `i32[3]` (batched: `i32[..., 3]`)
+
+Blocks are 8x8x8 voxels; the 512 voxels of a block are flattened x-major,
+z-fastest: lane v = lx*64 + ly*8 + lz (the JAX package's pool layout, so
+pool rows compare one for one).
+
+Rounding. The reference's float32 arithmetic is what XLA's CPU backend
+emits, and that backend contracts `a*b + c` into one fused multiply-add
+(one rounding). `fma` below reproduces that rounding on any device (the
+product is exact in float64; the float64 sum is rounded once more to
+float32, which differs from a true fused multiply-add only at exact
+float32 ties). XLA also turns a division by a constant into a product
+with the constant's float32 reciprocal (`recip32`). The port follows both
+in XLA's accumulation order, so its float32 results equal the reference's
+on the CPU (up to rare last-bit differences where XLA orders a product
+otherwise), and the CUDA kernels (built with `-fmad=false`) repeat the
+port's steps exactly on the card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# Voxels along each side of a cubic VoxelBlock (nvblox kVoxelsPerSide).
+VOXELS_PER_SIDE: int = 8
+VOXELS_PER_BLOCK: int = VOXELS_PER_SIDE ** 3  # 512
+
+
+def block_size_m(voxel_size_m: float) -> float:
+    return VOXELS_PER_SIDE * voxel_size_m
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `cuda` unless the caller asks
+    for another. Raises when CUDA is asked for (or defaulted to) and no
+    card is present — entry points never carry on quietly on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch path")
+    return dev
+
+
+def _f64(x):
+    # Python scalars are float32 constants in the reference (weak types);
+    # they stay Python floats here so that no host->device copy is made.
+    return x.double() if isinstance(x, torch.Tensor) else float(np.float32(x))
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """float32 `a*b + c` with a single rounding of the product-sum (see
+    the module docstring). At least one of `a`, `b` is a tensor."""
+    return (_f64(a) * _f64(b) + _f64(c)).float()
+
+
+def recip32(c: float) -> float:
+    """float32 reciprocal of a constant: XLA rewrites `x / c` for a
+    constant `c` as `x * (1/c)`, rounding 1/c to float32 first."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def mat3_rows(M, x, y, z, t=None):
+    """Rows of `M @ [x, y, z] (+ t)` in XLA's order: x*M[i,0], then fused
+    multiply-adds of y and z, then the translation."""
+    out = []
+    for i in range(3):
+        s = x * M[i, 0]
+        s = fma(y, M[i, 1], s)
+        s = fma(z, M[i, 2], s)
+        if t is not None:
+            s = s + t[i]
+        out.append(s)
+    return out
+
+
+class Transform:
+    """Helpers for homogeneous 4x4 rigid transforms (f32[4,4] tensors).
+
+    `T_A_B` maps points in frame B to frame A: `p_A = T_A_B @ p_B`.
+    """
+
+    @staticmethod
+    def identity(device=None) -> torch.Tensor:
+        return torch.eye(4, dtype=torch.float32, device=resolve_device(device))
+
+    @staticmethod
+    def inverse(T) -> torch.Tensor:
+        R = T[:3, :3]
+        Rinv = R.T
+        Ti = torch.eye(4, dtype=torch.float32, device=T.device)
+        Ti[:3, :3] = Rinv
+        # -Rinv @ t, accumulated as XLA does.
+        nR = -Rinv
+        t = T[:3, 3]
+        Ti[:3, 3] = torch.stack(mat3_rows(nR, t[0], t[1], t[2]))
+        return Ti
+
+    @staticmethod
+    def apply(T, points) -> torch.Tensor:
+        """Transform points `f32[..., 3]` by `T` (f32[4,4])."""
+        x, y, z = points[..., 0], points[..., 1], points[..., 2]
+        return torch.stack(mat3_rows(T[:3, :3], x, y, z, T[:3, 3]), dim=-1)
+
+    @staticmethod
+    def rotate(T, vectors) -> torch.Tensor:
+        x, y, z = vectors[..., 0], vectors[..., 1], vectors[..., 2]
+        return torch.stack(mat3_rows(T[:3, :3], x, y, z), dim=-1)
+
+
+def norm3(v) -> torch.Tensor:
+    """Euclidean norm over the last axis (size 3), in XLA's order."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return torch.sqrt(fma(z, z, fma(y, y, x * x)))
+
+
+def local_voxel_offsets() -> np.ndarray:
+    """`i32[512, 3]` local (x, y, z) voxel coordinates within a block,
+    index = (x*8 + y)*8 + z."""
+    r = np.arange(VOXELS_PER_SIDE)
+    xx, yy, zz = np.meshgrid(r, r, r, indexing="ij")
+    return np.stack([xx, yy, zz], axis=-1).reshape(-1, 3).astype(np.int32)
+
+
+def set_rows_drop(dst, idx, values) -> torch.Tensor:
+    """`dst[idx] = values` in place, dropping entries whose index lies
+    outside [0, len(dst)) — JAX's `.at[idx].set(values, mode="drop")`
+    without a host sync (a boolean filter would sync on CUDA).
+
+    Dropped entries are redirected to the target of the first kept entry
+    with that entry's value, or, when none is kept, rewrite one row's
+    current value; duplicate writes therefore always carry equal values.
+    """
+    if idx.numel() == 0:
+        return dst
+    n = dst.shape[0]
+    if not isinstance(values, torch.Tensor):
+        values = torch.full((), values, dtype=dst.dtype, device=dst.device)
+    values = values.to(dst.dtype).expand(tuple(idx.shape) + tuple(dst.shape[1:]))
+    valid = (idx >= 0) & (idx < n)
+    safe = idx.clamp(0, n - 1).long()
+    # Entry j as 1-element slices: indexing with a 0-dim tensor would read
+    # it back to the host.
+    j = torch.argmax(valid.to(torch.uint8)).view(1)
+    tail = (1,) * (values.dim() - 1)
+    safe_j = safe.index_select(0, j)
+    fallback = torch.where(valid.index_select(0, j).view((1,) + tail),
+                           values.index_select(0, j),
+                           dst.index_select(0, safe_j))
+    target = torch.where(valid, safe, safe_j)
+    keep = valid.view(valid.shape + tail)
+    dst.index_put_((target,), torch.where(keep, values, fallback))
+    return dst
+
+
+def device_ints(values, dtype, device) -> torch.Tensor:
+    """A small integer tensor on `device` from host values, made of fill
+    kernels: no host->device copy, which would synchronize the stream."""
+    return torch.stack([torch.full((), int(v), dtype=dtype, device=device)
+                        for v in values])
+
+
+def voxel_centers_for_blocks(block_indices, voxel_size_m: float) -> torch.Tensor:
+    """World-frame voxel centers `f32[N, 512, 3]` for blocks `i32[N, 3]`."""
+    offs = torch.as_tensor(local_voxel_offsets(), device=block_indices.device)
+    vox = block_indices[:, None, :] * VOXELS_PER_SIDE + offs[None, :, :]
+    return (vox.float() + 0.5) * float(np.float32(voxel_size_m))
+
+
+def block_index_of_position(p_m, voxel_size_m: float) -> torch.Tensor:
+    """Position `f32[..., 3]` -> containing block index `i32[..., 3]`."""
+    bs = block_size_m(voxel_size_m)
+    return torch.floor(p_m / bs).to(torch.int32)

@@ -1,0 +1,144 @@
+"""Build and bind the hand-written CUDA kernels in `csrc/`.
+
+Each `csrc/<name>.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into a
+shared library with a plain C interface, `build/torch_kernels/lib<name>-
+<hash>.so` under the repository root, on first use, and loaded with
+`ctypes`. The hash covers the source and the flags, so an edited source is
+rebuilt. Sources are compiled in parallel, one `nvcc` each.
+
+Pointer and stream arguments are `c_void_p` (tensor.data_ptr(), the
+current stream's handle). Every C entry returns `cudaGetLastError()` after
+its launch; `check` raises on anything but 0. Nothing here falls back to
+another path: a failed build or launch raises.
+
+`LAUNCHES` counts kernel launches per kernel; each wrapper adds one where
+it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# Per-source extra flags. tsdf_fuse repeats the plain version's float32
+# roundings, so nvcc must not contract a*b+c on its own.
+EXTRA_FLAGS = {"tsdf_fuse": ["-fmad=false"]}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points of each library: name -> (argtypes, restype).
+SIGNATURES = {
+    "tsdf_fuse": {
+        "tsdf_fuse": ([_P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_float),
+                       _I, _I, _I, _I, _I, _P], _I),
+        "tsdf_fuse_error_string": ([_I], ctypes.c_char_p),
+    },
+    "edt": {
+        "edt_pass_launch": ([_P, _P, _I, _I, _I, _I, _I, _P], _I),
+        "edt_lines_per_cta": ([_I], _I),
+        "edt_error_string": ([_I], ctypes.c_char_p),
+    },
+}
+
+LAUNCHES: Dict[str, int] = {"tsdf_fuse": 0, "edt_pass1": 0, "edt_pass": 0}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and Path(cand, "bin", "nvcc").exists():
+            return str(Path(cand, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def _flags(name: str):
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes()
+                       + " ".join(_flags(name)).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{h}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile the named sources (all by default) that are not built yet,
+    one nvcc process each, all started together. Returns seconds per
+    source built. Raises with nvcc's output if any build fails."""
+    names = list(SIGNATURES) if names is None else list(names)
+    todo = [n for n in names if not library_path(n).exists()]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        out = library_path(n)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *_flags(n), "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, out)
+    seconds, errors = {}, []
+    for n, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        seconds[n] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {n}.cu:\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return seconds
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for `csrc/<name>.cu`, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, (argtypes, restype) in SIGNATURES[name].items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = restype
+            _libs[name] = lib
+        return lib
+
+
+def check(name: str, err: int, what: str) -> None:
+    """Raise if a C entry reported a CUDA error."""
+    if err != 0:
+        msg = getattr(library(name), f"{name}_error_string")(err)
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg.decode()})")
+
+
+def stream_handle(tensor) -> int:
+    import torch
+    return torch.cuda.current_stream(tensor.device).cuda_stream

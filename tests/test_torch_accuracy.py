@@ -1,0 +1,199 @@
+"""Accuracy cross-check at the benchmark's configuration (CPU).
+
+The bench scene (a 6 x 4.4 x 3 m room with a sphere and a box), its
+16-frame VGA orbit replayed 4x, 0.05 m voxels and 5 m integration go through
+the reference's TSDF path with its numpy ESDF reference, and through the
+port's plain path. Both are scored against the analytic scene SDF as bench.py scores them; the
+scores hold chip_smoke.py's accuracy limits to what the reference itself
+reaches on this path. Run as a script to print the figures:
+
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_accuracy.py
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from isaac_ros_nvblox_tpu.core import world_grid as jwg
+from isaac_ros_nvblox_tpu.core.types import voxel_centers_for_blocks
+from isaac_ros_nvblox_tpu.mapper.device_mapper import DeviceMapper as JMapper
+from isaac_ros_nvblox_tpu.mapper.params import MapperParams as JParams
+from isaac_ros_nvblox_tpu.models import camera as jc
+from isaac_ros_nvblox_tpu.models import scene as js
+from isaac_ros_nvblox_tpu.ops import esdf as jesdf
+from isaac_ros_nvblox_tpu.ops import esdf_dense as jed
+from isaac_ros_nvblox_tpu.ops import view as jv
+from isaac_ros_nvblox_tpu.ops.tsdf import TsdfIntegratorParams as JTsdf
+from isaac_ros_nvblox_tpu.ops.tsdf_pallas import integrate_tsdf_pallas
+from isaac_ros_nvblox_tpu_torch.core import world_grid as twg
+from isaac_ros_nvblox_tpu_torch.mapper import device_mapper as tdm
+from isaac_ros_nvblox_tpu_torch.mapper.params import MapperParams as TParams
+from isaac_ros_nvblox_tpu_torch.models import camera as tc
+from isaac_ros_nvblox_tpu_torch.ops.tsdf import TsdfIntegratorParams as TTsdf
+from test_torch_device_mapper import assert_tsdf_matches
+
+torch.set_num_threads(2)
+
+VOXEL = 0.05
+BAND = 40            # EsdfIntegratorParams.max_esdf_distance_m 2.0 / 0.05
+WORLD = dict(dims=(64, 64, 32), capacity=16384, origin_block=(-32, -32, -8))
+# chip_smoke.py's limits. The TSDF limit is the benchmark's; the ESDF one
+# sits above the 0.0487 m the reference's XLA TSDF path reaches here, which
+# the port mirrors (its Pallas path, which the benchmark ran on the TPU,
+# reaches 0.030 m; see main()).
+TSDF_MAE_LIMIT_M = 0.035
+ESDF_MAE_LIMIT_M = 0.05
+
+
+def _scores(gt, d, w, sq, inside, where=True):
+    """bench.py:628-646 (`where` narrows the ESDF score to some voxels)."""
+    near = (np.abs(gt) < 0.1) & (w > 0.5)
+    tsdf_mae = float(np.mean(np.abs(d[near] - gt[near])))
+    est = np.minimum(np.sqrt(np.minimum(sq, 1e12)) * VOXEL, 2.0)
+    est = np.where(inside, -est, est)
+    m = (gt > 3 * VOXEL) & (gt < 1.0) & (sq < 1e11) & where
+    return tsdf_mae, float(np.mean(np.abs(est[m] - gt[m])))
+
+
+ARGS = dict(fx=500.0, fy=500.0, cx=319.5, cy=239.5, width=640, height=480)
+SCENE = js.Scene(primitives=(
+    js.RoomBox(center=(0.0, 0.0, 1.5), half_extents=(3.0, 2.2, 1.5)),
+    js.Sphere(center=(1.2, 0.8, 1.0), radius=0.5),
+    js.Box(center=(-1.5, -1.0, 0.4), half_extents=(0.4, 0.4, 0.4))))
+
+
+def _frames(jcam):
+    poses = [js.orbit_pose(2 * np.pi * k / 16, radius=1.5) for k in range(16)]
+    return poses, [np.array(js.render_depth(SCENE, jcam, jnp.asarray(T)))
+                   for T in poses]
+
+
+def _reference_esdf(d, w, bidx, n, origin, dims):
+    """Sites of a TSDF pool and the numpy reference EDT over a region."""
+    site, inside, _ = (np.asarray(a) for a in jesdf.esdf_sites_from_tsdf(
+        jnp.asarray(d), jnp.asarray(w), voxel_size_m=jnp.float32(VOXEL),
+        max_site_distance_vox=1.0, min_weight=1e-4))
+    sq = jed.esdf_from_sites_reference(site, bidx - origin, n, tuple(dims),
+                                       BAND)
+    return site, inside, sq
+
+
+def run():
+    jcam, tcam = jc.Camera(**ARGS), tc.Camera(**ARGS)
+    scene = SCENE
+    poses, depths = _frames(jcam)
+
+    jm = JMapper(VOXEL, params=JParams(projective=JTsdf(
+        max_integration_distance_m=5.0)), world=jwg.WorldGridConfig(**WORLD),
+        enable_color=False, enable_esdf=False, max_blocks_per_frame=2048)
+    tm = tdm.DeviceMapper(VOXEL, params=TParams(projective=TTsdf(
+        max_integration_distance_m=5.0)), world=twg.WorldGridConfig(**WORLD),
+        max_blocks_per_frame=2048, device="cpu")
+    # The orbit 4x over, as the benchmark replays it (weights saturate).
+    for depth, T in list(zip(depths, poses)) * 4:
+        jm.integrate_depth(depth, jnp.asarray(T), jcam)
+        tm.integrate_depth(depth, torch.from_numpy(T), tcam)
+
+    n = jm.block_count()
+    bidx = np.asarray(jm.state.block_index_of_slot)
+    d_j = np.asarray(jm.channels["tsdf_distance"])
+    w_j = np.asarray(jm.channels["tsdf_weight"])
+    # The benchmark's region: the allocated AABB (esdf_region(0, 1)).
+    origin, dims = tm.esdf_region(margin_blocks=0, mult=1)
+    site, inside, ref_sq = _reference_esdf(d_j, w_j, bidx, n, origin, dims)
+    sq_t, ins_t, _ = tdm._esdf_solve(
+        tm.state, tm.channels["tsdf_distance"], tm.channels["tsdf_weight"],
+        torch.as_tensor(origin), dims_b=dims, band=BAND, voxel_size_m=VOXEL,
+        esdf_params=tm.params.esdf)
+
+    centers = np.asarray(voxel_centers_for_blocks(jnp.asarray(bidx[:n]),
+                                                  VOXEL))
+    gt = np.asarray(scene.sdf(centers))
+    t = tm.state_arrays()
+    ref_args = (gt, d_j[:n], w_j[:n], ref_sq[:n], inside[:n])
+    ref = _scores(*ref_args)
+    port = _scores(gt, t["tsdf_distance"][:n], t["tsdf_weight"][:n],
+                   sq_t.numpy()[:n], ins_t.numpy()[:n])
+    low = centers[..., 2] < 1.0   # below 1 m: above floor the orbit misses
+    by_height = (_scores(*ref_args, where=low)[1],
+                 _scores(*ref_args, where=~low)[1])
+    return dict(jm=jm, tm=tm, n=n, poses=poses, d_j=d_j, w_j=w_j,
+                ref_sq=ref_sq,
+                sq_t=sq_t.numpy(), region=(origin, dims), ref=ref, port=port,
+                by_height=by_height, centers=centers, gt=gt, site=site)
+
+
+def pallas_scores(r):
+    """The same frames through the reference's Pallas TSDF kernel (interpret
+    mode; decimated depth sampling), the path the benchmark ran on the TPU.
+    Returns its (tsdf_mae, esdf_mae) and its sites."""
+    jcam = jc.Camera(**ARGS)
+    poses, depths = _frames(jcam)
+    params = JTsdf(max_integration_distance_m=5.0)
+    st = jwg.create_world_grid(jwg.WorldGridConfig(**WORLD))
+    d = jnp.zeros((WORLD["capacity"], 512), jnp.float32)
+    w = jnp.zeros_like(d)
+    for depth, T in list(zip(depths, poses)) * 4:
+        grid, org = jv.touched_block_grid(
+            jnp.asarray(depth), jnp.asarray(T), camera=jcam,
+            voxel_size_m=VOXEL, max_distance_m=5.0,
+            truncation_m=params.truncation_m(VOXEL))
+        st, slots, bidx, _ = jwg.allocate_and_batch(st, grid, org,
+                                                    max_blocks=2048)
+        d, w = integrate_tsdf_pallas(d, w, slots, bidx, jnp.asarray(depth),
+                                     jnp.asarray(T), camera=jcam,
+                                     voxel_size_m=VOXEL, params=params,
+                                     interpret=True)
+    n = r["n"]
+    bidx = np.asarray(st.block_index_of_slot)
+    assert np.array_equal(bidx[:n], np.asarray(
+        r["jm"].state.block_index_of_slot)[:n])
+    d, w = np.asarray(d), np.asarray(w)
+    site, inside, sq = _reference_esdf(d, w, bidx, n, *r["region"])
+    return (_scores(r["gt"], d[:n], w[:n], sq[:n], inside[:n]), site[:n])
+
+
+def test_bench_scene_accuracy_matches_reference():
+    r = run()
+    t = r["tm"].state_arrays()
+    assert r["n"] == r["tm"].block_count() > 1500
+    want = dict(block_index_of_slot=np.asarray(
+        r["jm"].state.block_index_of_slot), alloc_count=np.asarray(
+        r["jm"].state.alloc_count), tsdf_distance=r["d_j"],
+        tsdf_weight=r["w_j"])
+    for k in ("block_index_of_slot", "alloc_count"):
+        np.testing.assert_array_equal(t[k], want[k], err_msg=k)
+    assert_tsdf_matches(t, want, r["poses"], tc.Camera(**ARGS))
+    # The port's ESDF equals the numpy reference on the reference's sites.
+    np.testing.assert_array_equal(r["sq_t"], r["ref_sq"])
+    (tsdf_ref, esdf_ref), (tsdf_port, esdf_port) = r["ref"], r["port"]
+    assert abs(tsdf_port - tsdf_ref) < 1e-4
+    assert esdf_port == esdf_ref
+    assert tsdf_ref <= TSDF_MAE_LIMIT_M and esdf_ref <= ESDF_MAE_LIMIT_M
+
+
+def main():
+    r = run()
+    (tsdf_ref, esdf_ref), (tsdf_port, esdf_port) = r["ref"], r["port"]
+    (tsdf_pal, esdf_pal), site_pal = pallas_scores(r)
+    floor = r["centers"][..., 2] < 0.1
+    print(json.dumps({
+        "config": "bench scene, 16-frame 640x480 orbit x4, 0.05 m, 5 m, band 40",
+        "backend": jax.default_backend(), "allocated_blocks": r["n"],
+        "esdf_region_origin": [int(v) for v in r["region"][0]],
+        "esdf_region_dims_blocks": list(r["region"][1]),
+        "reference_tsdf_mae_m": tsdf_ref, "reference_esdf_mae_m": esdf_ref,
+        "port_tsdf_mae_m": tsdf_port, "port_esdf_mae_m": esdf_port,
+        "reference_esdf_mae_m_below_1m": r["by_height"][0],
+        "reference_esdf_mae_m_above_1m": r["by_height"][1],
+        "reference_pallas_tsdf_mae_m": tsdf_pal,
+        "reference_pallas_esdf_mae_m": esdf_pal,
+        "sites_below_0.1m_xla_path": int((r["site"][:r["n"]] & floor).sum()),
+        "sites_below_0.1m_pallas_path": int((site_pal & floor).sum())}))
+
+
+if __name__ == "__main__":
+    main()

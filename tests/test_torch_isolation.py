@@ -1,0 +1,127 @@
+"""The port stands alone: no JAX, no reference package, CUDA by default,
+plain versions only for CPU tensors, and a smoke script that refuses to run
+without a card."""
+
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from isaac_ros_nvblox_tpu_torch import kernels
+from isaac_ros_nvblox_tpu_torch.mapper.device_mapper import DeviceMapper
+from isaac_ros_nvblox_tpu_torch.models.camera import Camera
+from isaac_ros_nvblox_tpu_torch.models.scene import (default_test_scene,
+                                                     render_depth)
+from isaac_ros_nvblox_tpu_torch.ops import esdf_dense as ed
+from isaac_ros_nvblox_tpu_torch.ops.tsdf import (TsdfIntegratorParams,
+                                                 integrate_tsdf)
+from isaac_ros_nvblox_tpu_torch.ops.tsdf_cuda import integrate_tsdf_cuda
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "isaac_ros_nvblox_tpu_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts)
+    for p in PKG.rglob("*.py"))
+
+
+def _clean_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    return env
+
+
+def test_modules_import_without_jax():
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in MODULES)
+            + "bad = [m for m in sys.modules if m == 'jax' "
+              "or m.startswith('jax.') or m.startswith('jaxlib') "
+              "or m.startswith('isaac_ros_nvblox_tpu.') "
+              "or m == 'isaac_ros_nvblox_tpu']\n"
+              "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert len(MODULES) >= 14
+
+
+def test_sources_name_no_jax():
+    pat = re.compile(r"^\s*(import jax|from jax)|isaac_ros_nvblox_tpu\.",
+                     re.M)
+    files = list(PKG.rglob("*.py")) + list(PKG.rglob("*.cu")) \
+        + [ROOT / "chip_smoke.py"]
+    for f in files:
+        text = f.read_text()
+        assert not pat.search(text), f
+
+
+def test_entry_points_default_to_cuda():
+    cam = Camera(fx=50.0, fy=50.0, cx=15.5, cy=11.5, width=32, height=24)
+    if torch.cuda.is_available():
+        assert DeviceMapper(0.05).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceMapper(0.05)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_depth(default_test_scene(), cam, np.eye(4, dtype=np.float32))
+    assert DeviceMapper(0.05, device="cpu").device.type == "cpu"
+
+
+def test_wrappers_take_plain_versions_on_cpu():
+    cam = Camera(fx=50.0, fy=50.0, cx=15.5, cy=11.5, width=32, height=24)
+    rng = np.random.RandomState(0)
+    bidx = torch.from_numpy(rng.randint(-2, 3, (8, 3)).astype(np.int32))
+    bidx[:, 2] = torch.arange(1, 9, dtype=torch.int32)
+    slots = torch.arange(8, dtype=torch.int32)
+    depth = torch.from_numpy((1.5 + rng.rand(24, 32)).astype(np.float32))
+    T = torch.eye(4)
+    d0, w0 = torch.zeros(16, 512), torch.zeros(16, 512)
+    kernels.reset_launch_counts()
+    kw = dict(camera=cam, voxel_size_m=0.05, params=TsdfIntegratorParams())
+    a = integrate_tsdf_cuda(d0.clone(), w0.clone(), slots, bidx, depth, T, **kw)
+    b = integrate_tsdf(d0.clone(), w0.clone(), slots, bidx, depth, T, **kw)
+    assert float(b[1].max()) > 0
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    g = torch.where(torch.rand(16, 24, 40) < 0.02, 0.0, float(ed.INF))
+    assert torch.equal(ed.edt_pass1(g, 1, 6), ed.edt_pass1_plain(g, 1, 6))
+    assert torch.equal(ed.edt_pass(g, 2, 6), ed.edt_pass_plain(g, 2, 6))
+    assert kernels.LAUNCHES == {"tsdf_fuse": 0, "edt_pass1": 0,
+                                "edt_pass": 0}
+
+
+def test_chip_smoke_refuses_without_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, env=_clean_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    # Alone in a directory, without the package beside it.
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_kernel_sources_and_build_flags():
+    for name in kernels.SIGNATURES:
+        src = kernels.CSRC / f"{name}.cu"
+        assert src.exists()
+        assert 'extern "C"' in src.read_text()
+    assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
+    assert kernels.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
+    assert kernels.library_path("edt") != kernels.library_path("tsdf_fuse")
