@@ -2,16 +2,29 @@
 """Smoke run of the PyTorch/CUDA port (isaac_ros_nvblox_tpu_torch) on one
 NVIDIA GPU.
 
-Drives the port's main path — depth frames -> TSDF -> ESDF through
-`DeviceMapper.replay_frames` — at the benchmark's size: a 6 x 4.4 x 3 m room
-with a sphere and a box, a 16-frame VGA (640x480) orbit replayed 4x, 0.05 m
-voxels, a 64x64x32-block world with 16384 pool slots. It builds every CUDA
-kernel of that path from `isaac_ros_nvblox_tpu_torch/csrc/`, checks that the
-path went through each kernel, holds each kernel against its plain PyTorch
-version on the path's own inputs, times both, and scores the map against the
-scene's analytic SDF.
+Drives the port's paths at the benchmark's size: a 6 x 4.4 x 3 m room with
+a sphere and a box, a 16-frame VGA (640x480) orbit replayed 4x, 0.05 m
+voxels, a 64x64x32-block world with 16384 pool slots.
 
-Output, one JSON object per line: the card, the path's figures, one line
+  * main_path: depth frames -> TSDF -> ESDF through
+    `DeviceMapper.replay_frames` (kernels tsdf_fuse, edt_pass1, edt_pass).
+  * pipeline: the same frames with colors at the reference's operational
+    cadence (bench.py:237-244): TSDF every frame, TSDF + color in one pass
+    every 8th (kernel tsdf_color_fuse), ESDF every 4th, mesh every 8th
+    (kernel marching_cubes); plus the mesh and color marginals of
+    bench.py:229-235.
+  * color_frames: `DeviceMapper.integrate_color` with an unaligned
+    (half-resolution) occlusion depth (kernel color_fuse).
+  * mesh_accuracy: the benchmark's accuracy run (bench.py:582-619), the
+    mesh scored against the cluttered two-room scene's analytic SDF.
+
+It builds every CUDA kernel from `isaac_ros_nvblox_tpu_torch/csrc/`, checks
+that each path went through its kernels (launch counts set to 0 just before
+the path runs and read just after), holds each kernel against its plain
+PyTorch version on the path's own inputs, times both, and scores the maps
+against the scenes' analytic SDFs.
+
+Output, one JSON object per line: the card, each path's figures, one line
 per kernel check, the `kernels` summary, then the card's name and power
 limit as nvidia-smi gives them, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -40,6 +53,16 @@ FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 # floor sites; the same script scores that path at 0.030 m.)
 TSDF_MAE_LIMIT_M = 0.035
 ESDF_MAE_LIMIT_M = 0.05
+# Mesh accuracy limits, derived from the reference's own CPU run of the
+# same configuration (its XLA TSDF path, which the port mirrors;
+# `tests/test_torch_accuracy.py --mesh`): surface error 0.00149 m,
+# precision 1.0, completeness 0.9014, F-score 0.9481. The limits leave room
+# for the card's render of the frames (within 1e-5 m of the reference's
+# on all but 0.1% of the pixels) and nothing more.
+MESH_ERR_LIMIT_M = 0.002
+MESH_PRECISION_MIN = 0.999
+MESH_COMPLETENESS_MIN = 0.89
+MESH_FSCORE_MIN = 0.94
 
 
 def fail(msg: str) -> None:
@@ -116,6 +139,47 @@ def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def top_kernels(evs, n_frames: int, k: int = 8):
+    """The k device activities of a trace with the most time: name, count
+    and ms, per frame."""
+    by_name = {}
+    for name, us in evs:
+        c_us = by_name.setdefault(name[:80], [0, 0.0])
+        c_us[0] += 1
+        c_us[1] += us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:k]
+    return [{"name": n, "count_per_frame": c / n_frames,
+             "ms_per_frame": us / 1e3 / n_frames} for n, (c, us) in top]
+
+
+def device_ms(fn, reps: int = 1):
+    """(device busy ms per call of `fn`, wall s of the traced calls)."""
+    evs, wall = trace(fn, reps)
+    return sum(us for _, us in evs) / reps / 1e3, wall
+
+
+def in_view_voxels(slots, bidx, T_L_C, camera, voxel, cap) -> int:
+    """Voxels of the batch's real blocks whose centers project into the
+    camera's image (the voxels a projective kernel must read)."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch.core.types import (
+        Transform, voxel_centers_for_blocks)
+    real = (slots >= 0) & (slots < cap)
+    p = Transform.apply(Transform.inverse(T_L_C),
+                        voxel_centers_for_blocks(bidx, voxel))
+    _, ok = camera.project(p)
+    return int((ok & real[:, None]).sum())
+
+
+def changed(new, old):
+    """bool[cap, 512]: voxels where any of the channels changed (an update
+    at capped weight still moves the running averages)."""
+    out = new[0] != old[0]
+    for a, b in zip(new[1:], old[1:]):
+        out = out | (a != b)
+    return out
 
 
 def line_candidates(shape, axis: int, reach, device):
@@ -243,8 +307,8 @@ def main() -> None:
     launches = dict(kernels.LAUNCHES)
     mapper.check_slot_bucket()
     tsdf_ms = float(np.median(t_tsdf)) / n_steps * 1e3
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("tsdf_fuse", "edt_pass1", "edt_pass"):
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the main path")
 
     n_blocks = mapper.block_count()
@@ -468,6 +532,328 @@ def main() -> None:
             "plain_ms": sum(r["plain_ms"] for r in rs) / len(rs),
             "bound_ms": sum(r["bound_ms"] for r in rs) / len(rs),
             "bound_by": rs[-1]["bound_by"], "library_ms": None})
+
+    del mapper
+    torch.cuda.empty_cache()
+
+    # ---- the colored-mesh pipeline at the reference's cadence ------------
+    from isaac_ros_nvblox_tpu_torch.mapper.device_mapper import (
+        _surface_batch)
+    from isaac_ros_nvblox_tpu_torch.mapper.params import mesh_accuracy_params
+    from isaac_ros_nvblox_tpu_torch.models.scene import (
+        cluttered_multi_room_scene, look_at_pose, render_color)
+    from isaac_ros_nvblox_tpu_torch.ops import mesh_cuda as mc
+    from isaac_ros_nvblox_tpu_torch.ops.color import (integrate_color_planar,
+                                                      integrate_tsdf_color)
+    from isaac_ros_nvblox_tpu_torch.ops.color_cuda import integrate_color_cuda
+    from isaac_ros_nvblox_tpu_torch.ops.tsdf_color_cuda import (
+        integrate_tsdf_color_cuda)
+    from isaac_ros_nvblox_tpu_torch.utils.metrics import mesh_accuracy
+
+    colors = torch.stack([render_color(scene, camera, poses[k], device=dev)
+                          for k in range(n_frames)])
+    colors_r = torch.cat([colors] * 4)
+    pm = DeviceMapper(
+        voxel_size_m=voxel, params=params,
+        world=wg.WorldGridConfig(dims=(64, 64, 32), capacity=16384,
+                                 origin_block=(-32, -32, -8)),
+        max_blocks_per_frame=max_blocks, device=dev)
+    pm.replay_frames(depths_r, poses_r, camera)
+    p_region = pm.esdf_region(margin_blocks=0, mult=1)
+    pipe_kw = dict(esdf_every=4, esdf_region=p_region, mesh_every=8,
+                   colors=colors_r, color_every=8, slot_bucket=slot_bucket)
+    mesh_kw = dict(mesh_every=1, mesh_max_blocks=1024,
+                   mesh_surface_blocks=512, slot_bucket=slot_bucket)
+    color_kw = dict(colors=colors_r, color_every=1)
+    pm.replay_frames(depths_r, poses_r, camera, **pipe_kw)    # warm-up
+
+    def p_replay(**kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pm.replay_frames(depths_r, poses_r, camera, **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    kernels.reset_launch_counts()
+    t_pipe = [p_replay(**pipe_kw) for _ in range(3)]
+    launches_pipe = dict(kernels.LAUNCHES)
+    for name in ("tsdf_fuse", "tsdf_color_fuse", "edt_pass1", "edt_pass",
+                 "marching_cubes"):
+        if launches_pipe[name] <= 0:
+            fail(f"kernel {name} was not launched on the pipeline path")
+    pending_pipe = int(pm.mesh_pending.sum())
+    pm.check_slot_bucket()
+    pipe_dev_ms, pipe_wall = device_ms(
+        lambda: pm.replay_frames(depths_r, poses_r, camera, **pipe_kw))
+    # Marginals as bench.py:229-235 defines them: the replay with every
+    # frame meshed, or every frame colored, minus the TSDF-only replay;
+    # host wall (median of 3) and device time.
+    t_plain = [p_replay() for _ in range(3)]
+    t_mesh = [p_replay(**mesh_kw) for _ in range(3)]
+    pending_mesh1 = int(pm.mesh_pending.sum())
+    t_color = [p_replay(**color_kw) for _ in range(3)]
+    pm.check_slot_bucket()
+    plain_dev_ms, _ = device_ms(lambda: pm.replay_frames(depths_r, poses_r,
+                                                         camera))
+    evs, _ = trace(lambda: pm.replay_frames(depths_r, poses_r, camera,
+                                            **mesh_kw), 1)
+    mesh_dev_ms = sum(us for _, us in evs) / 1e3
+    mesh_top = top_kernels(evs, n_steps)
+    color_dev_ms, _ = device_ms(lambda: pm.replay_frames(
+        depths_r, poses_r, camera, **color_kw))
+    pm.check_slot_bucket()
+    overflow_p = int(pm.state.overflow_count)
+
+    def per_frame(ts):
+        return float(np.median(ts)) / n_steps * 1e3
+
+    pipe = {"phase": "pipeline", "frames": n_steps, "esdf_every": 4,
+            "mesh_every": 8, "color_every": 8, "slot_bucket": slot_bucket,
+            "esdf_region_origin": [int(v) for v in p_region[0]],
+            "esdf_region_dims_blocks": list(p_region[1]),
+            "pipeline_ms_per_frame": per_frame(t_pipe),
+            "pipeline_device_ms_per_frame": pipe_dev_ms / n_steps,
+            "pipeline_device_idle_share": 1 - pipe_dev_ms / 1e3 / pipe_wall,
+            "replay_s_pipeline": t_pipe,
+            "tsdf_ms_per_frame": per_frame(t_plain),
+            "tsdf_device_ms_per_frame": plain_dev_ms / n_steps,
+            "mesh_ms_marginal": per_frame(t_mesh) - per_frame(t_plain),
+            "mesh_device_ms_marginal": (mesh_dev_ms - plain_dev_ms) / n_steps,
+            "color_ms_marginal": per_frame(t_color) - per_frame(t_plain),
+            "color_device_ms_marginal": (color_dev_ms - plain_dev_ms)
+            / n_steps,
+            "mesh_every_1_top_per_frame": mesh_top,
+            "mesh_pending_after_pipeline": pending_pipe,
+            "mesh_pending_after_mesh_every_1": pending_mesh1,
+            "allocated_blocks": pm.block_count(), "overflow_count": overflow_p,
+            "launches": launches_pipe, "nvidia_smi": smi}
+    emit(pipe)
+    if overflow_p != 0:
+        fail(f"pipeline overflow_count {overflow_p} != 0")
+    if pending_mesh1 != 0:
+        fail(f"mesh_pending holds {pending_mesh1} blocks after the "
+             "mesh_every=1 replay")
+    if not bool((pm.channels["color_weight"] > 0).any()):
+        fail("the pipeline painted no voxel")
+
+    # ---- color frames with an unaligned occlusion depth ------------------
+    half = depths_r[:, ::2, ::2].contiguous()
+    color_frames = list(range(7, n_steps, 8))
+    pm.integrate_color(colors_r[7], poses_r[7], camera, depth=half[7])
+
+    def color_pass():
+        for k in color_frames:
+            pm.integrate_color(colors_r[k], poses_r[k], camera,
+                               depth=half[k])
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    color_pass()
+    torch.cuda.synchronize()
+    t_cpass = time.perf_counter() - t0
+    launches_color = dict(kernels.LAUNCHES)
+    if launches_color["color_fuse"] <= 0:
+        fail("kernel color_fuse was not launched by integrate_color")
+    cpass_dev_ms, _ = device_ms(color_pass)
+    emit({"phase": "color_frames", "frames": len(color_frames),
+          "color": list(colors.shape[1:]), "occlusion_depth":
+          list(half.shape[1:]), "ms_per_frame": t_cpass * 1e3
+          / len(color_frames), "device_ms_per_frame": cpass_dev_ms
+          / len(color_frames), "launches": launches_color})
+
+    # ---- the new kernels against their plain versions --------------------
+    pch = pm.channels
+    names6 = ("tsdf_distance", "tsdf_weight", "color_r", "color_g", "color_b",
+              "color_weight")
+    kw = dict(camera=camera, voxel_size_m=voxel, params=params.projective)
+    cap = pm.capacity
+    H, W = depths.shape[1:]
+
+    # tsdf_color_fuse on frame 7's batch (a color-cadence frame).
+    st = wg.WorldGridState(**{k: v.clone() for k, v in vars(pm.state).items()})
+    grid, origin = view_ops.touched_block_grid(
+        depths_r[7], poses_r[7], camera=camera, voxel_size_m=voxel,
+        max_distance_m=5.0, truncation_m=trunc)
+    st, slots7, bidx7, _ = wg.allocate_and_batch(st, grid, origin,
+                                                 max_blocks=max_blocks)
+    base = [pch[k].clone() for k in names6]
+    rows_k = [b.clone() for b in base]
+    rows_p = [b.clone() for b in base]
+    args7 = (slots7, bidx7, depths_r[7], colors_r[7], poses_r[7])
+    integrate_tsdf_color_cuda(*rows_k, *args7, **kw)
+    integrate_tsdf_color(*rows_p, *args7, **kw)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(a, b) for a, b in zip(rows_k, rows_p))
+    err5 = max(float((a - b).abs().max()) for a, b in zip(rows_k, rows_p))
+    n_valid7 = int((slots7 < cap).sum())
+    n_view7 = in_view_voxels(slots7, bidx7, poses_r[7], camera, voxel, cap)
+    n_tsdf7 = int(changed(rows_p[:2], base[:2]).sum())
+    n_col7 = int(changed(rows_p[2:], base[2:]).sum())
+    ms5, how5 = kernel_ms(lambda: integrate_tsdf_color_cuda(
+        *rows_k, *args7, **kw), "tsdf_color_fuse_kernel")
+    plain5 = cuda_ms(lambda: integrate_tsdf_color(*rows_p, *args7, **kw))
+    plain5_dev = plain_device_ms(lambda: integrate_tsdf_color(
+        *rows_p, *args7, **kw))
+    # Each in-view voxel reads its distance and weight, an updated one
+    # writes them back, a colored one reads and writes four color rows;
+    # the depth (f32) and color (u8) images are read once.
+    b5, b5_by = bound_ms(n_view7 * 8 + n_tsdf7 * 8 + n_col7 * 32
+                         + H * W * (4 + 3) + slots7.numel() * 16,
+                         n_view7 * 40 + n_col7 * 20)
+    row5 = {"phase": "kernel_check", "name": "tsdf_color_fuse",
+            "batch_blocks": n_valid7, "in_view_voxels": n_view7,
+            "tsdf_updated_voxels": n_tsdf7, "colored_voxels": n_col7,
+            "bit_exact": exact, "max_abs_err": err5, "ms": ms5,
+            "ms_timing": how5, "plain_ms": plain5,
+            "plain_device_ms": plain5_dev, "bound_ms": b5, "bound_by": b5_by,
+            "launches": launches_pipe["tsdf_color_fuse"]}
+    emit(row5)
+    if not exact or n_col7 == 0:
+        fail(f"tsdf_color_fuse differs from its plain version: {row5}")
+    results.append({"name": "tsdf_color_fuse", "route": "cuda",
+                    "source": "isaac_ros_nvblox_tpu_torch/csrc/"
+                              "tsdf_color_fuse.cu",
+                    "replaces": "isaac_ros_nvblox_tpu/ops/"
+                                "tsdf_color_pallas.py:51",
+                    "launches": launches_pipe["tsdf_color_fuse"],
+                    "max_abs_err": err5, "ms": ms5, "plain_ms": plain5,
+                    "bound_ms": b5, "bound_by": b5_by, "library_ms": None})
+
+    # color_fuse on the color path's batch of frame 7.
+    grid, origin = view_ops.touched_block_grid(
+        torch.full((H, W), 5.0, device=dev), poses_r[7], camera=camera,
+        voxel_size_m=voxel, max_distance_m=5.0, truncation_m=trunc)
+    slots_c, bidx_c, _ = wg.view_batch(pm.state, grid, origin,
+                                       max_blocks=max_blocks)
+    base = [pch[k].clone() for k in names6[2:]]
+    rows_k = [b.clone() for b in base]
+    rows_p = [b.clone() for b in base]
+    args_c = (pch["tsdf_distance"], pch["tsdf_weight"], slots_c, bidx_c,
+              colors_r[7], half[7], poses_r[7])
+    integrate_color_cuda(*rows_k, *args_c, **kw)
+    integrate_color_planar(*rows_p, *args_c, **kw)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(a, b) for a, b in zip(rows_k, rows_p))
+    err6 = max(float((a - b).abs().max()) for a, b in zip(rows_k, rows_p))
+    n_valid_c = int((slots_c < cap).sum())
+    n_view_c = in_view_voxels(slots_c, bidx_c, poses_r[7], camera, voxel,
+                              cap)
+    n_col_c = int(changed(rows_p, base).sum())
+    ms6, how6 = kernel_ms(lambda: integrate_color_cuda(*rows_k, *args_c,
+                                                       **kw),
+                          "color_fuse_kernel")
+    plain6 = cuda_ms(lambda: integrate_color_planar(*rows_p, *args_c, **kw))
+    plain6_dev = plain_device_ms(lambda: integrate_color_planar(
+        *rows_p, *args_c, **kw))
+    # Each in-view voxel reads its distance and weight; a colored one reads
+    # and writes four color rows; the color (u8) and occlusion depth (f32)
+    # images are read once.
+    b6, b6_by = bound_ms(n_view_c * 8 + n_col_c * 32 + H * W * 3
+                         + half[7].numel() * 4 + slots_c.numel() * 16,
+                         n_view_c * 30 + n_col_c * 20)
+    row6 = {"phase": "kernel_check", "name": "color_fuse",
+            "batch_blocks": n_valid_c, "in_view_voxels": n_view_c,
+            "colored_voxels": n_col_c, "bit_exact": exact,
+            "max_abs_err": err6, "ms": ms6, "ms_timing": how6,
+            "plain_ms": plain6, "plain_device_ms": plain6_dev,
+            "bound_ms": b6, "bound_by": b6_by,
+            "launches": launches_color["color_fuse"]}
+    emit(row6)
+    if not exact or n_col_c == 0:
+        fail(f"color_fuse differs from its plain version: {row6}")
+    results.append({"name": "color_fuse", "route": "cuda",
+                    "source": "isaac_ros_nvblox_tpu_torch/csrc/color_fuse.cu",
+                    "replaces": "isaac_ros_nvblox_tpu/ops/color_pallas.py:42",
+                    "launches": launches_color["color_fuse"],
+                    "max_abs_err": err6, "ms": ms6, "plain_ms": plain6,
+                    "bound_ms": b6, "bound_by": b6_by, "library_ms": None})
+
+    # marching_cubes on the surface batch of the pipeline's first mesh step
+    # (every block dirty after the first 8 frames; the default budgets).
+    live = wg.live_slot_mask(pm.state)
+    nbr8, valid, *_ = _surface_batch(
+        pm.state, live, torch.zeros_like(live), pch["tsdf_distance"],
+        pch["tsdf_weight"], min_weight=float(params.mesh.min_weight),
+        max_blocks=2048, slot_bucket=slot_bucket)
+    crows = tuple(pch[k] for k in names6[2:5])
+    mc_args = (pch["tsdf_distance"], pch["tsdf_weight"], crows, nbr8, valid)
+    mc_kw = dict(min_weight=float(params.mesh.min_weight), with_color=True)
+    got = mc.marching_cubes_fused(*mc_args, **mc_kw)
+    want = mc.marching_cubes_plain(*mc_args, **mc_kw)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                for a, b in zip(got, want))
+    err4 = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, want))
+    n_surf = int(valid.sum())
+    n_tris = int(want[2][:, 0].float().sum())
+    ms4, how4 = kernel_ms(lambda: mc.marching_cubes_fused(*mc_args, **mc_kw),
+                          "marching_cubes_kernel")
+    plain4 = cuda_ms(lambda: mc.marching_cubes_plain(*mc_args, **mc_kw))
+    plain4_dev = plain_device_ms(lambda: mc.marching_cubes_plain(*mc_args,
+                                                                 **mc_kw))
+    # Outputs: bf16 verts and colors [N, 3, 16, 512] and table
+    # [N, 16, 512] (112 KB per batch row); inputs: the distinct halo rows
+    # of the surface blocks, five f32 channels of 2 KB each.
+    halo = nbr8[valid > 0]
+    n_rows = int(torch.unique(halo[halo >= 0]).numel())
+    n_out = nbr8.shape[0] * (2 * 3 * 16 * 512 * 2 + 16 * 512 * 2)
+    b4, b4_by = bound_ms(n_out + n_rows * 5 * 2048 + nbr8.numel() * 4,
+                         n_surf * 512 * (12 * 12 + 60))
+    row4 = {"phase": "kernel_check", "name": "marching_cubes",
+            "batch_blocks": int(nbr8.shape[0]), "surface_blocks": n_surf,
+            "halo_rows": n_rows, "triangles": n_tris, "bit_exact": exact,
+            "max_abs_err": err4, "ms": ms4, "ms_timing": how4,
+            "plain_ms": plain4, "plain_device_ms": plain4_dev,
+            "bound_ms": b4, "bound_by": b4_by,
+            "launches": launches_pipe["marching_cubes"]}
+    emit(row4)
+    if not exact or n_tris == 0:
+        fail(f"marching_cubes differs from its plain version: {row4}")
+    results.append({"name": "marching_cubes", "route": "cuda",
+                    "source": "isaac_ros_nvblox_tpu_torch/csrc/"
+                              "marching_cubes.cu",
+                    "replaces": "isaac_ros_nvblox_tpu/ops/mesh_pallas.py:78",
+                    "launches": launches_pipe["marching_cubes"],
+                    "max_abs_err": err4, "ms": ms4, "plain_ms": plain4,
+                    "bound_ms": b4, "bound_by": b4_by, "library_ms": None})
+    del pm, rows_k, rows_p, base, got, want
+    torch.cuda.empty_cache()
+
+    # ---- mesh accuracy: the benchmark's accuracy run ---------------------
+    acc_scene = cluttered_multi_room_scene()
+    acc_poses = torch.stack([torch.as_tensor(look_at_pose(
+        (cx + 1.6 * np.cos(2 * np.pi * k / 12), 1.4 * np.sin(2 * np.pi * k / 12),
+         1.3), (cx, 0.0, 1.2)), device=dev)
+        for cx in (-3.0, 3.0) for k in range(12)])
+    acc_depths = torch.stack([render_depth(acc_scene, camera, T, device=dev)
+                              for T in acc_poses])
+    am = DeviceMapper(
+        voxel_size_m=voxel, params=mesh_accuracy_params(7.0),
+        world=wg.WorldGridConfig(dims=(64, 64, 32), capacity=16384,
+                                 origin_block=(-32, -32, -8)),
+        enable_color=False, max_blocks_per_frame=4096, device=dev)
+    t0 = time.perf_counter()
+    am.replay_frames(acc_depths, acc_poses, camera)
+    acc = mesh_accuracy(am, acc_scene)
+    acc_s = time.perf_counter() - t0
+    acc_row = {"phase": "mesh_accuracy", "frames": int(acc_depths.shape[0]),
+               "allocated_blocks": am.block_count(),
+               "overflow_count": int(am.state.overflow_count),
+               "seconds": acc_s, **acc,
+               "limits": {"mesh_surface_err_m": MESH_ERR_LIMIT_M,
+                          "mesh_precision": MESH_PRECISION_MIN,
+                          "mesh_completeness": MESH_COMPLETENESS_MIN,
+                          "mesh_fscore": MESH_FSCORE_MIN}}
+    emit(acc_row)
+    if acc_row["overflow_count"] != 0:
+        fail("mesh accuracy run overflowed")
+    if not (acc["mesh_surface_err_m"] <= MESH_ERR_LIMIT_M
+            and acc["mesh_precision"] >= MESH_PRECISION_MIN
+            and acc["mesh_completeness"] >= MESH_COMPLETENESS_MIN
+            and acc["mesh_fscore"] >= MESH_FSCORE_MIN):
+        fail(f"mesh accuracy outside its limits: {acc_row}")
 
     emit({"kernels": results})
     print(smi, flush=True)

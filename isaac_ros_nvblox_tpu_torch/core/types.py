@@ -160,6 +160,21 @@ def set_rows_drop(dst, idx, values) -> torch.Tensor:
     return dst
 
 
+_CONSTANTS = {}
+
+
+def device_constant(array: np.ndarray, device) -> torch.Tensor:
+    """A module-level numpy constant as a tensor on `device`, copied there
+    once; later calls make no host->device copy (which would synchronize
+    the stream)."""
+    key = (id(array), torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = torch.as_tensor(array, device=device)
+        _CONSTANTS[key] = t
+    return t
+
+
 def device_ints(values, dtype, device) -> torch.Tensor:
     """A small integer tensor on `device` from host values, made of fill
     kernels: no host->device copy, which would synchronize the stream."""

@@ -24,10 +24,24 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from isaac_ros_nvblox_tpu_torch.core.types import resolve_device, set_rows_drop
+from isaac_ros_nvblox_tpu_torch.core.types import (device_constant,
+                                                   resolve_device,
+                                                   set_rows_drop)
 
 # block_index_of_slot value marking a freed (recyclable) slot.
 FREED_BLOCK_SENTINEL = 1 << 20
+
+# The 27-neighbourhood order of the reference's core/block_pool.py
+# (x-major, z-fastest; entry 13 is the block itself).
+NEIGHBOR_OFFSETS: np.ndarray = np.array(
+    [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1)
+     for dz in (-1, 0, 1)], dtype=np.int32)
+
+# Self + the 7 positive-octant directions, in the mesh kernel's order
+# (ops/mesh_cuda.py NEIGHBOR_COLS gives their NEIGHBOR_OFFSETS columns).
+OCTANT_OFFSETS: np.ndarray = np.array(
+    [(0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 0), (1, 0, 1),
+     (0, 1, 1), (1, 1, 1)], dtype=np.int32)
 
 _I32 = torch.int32
 
@@ -183,3 +197,92 @@ def allocate_and_batch(state: WorldGridState, mask_grid, mask_origin_block,
         overflow_count=state.overflow_count + n_overflow,
         free_count=state.free_count - n_reused)
     return state, slots, bidx, n_sel
+
+
+def _in_grid(cells, dims) -> torch.Tensor:
+    """bool[...]: cells `i32[..., 3]` lie inside a grid of shape `dims`
+    (compared axis by axis with Python ints: no host->device copy)."""
+    ok = (cells[..., 0] >= 0) & (cells[..., 0] < dims[0])
+    for a in (1, 2):
+        ok = ok & (cells[..., a] >= 0) & (cells[..., a] < dims[a])
+    return ok
+
+
+def _slots_at(state: WorldGridState, cells) -> torch.Tensor:
+    """slot_grid at cells `i32[..., 3]`; out-of-grid cells give -1."""
+    D = state.slot_grid.shape
+    safe = [cells[..., a].clamp(0, D[a] - 1).long() for a in range(3)]
+    slots = state.slot_grid[safe[0], safe[1], safe[2]]
+    return torch.where(_in_grid(cells, D), slots, torch.full_like(slots, -1))
+
+
+@torch.no_grad()
+def view_batch(state: WorldGridState, mask_grid, mask_origin_block, *,
+               max_blocks: int):
+    """Compact the touched, allocated cells into a static-size batch (no
+    allocation).
+
+    Returns (slots i32[max_blocks], block_indices i32[max_blocks, 3],
+    n_valid i32[]), in ascending mask order. Padding entries carry
+    slot == capacity and block index 0.
+    """
+    cap = state.block_index_of_slot.shape[0]
+    dev = mask_grid.device
+    G = mask_grid.shape[0]
+    r = torch.arange(G, dtype=_I32, device=dev)
+    world = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1) \
+        + (mask_origin_block - state.origin_block)
+    cells = world.reshape(-1, 3)
+    slot = _slots_at(state, cells)
+    good = mask_grid.reshape(-1) & (slot >= 0)
+    M = good.shape[0]
+    big = 2 ** 30
+    keys = torch.where(good, torch.arange(M, dtype=_I32, device=dev),
+                       torch.full((), big, dtype=_I32, device=dev))
+    keys = torch.sort(keys).values[:max_blocks]
+    if keys.shape[0] < max_blocks:
+        keys = torch.cat([keys, torch.full((max_blocks - keys.shape[0],), big,
+                                           dtype=_I32, device=dev)])
+    idx = torch.where(keys < big, keys, M - 1).long()
+    n_valid = good.sum(dtype=_I32)
+    lane = torch.arange(max_blocks, device=dev) < n_valid
+    slots = torch.where(lane, slot[idx], torch.full((), cap, dtype=_I32,
+                                                     device=dev))
+    bidx = torch.where(lane[:, None], cells[idx] + state.origin_block,
+                       torch.zeros((), dtype=_I32, device=dev))
+    return slots, bidx, n_valid
+
+
+def neighbor_slots_of(state: WorldGridState, block_indices) -> torch.Tensor:
+    """Neighbour slot rows `i32[N, 27]` for world block indices `i32[N, 3]`,
+    in NEIGHBOR_OFFSETS order; out-of-world neighbours and unallocated
+    cells give -1."""
+    offs = device_constant(NEIGHBOR_OFFSETS, block_indices.device)
+    cells = (block_indices - state.origin_block)[:, None, :] + offs[None]
+    return _slots_at(state, cells)
+
+
+def neighbor_slots8_of(state: WorldGridState, block_indices) -> torch.Tensor:
+    """Self + positive-octant neighbour slots `i32[N, 8]` (OCTANT_OFFSETS
+    order); out-of-world neighbours and unallocated cells give -1."""
+    offs = device_constant(OCTANT_OFFSETS, block_indices.device)
+    cells = (block_indices - state.origin_block)[:, None, :] + offs[None]
+    return _slots_at(state, cells)
+
+
+def allocated_batch_range(state: WorldGridState, start: int, *,
+                          max_blocks: int):
+    """Allocated slots [start, start + max_blocks) as a static-size batch:
+    (slots i32[max_blocks], block_indices i32[max_blocks, 3], n i32[]).
+    Slots at or beyond alloc_count carry slot == capacity, block index 0."""
+    cap = state.block_index_of_slot.shape[0]
+    dev = state.alloc_count.device
+    slots = start + torch.arange(max_blocks, dtype=_I32, device=dev)
+    valid = slots < state.alloc_count
+    bidx = torch.where(valid[:, None],
+                       state.block_index_of_slot[slots.clamp_max(cap - 1)
+                                                 .long()],
+                       torch.zeros((), dtype=_I32, device=dev))
+    n = (state.alloc_count - start).clamp(0, max_blocks)
+    return (torch.where(valid, slots, torch.full((), cap, dtype=_I32,
+                                                  device=dev)), bidx, n)

@@ -1,0 +1,246 @@
+// Projection, nearest sampling, weighting and the TSDF and color updates
+// shared by the projective kernels (tsdf_fuse.cu, color_fuse.cu,
+// tsdf_color_fuse.cu).
+//
+// Each kernel runs one CTA per batch entry (a 512-voxel block) and one
+// thread per voxel, lane v = lx*64 + ly*8 + lz. The arithmetic repeats the
+// plain PyTorch versions step for step (ops/tsdf.py, ops/color.py), whose
+// float32 roundings follow the reference's XLA path (core/types.py): every
+// source that includes this header is built with -fmad=false, and the one
+// contraction the plain versions perform, fma_emul, is spelled out here in
+// the same float64 form, so kernels and plain versions agree bit for bit.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace proj {
+
+enum Mode {
+  CONSTANT = 0,
+  CONSTANT_DROPOFF = 1,
+  INVERSE_SQUARE = 2,
+  INVERSE_SQUARE_DROPOFF = 3,
+  INVERSE_SQUARE_TSDF_DISTANCE_PENALTY = 4,
+  LINEAR_WITH_MAX = 5,
+};
+
+// The float32 constants of ops/tsdf.py::tsdf_scalars, in that order.
+constexpr int N_SCALARS = 12;
+
+struct Params {
+  float fx, fy, cx, cy;
+  float u_max, v_max;       // width - 1, height - 1
+  float voxel;              // voxel size (m)
+  float trunc;              // truncation (m)
+  float max_dist;           // max integration distance (m)
+  float max_weight;
+  float r_drop, r_pen;      // float32 reciprocals of the weight denominators
+  int H, W, cap;
+};
+
+inline Params make_params(const float* s, int H, int W, int cap) {
+  Params p;
+  p.fx = s[0];
+  p.fy = s[1];
+  p.cx = s[2];
+  p.cy = s[3];
+  p.u_max = s[4];
+  p.v_max = s[5];
+  p.voxel = s[6];
+  p.trunc = s[7];
+  p.max_dist = s[8];
+  p.max_weight = s[9];
+  p.r_drop = s[10];
+  p.r_pen = s[11];
+  p.H = H;
+  p.W = W;
+  p.cap = cap;
+  return p;
+}
+
+// a*b + c with one rounding to float32 (the product is exact in float64).
+__device__ __forceinline__ float fma_emul(float a, float b, float c) {
+  return (float)((double)a * (double)b + (double)c);
+}
+
+__device__ __forceinline__ float clamp01(float x) {
+  return fminf(fmaxf(x, 0.0f), 1.0f);
+}
+
+// ops/tsdf.py::compute_weight for the voxel's camera depth z and its
+// unclamped projective distance sdf.
+template <int MODE>
+__device__ __forceinline__ float weight_of(float z, float sdf,
+                                           const Params& p) {
+  if (MODE == CONSTANT) return 1.0f;
+  if (MODE == LINEAR_WITH_MAX) return fminf(1.0f, 1.0f / fmaxf(z, 1e-4f));
+  const float dropoff = clamp01((p.trunc + sdf) * p.r_drop);
+  if (MODE == CONSTANT_DROPOFF) return dropoff;
+  const float inv_sq = 1.0f / fmaxf(z * z, 1e-4f);
+  if (MODE == INVERSE_SQUARE) return inv_sq;
+  if (MODE == INVERSE_SQUARE_DROPOFF) return inv_sq * dropoff;
+  // INVERSE_SQUARE_TSDF_DISTANCE_PENALTY
+  return inv_sq * clamp01(fma_emul(-fabsf(sdf), p.r_pen, 1.0f));
+}
+
+// A voxel center projected into the camera.
+struct Pixel {
+  float z;        // camera-frame depth
+  float u, v;     // pixel coordinates
+  bool in_view;   // z > 0 and the pixel center inside the image
+};
+
+// Voxel `lane` of block `b` (block index bidx[3b..3b+2]) seen from the
+// camera at T_L_C (f32[4, 4], row-major): T_C_L = inverse(T_L_C) as R^T
+// and -R^T t, then p_C = R^T x + t', each accumulated as the plain version
+// (core/types.py Transform) does, then the pinhole projection.
+__device__ __forceinline__ Pixel project_voxel(const int* __restrict__ bidx,
+                                               int b, int lane,
+                                               const float* __restrict__ T_L_C,
+                                               const Params& p) {
+  const int lx = lane >> 6, ly = (lane >> 3) & 7, lz = lane & 7;
+  const float x = ((float)(bidx[3 * b + 0] * 8 + lx) + 0.5f) * p.voxel;
+  const float y = ((float)(bidx[3 * b + 1] * 8 + ly) + 0.5f) * p.voxel;
+  const float z = ((float)(bidx[3 * b + 2] * 8 + lz) + 0.5f) * p.voxel;
+  float R[9], t[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) R[3 * i + j] = __ldg(T_L_C + 4 * i + j);
+    t[i] = __ldg(T_L_C + 4 * i + 3);
+  }
+  float pc[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    float ti = t[0] * -R[r];
+    ti = fma_emul(t[1], -R[3 + r], ti);
+    ti = fma_emul(t[2], -R[6 + r], ti);
+    float s = x * R[r];
+    s = fma_emul(y, R[3 + r], s);
+    s = fma_emul(z, R[6 + r], s);
+    pc[r] = s + ti;
+  }
+  Pixel px;
+  px.z = pc[2];
+  const bool zpos = px.z > 1e-6f;
+  const float zs = zpos ? px.z : 1.0f;
+  px.u = p.fx * pc[0] / zs + p.cx;
+  px.v = p.fy * pc[1] / zs + p.cy;
+  px.in_view = zpos && px.u >= 0.0f && px.u <= p.u_max && px.v >= 0.0f &&
+               px.v <= p.v_max;
+  return px;
+}
+
+// Nearest pixel index along one axis: round half to even, clamped to
+// [0, n - 1] (models/camera.py::sample_image_nearest).
+__device__ __forceinline__ int nearest(float x, int n) {
+  return min(max(__float2int_rn(x), 0), n - 1);
+}
+
+// Pixel (row vi, column ui) of an interleaved H x W x 3 image as float.
+template <typename CT>
+__device__ __forceinline__ float rgb_at(const CT* __restrict__ img, int W,
+                                        int vi, int ui, int ch) {
+  return (float)__ldg(img + ((size_t)vi * W + ui) * 3 + ch);
+}
+
+// Whether a depth sample updates the voxel's TSDF (ops/tsdf.py
+// integrate_tsdf's `update`, given in_view); sets the projective distance.
+__device__ __forceinline__ bool tsdf_updates(float measured, float z,
+                                             const Params& p, float* sdf) {
+  if (!(measured > 0.0f) || !isfinite(measured)) return false;
+  *sdf = measured - z;
+  return (z <= p.max_dist) && (*sdf >= -p.trunc);
+}
+
+// The TSDF running average (ops/tsdf.py::fuse) of one updated voxel, in
+// place: the distance folds in min(sdf, truncation), the weight is capped.
+template <int MODE>
+__device__ __forceinline__ void tsdf_fuse_voxel(float z, float sdf, float& d,
+                                                float& w, const Params& p) {
+  const float w_new = weight_of<MODE>(z, sdf, p);
+  const float sdf_c = fminf(sdf, p.trunc);
+  const float w_sum = w + w_new;
+  d = w_sum > 1e-6f ? fma_emul(d, w, sdf_c * w_new) / fmaxf(w_sum, 1e-6f) : d;
+  w = fminf(w_sum, p.max_weight);
+}
+
+// Whether a voxel takes color (ops/color.py::_fuse_color's `update`, given
+// in_view): observed near the surface, in range, and not occluded by the
+// depth sample when occlusion is checked.
+__device__ __forceinline__ bool color_updates(float d, float w, float z,
+                                              bool check_occlusion,
+                                              float measured,
+                                              const Params& p) {
+  const bool near = (w > 1e-6f) && (fabsf(d) <= p.trunc) && (z <= p.max_dist);
+  return near && (!check_occlusion ||
+                  ((measured > 0.0f) && (z <= measured + p.trunc)));
+}
+
+// Running average of one color channel (ops/color.py::_fuse_color):
+// blend_ok ? (c_old*w_old + rgb*w_new) * inv : c_old, with XLA's
+// contraction of the sum of products.
+__device__ __forceinline__ float blend(float c_old, float w_old, float rgb,
+                                       float w_new, float inv, bool blend_ok) {
+  return blend_ok ? fma_emul(c_old, w_old, rgb * w_new) * inv : c_old;
+}
+
+// The color update of one voxel at pool offset `off` (ops/color.py::
+// _fuse_color, given that the voxel takes color): weight compute_weight at
+// sdf = 0, running average of r, g, b from pixel (vi, ui) of the H x W x 3
+// image, weight capped at max_weight.
+template <int MODE, typename CT>
+__device__ __forceinline__ void color_fuse_voxel(
+    float* __restrict__ cr, float* __restrict__ cg, float* __restrict__ cb,
+    float* __restrict__ cw, size_t off, const CT* __restrict__ color, int vi,
+    int ui, float z, const Params& p) {
+  const float w_new = weight_of<MODE>(z, 0.0f, p);
+  const float w_old = cw[off];
+  const float w_sum = w_old + w_new;
+  const float inv = 1.0f / fmaxf(w_sum, 1e-6f);
+  const bool ok = w_sum > 1e-6f;
+  cr[off] = blend(cr[off], w_old, rgb_at(color, p.W, vi, ui, 0), w_new, inv,
+                  ok);
+  cg[off] = blend(cg[off], w_old, rgb_at(color, p.W, vi, ui, 1), w_new, inv,
+                  ok);
+  cb[off] = blend(cb[off], w_old, rgb_at(color, p.W, vi, ui, 2), w_new, inv,
+                  ok);
+  cw[off] = fminf(w_sum, p.max_weight);
+}
+
+}  // namespace proj
+
+// Expands to a switch over the six weighting modes that runs STMT with the
+// compile-time constant M set to the mode; unknown modes return
+// cudaErrorInvalidValue from the enclosing function.
+#define PROJ_DISPATCH_MODE(mode, M, ...)                                     \
+  switch (mode) {                                                            \
+    case proj::CONSTANT: {                                                   \
+      constexpr int M = proj::CONSTANT;                                      \
+      __VA_ARGS__;                                                           \
+    } break;                                                                 \
+    case proj::CONSTANT_DROPOFF: {                                           \
+      constexpr int M = proj::CONSTANT_DROPOFF;                              \
+      __VA_ARGS__;                                                           \
+    } break;                                                                 \
+    case proj::INVERSE_SQUARE: {                                             \
+      constexpr int M = proj::INVERSE_SQUARE;                                \
+      __VA_ARGS__;                                                           \
+    } break;                                                                 \
+    case proj::INVERSE_SQUARE_DROPOFF: {                                     \
+      constexpr int M = proj::INVERSE_SQUARE_DROPOFF;                        \
+      __VA_ARGS__;                                                           \
+    } break;                                                                 \
+    case proj::INVERSE_SQUARE_TSDF_DISTANCE_PENALTY: {                       \
+      constexpr int M = proj::INVERSE_SQUARE_TSDF_DISTANCE_PENALTY;          \
+      __VA_ARGS__;                                                           \
+    } break;                                                                 \
+    case proj::LINEAR_WITH_MAX: {                                            \
+      constexpr int M = proj::LINEAR_WITH_MAX;                               \
+      __VA_ARGS__;                                                           \
+    } break;                                                                 \
+    default:                                                                 \
+      return (int)cudaErrorInvalidValue;                                     \
+  }

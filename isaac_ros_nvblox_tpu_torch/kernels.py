@@ -32,17 +32,25 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-# Per-source extra flags. tsdf_fuse repeats the plain version's float32
-# roundings, so nvcc must not contract a*b+c on its own.
-EXTRA_FLAGS = {"tsdf_fuse": ["-fmad=false"]}
+# Per-source extra flags. These kernels repeat their plain versions'
+# float32 roundings, so nvcc must not contract a*b+c on its own.
+EXTRA_FLAGS = {name: ["-fmad=false"] for name in
+               ("tsdf_fuse", "color_fuse", "tsdf_color_fuse",
+                "marching_cubes")}
+# Headers a source includes (part of its build hash).
+HEADERS = {name: ["projective.cuh"] for name in
+           ("tsdf_fuse", "color_fuse", "tsdf_color_fuse")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_FP = ctypes.POINTER(ctypes.c_float)
+_PP = ctypes.POINTER(ctypes.c_void_p)
 # C entry points of each library: name -> (argtypes, restype).
 SIGNATURES = {
     "tsdf_fuse": {
-        "tsdf_fuse": ([_P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_float),
-                       _I, _I, _I, _I, _I, _P], _I),
+        "tsdf_fuse": ([_P, _P, _P, _P, _P, _P, _FP, _I, _I, _I, _I, _I, _P],
+                      _I),
         "tsdf_fuse_error_string": ([_I], ctypes.c_char_p),
     },
     "edt": {
@@ -50,9 +58,26 @@ SIGNATURES = {
         "edt_lines_per_cta": ([_I], _I),
         "edt_error_string": ([_I], ctypes.c_char_p),
     },
+    "color_fuse": {
+        "color_fuse": ([_PP, _P, _P, _P, _P, _P, _I, _P, _P, _P, _FP, _I, _I,
+                        _I, _I, _I, _I, _F, _I, _P], _I),
+        "color_fuse_error_string": ([_I], ctypes.c_char_p),
+    },
+    "tsdf_color_fuse": {
+        "tsdf_color_fuse": ([_PP, _P, _P, _P, _P, _I, _P, _FP, _I, _I, _I, _I,
+                             _I, _P], _I),
+        "tsdf_color_fuse_error_string": ([_I], ctypes.c_char_p),
+    },
+    "marching_cubes": {
+        "marching_cubes": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                            _I, _F, _I, _P], _I),
+        "marching_cubes_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
-LAUNCHES: Dict[str, int] = {"tsdf_fuse": 0, "edt_pass1": 0, "edt_pass": 0}
+LAUNCHES: Dict[str, int] = {"tsdf_fuse": 0, "edt_pass1": 0, "edt_pass": 0,
+                            "color_fuse": 0, "tsdf_color_fuse": 0,
+                            "marching_cubes": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -78,9 +103,9 @@ def _flags(name: str):
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes()
-                       + " ".join(_flags(name)).encode()).hexdigest()[:16]
+    text = b"".join((CSRC / f).read_bytes()
+                    for f in [f"{name}.cu", *HEADERS.get(name, [])])
+    h = hashlib.sha256(text + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
@@ -137,6 +162,24 @@ def check(name: str, err: int, what: str) -> None:
     if err != 0:
         msg = getattr(library(name), f"{name}_error_string")(err)
         raise RuntimeError(f"{what}: CUDA error {err} ({msg.decode()})")
+
+
+def check_tensors(what: str, device, specs) -> None:
+    """Raise unless every (name, tensor, dtypes) lies on `device`, has one
+    of `dtypes` and is contiguous."""
+    for name, t, dtypes in specs:
+        if t.device != device:
+            raise ValueError(f"{what}: {name} on {t.device}, not {device}")
+        if t.dtype not in dtypes:
+            raise ValueError(f"{what}: {name} must be one of {dtypes}, "
+                             f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def pointer_array(tensors):
+    """A C array of the tensors' device pointers."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def stream_handle(tensor) -> int:

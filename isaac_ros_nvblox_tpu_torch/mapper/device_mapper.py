@@ -1,14 +1,24 @@
-"""DeviceMapper: the device-resident depth -> TSDF -> ESDF path
-(port of isaac_ros_nvblox_tpu/mapper/device_mapper.py, TSDF layer with
-ESDF; color, mesh and freespace come in later slices).
+"""DeviceMapper: the device-resident depth -> TSDF (+ color) -> ESDF / mesh
+path (port of isaac_ros_nvblox_tpu/mapper/device_mapper.py, TSDF layer with
+color, mesh and ESDF; occupancy, lidar, decay and freespace come in later
+slices).
 
     integrate_depth:  touched-grid -> allocate -> view batch -> TSDF fusion
                       (kernel tsdf_fuse) -> dirty bits; no host sync
+    integrate_color:  color-frustum view batch (no allocation) -> color
+                      fusion (kernel color_fuse) -> mesh-dirty bits
     update_esdf:      exact banded separable EDT (kernels edt_pass1,
                       edt_pass) over the allocated AABB, or over the dirty
                       AABB + band, spliced into the ESDF channels
-    replay_frames:    the offline loop over N frames with ESDF updates at
-                      a fixed cadence over a fixed region
+    update_mesh_dirty_device:
+                      dirty blocks + their -1-side neighbours -> surface
+                      crossing subset -> marching cubes (kernel
+                      marching_cubes) -> slot-indexed soup
+    export_mesh:      full-map marching cubes -> welded host mesh
+    replay_frames:    the offline loop over N frames: TSDF every frame, TSDF
+                      + color in one pass (kernel tsdf_color_fuse) every
+                      `color_every`, ESDF every `esdf_every` and mesh every
+                      `mesh_every` frames
 
 State lives on the mapper's device as tensors: the WorldGrid allocator and
 the pool channels `f32/bool[cap, 512]`, which every step updates in place
@@ -19,13 +29,15 @@ arrive as device tensors.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
 from isaac_ros_nvblox_tpu_torch.core.types import (VOXELS_PER_BLOCK,
+                                                   VOXELS_PER_SIDE,
+                                                   device_constant,
                                                    device_ints,
                                                    resolve_device,
                                                    set_rows_drop)
@@ -33,8 +45,20 @@ from isaac_ros_nvblox_tpu_torch.mapper.params import MapperParams
 from isaac_ros_nvblox_tpu_torch.models.camera import Camera
 from isaac_ros_nvblox_tpu_torch.ops import esdf as esdf_ops
 from isaac_ros_nvblox_tpu_torch.ops import view as view_ops
+from isaac_ros_nvblox_tpu_torch.ops.color_cuda import integrate_color_cuda
 from isaac_ros_nvblox_tpu_torch.ops.esdf_dense import esdf_from_sites_dense
+from isaac_ros_nvblox_tpu_torch.ops.mesh import (MeshLayer,
+                                                 marching_cubes_blocks)
+from isaac_ros_nvblox_tpu_torch.ops.mesh_cuda import (marching_cubes_fused,
+                                                      resolve_edge_soup,
+                                                      surface_crossing)
+from isaac_ros_nvblox_tpu_torch.ops.tsdf_color_cuda import (
+    integrate_tsdf_color_cuda)
 from isaac_ros_nvblox_tpu_torch.ops.tsdf_cuda import integrate_tsdf_cuda
+
+B = VOXELS_PER_SIDE
+COLOR_CHANNELS = ("color_r", "color_g", "color_b", "color_weight")
+_BIG = 2 ** 30
 
 def _bucket(n: int, minimum: int = 256) -> int:
     """Batch bucket size: powers of two up to 2048, then 1024-steps."""
@@ -66,12 +90,16 @@ def _bucket_blocks_coarse(n: int) -> int:
 def _integrate_frame(state, distance, weight, dirty, esdf_dirty, depth,
                      T_L_C, mask=None, *, camera: Camera, voxel_size_m: float,
                      params, max_blocks: int, mask_mode: int = 0,
-                     view_params=None):
+                     view_params=None, color=None):
     """view grid -> allocate -> view batch -> TSDF fuse -> dirty bits.
 
     Updates the pool channels and dirty flags in place and returns the new
     allocator state. mask_mode: 0 = no mask, 1 = integrate unmasked pixels
-    (background), 2 = integrate masked pixels (foreground).
+    (background), 2 = integrate masked pixels (foreground). `color` =
+    (aligned color image, (r, g, b, weight) channels) fuses the color frame
+    on the same batch in the same pass (kernel tsdf_color_fuse); the
+    reference's color integrator takes its blocks from the depth frame the
+    same way (nvblox_node.cpp:1260-1265).
     """
     if mask_mode == 1:
         depth = torch.where(mask > 0, torch.zeros_like(depth), depth)
@@ -86,12 +114,196 @@ def _integrate_frame(state, distance, weight, dirty, esdf_dirty, depth,
             grid, origin, voxel_size_m=voxel_size_m, params=view_params)
     state, slots, bidx, _ = wg.allocate_and_batch(
         state, grid, origin, max_blocks=max_blocks)
-    integrate_tsdf_cuda(distance, weight, slots, bidx, depth, T_L_C,
-                        camera=camera, voxel_size_m=voxel_size_m,
-                        params=params)
+    if color is None:
+        integrate_tsdf_cuda(distance, weight, slots, bidx, depth, T_L_C,
+                            camera=camera, voxel_size_m=voxel_size_m,
+                            params=params)
+    else:
+        image, chans = color
+        integrate_tsdf_color_cuda(distance, weight, *chans, slots, bidx,
+                                  depth, image, T_L_C, camera=camera,
+                                  voxel_size_m=voxel_size_m, params=params)
     set_rows_drop(dirty, slots, True)
     set_rows_drop(esdf_dirty, slots, True)
     return state
+
+
+@torch.no_grad()
+def _integrate_color_frame(chans, dirty, tsdf_distance, tsdf_weight, state,
+                           color_image, depth, T_L_C, *, camera: Camera,
+                           voxel_size_m: float, params, max_blocks: int):
+    """color view batch -> color fusion (kernel color_fuse) -> mesh-dirty.
+
+    The batch is the allocated blocks in the color frustum (no
+    allocation): a max-distance pseudo-depth covers the whole view."""
+    grid, origin = view_ops.touched_block_grid(
+        torch.full((camera.height, camera.width),
+                   params.max_integration_distance_m, device=dirty.device),
+        T_L_C, camera=camera, voxel_size_m=voxel_size_m,
+        max_distance_m=params.max_integration_distance_m,
+        truncation_m=params.truncation_m(voxel_size_m))
+    slots, bidx, _ = wg.view_batch(state, grid, origin,
+                                   max_blocks=max_blocks)
+    integrate_color_cuda(*chans, tsdf_distance, tsdf_weight, slots, bidx,
+                         color_image, depth, T_L_C, camera=camera,
+                         voxel_size_m=voxel_size_m, params=params)
+    set_rows_drop(dirty, slots, True)
+
+
+def _mark(n: int, idx, keep) -> torch.Tensor:
+    """bool[n], True at idx where keep (a drop-scatter without a sync)."""
+    out = torch.zeros((n + 1,), dtype=torch.bool, device=idx.device)
+    i = torch.where(keep, idx, n).long()
+    # A tensor value: a Python scalar here is copied from the host.
+    out.index_put_((i,), torch.ones_like(i, dtype=torch.bool))
+    return out[:n]
+
+
+def _smallest(keys, n_out: int) -> torch.Tensor:
+    """The `n_out` smallest of `keys` in ascending order, _BIG-padded (a
+    radix sort: on the card far cheaper than a top-k of this size)."""
+    keys = torch.sort(keys).values[:n_out]
+    if keys.shape[0] < n_out:
+        keys = torch.cat([keys, torch.full((n_out - keys.shape[0],), _BIG,
+                                           dtype=keys.dtype,
+                                           device=keys.device)])
+    return keys
+
+
+def _first_ids(mask, n_out: int) -> torch.Tensor:
+    """The first `n_out` indices where `mask` (ascending), _BIG-padded."""
+    ids = torch.arange(mask.shape[0], dtype=torch.int32, device=mask.device)
+    return _smallest(torch.where(mask, ids, _BIG), n_out)
+
+
+@torch.no_grad()
+def _compact_dirty_impl(state, dirty, *, max_blocks: int, extra=None):
+    """Dirty slots plus their -1-side neighbours as a static-size batch
+    (slots i32[max_blocks], block indices i32[max_blocks, 3]); padding
+    carries slot == capacity and block index 0.
+
+    A cube re-meshes when any block of its positive octant changed, so each
+    dirty cell contributes itself minus every {0,1}^3 offset; candidates
+    outside the world grid drop (they do not wrap). `extra` (bool[cap])
+    slots join without that expansion (the mesh path's pending backlog).
+    Candidates are deduplicated and kept in ascending cell order.
+    """
+    cap = dirty.shape[0]
+    dims_t = state.slot_grid.shape
+    dev = dirty.device
+    live = torch.arange(cap, device=dev) < state.alloc_count
+
+    def cells_of(mask):
+        keys = _first_ids(mask, max_blocks)
+        ok = keys < _BIG
+        cells = (state.block_index_of_slot[torch.where(ok, keys, 0).long()]
+                 - state.origin_block)
+        return cells, ok & wg._in_grid(cells, dims_t)
+
+    cells_d, ok_d = cells_of(dirty & live)
+    offs = device_constant(wg.OCTANT_OFFSETS, dev)
+    cand = [(cells_d[None] - offs[:, None]).reshape(-1, 3)]
+    cand_ok = [ok_d.repeat(8)]
+    if extra is not None:
+        cells_e, ok_e = cells_of(extra & live & ~dirty)
+        cand.append(cells_e)
+        cand_ok.append(ok_e)
+    cand = torch.cat(cand)
+    okc = torch.cat(cand_ok) & wg._in_grid(cand, dims_t)
+    lin = (cand[:, 0] * dims_t[1] + cand[:, 1]) * dims_t[2] + cand[:, 2]
+    lin = torch.where(okc, lin, 0)
+    alloc_ok = state.slot_grid.reshape(-1)[lin.long()] >= 0
+    keys_sorted = torch.sort(torch.where(okc & alloc_ok, lin, _BIG)).values
+    first = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
+                       keys_sorted[1:] != keys_sorted[:-1]]) \
+        & (keys_sorted < _BIG)
+    ckeys = _smallest(torch.where(first, keys_sorted, _BIG), max_blocks)
+    n = first.sum(dtype=torch.int32)
+    lane = torch.arange(max_blocks, device=dev) < torch.clamp_max(n,
+                                                                  max_blocks)
+    cidx = torch.where(lane & (ckeys < _BIG), ckeys, 0)
+    cell = torch.stack([cidx // (dims_t[1] * dims_t[2]),
+                        (cidx // dims_t[2]) % dims_t[1], cidx % dims_t[2]], -1)
+    slot = state.slot_grid[cell[:, 0].long(), cell[:, 1].long(),
+                           cell[:, 2].long()]
+    slots = torch.where(lane & (slot >= 0), slot, cap)
+    bidx = torch.where((lane & (slots < cap))[:, None],
+                       cell + state.origin_block, 0)
+    return slots, bidx
+
+
+@torch.no_grad()
+def _surface_batch(state, dirty, pending, tsdf_distance, tsdf_weight, *,
+                   min_weight: float, max_blocks: int,
+                   max_surface_blocks: int = 0, slot_bucket: int = 0):
+    """The mesh step's batches: compact dirty -> surface-crossing subset.
+
+    The dirty + neighbour batch (max_blocks) feeds only the cheap crossing
+    test; the kernel runs on a second compaction of just the crossing blocks
+    (max_surface_blocks, default max(max_blocks // 4, 256)), dirty rows
+    first. Crossing rows beyond that budget go to `pending` and rejoin the
+    next batch without neighbour expansion. `slot_bucket` restricts the
+    crossing test's per-slot sign summaries to the pool prefix (exact while
+    allocation stays inside it; check_slot_bucket() verifies).
+
+    Returns (surf_nbr8 i32[ms, 8], surf_valid i32[ms], surf_bidx,
+    surf_slots, clear_bidx i32[max_blocks, 3], clear_rows bool[max_blocks],
+    new_dirty, new_pending): `clear_*` lists batched blocks with no surface
+    crossing, whose mesh-layer entries are stale."""
+    cap = tsdf_distance.shape[0]
+    dev = dirty.device
+    ms = min(max_surface_blocks or max(max_blocks // 4, 256), max_blocks)
+    slots, bidx = _compact_dirty_impl(state, dirty, max_blocks=max_blocks,
+                                      extra=pending)
+    nbr8 = wg.neighbor_slots8_of(state, bidx)
+    in_batch = slots < cap
+    sb = slot_bucket if 0 < slot_bucket < cap else cap
+    crossing = in_batch & surface_crossing(
+        tsdf_distance[:sb], tsdf_weight[:sb], nbr8, min_weight=min_weight)
+
+    # Crossing rows -> surface batch, dirty rows first.
+    rows = torch.arange(max_blocks, dtype=torch.int32, device=dev)
+    row_dirty = in_batch & dirty[slots.clamp(0, cap - 1).long()]
+    prio = rows + torch.where(row_dirty, 0, max_blocks)
+    keys2 = _smallest(torch.where(crossing, prio, _BIG), ms)
+    rowsel = torch.where(keys2 < _BIG, torch.remainder(keys2, max_blocks),
+                         0).long()
+    n_cross = crossing.sum(dtype=torch.int32)
+    lane2 = torch.arange(ms, device=dev) < torch.clamp_max(n_cross, ms)
+    surf_slots = torch.where(lane2, slots[rowsel], cap)
+    surf_bidx = torch.where(lane2[:, None], bidx[rowsel], 0)
+    surf_nbr8 = torch.where(lane2[:, None], nbr8[rowsel], -1)
+
+    # Every batched slot's dirty bit clears (its mesh work is done now or
+    # recorded in pending); crossing rows the budget skipped become
+    # pending.
+    selected = _mark(max_blocks, rowsel, lane2)
+    overflow = crossing & ~selected
+    batched_bits = _mark(cap, slots, in_batch)
+    overflow_bits = _mark(cap, slots, overflow)
+    new_dirty = dirty & ~batched_bits
+    new_pending = (pending & ~batched_bits) | overflow_bits
+    clear_rows = in_batch & ~crossing
+    return (surf_nbr8, (surf_slots < cap).to(torch.int32), surf_bidx,
+            surf_slots, bidx, clear_rows, new_dirty, new_pending)
+
+
+@torch.no_grad()
+def _mesh_dirty_fused(state, dirty, pending, tsdf_distance, tsdf_weight,
+                      color_rows, *, min_weight: float, max_blocks: int,
+                      with_color: bool, max_surface_blocks: int = 0,
+                      slot_bucket: int = 0):
+    """`_surface_batch` -> marching cubes (kernel marching_cubes, halo read
+    in place). Returns (verts_e, colors_e | None, table, surf_bidx,
+    surf_slots, clear_bidx, clear_rows, new_dirty, new_pending)."""
+    nbr8, valid, *rest = _surface_batch(
+        state, dirty, pending, tsdf_distance, tsdf_weight,
+        min_weight=min_weight, max_blocks=max_blocks,
+        max_surface_blocks=max_surface_blocks, slot_bucket=slot_bucket)
+    verts_e, colors_e, table = marching_cubes_fused(
+        tsdf_distance, tsdf_weight, color_rows, nbr8, valid,
+        min_weight=min_weight, with_color=with_color)
+    return (verts_e, colors_e, table, *rest)
 
 
 def _esdf_stats(state, esdf_dirty):
@@ -132,6 +344,7 @@ class DeviceMapper:
     def __init__(self, voxel_size_m: float,
                  params: Optional[MapperParams] = None,
                  world: Optional[wg.WorldGridConfig] = None,
+                 enable_color: bool = True,
                  max_blocks_per_frame: int = 4096,
                  device=None):
         self.device = resolve_device(device)
@@ -151,8 +364,19 @@ class DeviceMapper:
             "esdf_is_inside": torch.zeros(shape, dtype=torch.bool, device=dev),
             "esdf_observed": torch.zeros(shape, dtype=torch.bool, device=dev),
         }
+        if enable_color:
+            # Planar r/g/b (0-255) and weight: the mesh kernel reads each
+            # channel's pool rows directly.
+            for name in COLOR_CHANNELS:
+                self.channels[name] = torch.zeros(shape, device=dev)
         self.dirty = torch.zeros((cap,), dtype=torch.bool, device=dev)
         self.esdf_dirty = torch.zeros((cap,), dtype=torch.bool, device=dev)
+        # Crossing blocks the mesh surface budget skipped (re-mesh backlog).
+        self.mesh_pending = torch.zeros((cap,), dtype=torch.bool, device=dev)
+        # (block indices, rows) of batched blocks with no surface crossing
+        # since the last take_mesh_clear_keys().
+        self._mesh_clear_pending = []
+        self.mesh_layer = MeshLayer(self.voxel_size_m, self.params.mesh)
         # True once a full-AABB ESDF solve has run (incremental updates are
         # only exact relative to a previous full solve).
         self._esdf_has_full = False
@@ -213,6 +437,41 @@ class DeviceMapper:
             voxel_size_m=self.voxel_size_m, params=self.params.projective,
             max_blocks=self.max_blocks_per_frame, mask_mode=mm,
             view_params=self._view_bounds())
+
+    @property
+    def color_enabled(self) -> bool:
+        return "color_r" in self.channels
+
+    def _color_channels(self):
+        return tuple(self.channels[k] for k in COLOR_CHANNELS)
+
+    def integrate_color(self, color_image, T_L_C, camera: Camera,
+                        depth=None) -> None:
+        """Fuse one color frame `u8/f32[H, W, 3]` into the colors of the
+        allocated blocks in its frustum (no allocation; kernel color_fuse);
+        the step makes no host sync. `depth` (`f32[Hd, Wd]`, optional) is
+        the occlusion depth, sampled at uv * Hd / H; without it no voxel is
+        occluded. A mapper without color channels ignores the frame."""
+        if not self.color_enabled:
+            return
+        T_L_C = self._tensor(T_L_C, torch.float32)
+        color_image = self._image(color_image)
+        depth = (torch.zeros((1, 1), device=self.device) if depth is None
+                 else self._tensor(depth, torch.float32))
+        _integrate_color_frame(
+            self._color_channels(), self.dirty,
+            self.channels["tsdf_distance"], self.channels["tsdf_weight"],
+            self.state, color_image, depth, T_L_C, camera=camera,
+            voxel_size_m=self.voxel_size_m, params=self.params.projective,
+            max_blocks=self.max_blocks_per_frame)
+
+    def _image(self, image) -> torch.Tensor:
+        """A color image (or a stack of them) on the device, u8 kept u8."""
+        if not isinstance(image, torch.Tensor):
+            image = torch.from_numpy(np.ascontiguousarray(image))
+        if image.dtype != torch.uint8:
+            image = image.to(torch.float32)
+        return image.to(self.device)
 
     # ----------------------------------------------------------- region AABB
     def _world_bounds(self):
@@ -336,27 +595,41 @@ class DeviceMapper:
     def replay_frames(self, depths, T_L_Cs, camera: Camera, *,
                       esdf_every: int = 0, mesh_every: int = 0,
                       colors=None, color_every: int = 0,
-                      esdf_region=None, slot_bucket: int = 0) -> None:
-        """Replay N depth frames (the offline / benchmarking loop).
+                      esdf_region=None, mesh_max_blocks: int = 2048,
+                      mesh_surface_blocks: int = 0,
+                      slot_bucket: int = 0) -> None:
+        """Replay N depth frames (the offline / benchmarking loop), step for
+        step as the reference's replay scan.
 
-        Every frame is integrated; every `esdf_every` frames the ESDF is
+        Every frame is integrated. With `colors` (`u8/f32[N, H, W, 3]`),
+        every `color_every`-th frame also fuses its color frame: in the same
+        pass over the depth frame's batch (kernel tsdf_color_fuse) when the
+        color and depth frames are aligned, otherwise over the color
+        frustum's batch after the TSDF step (kernel color_fuse, the depth
+        frame as occlusion depth). Every `esdf_every` frames the ESDF is
         re-solved over a fixed region, `esdf_region=(origin_blocks,
-        dims_blocks)` or by default the current AABB + margin. The loop
-        makes no host sync once `depths` and `T_L_Cs` are on the device.
-        Mesh and color cadences belong to later slices and raise here.
+        dims_blocks)` or by default the current AABB + margin. Every
+        `mesh_every` frames the dirty blocks are meshed
+        (`_mesh_dirty_fused` with `mesh_max_blocks` /
+        `mesh_surface_blocks`); the soup is dropped, the dirty and pending
+        bookkeeping kept. The loop makes no host sync once the frames are
+        on the device.
 
         `slot_bucket` (optional) restricts the ESDF's pool-shaped stages
-        (site extraction, seeding, gather, channel writes) to the pool
-        prefix `[:slot_bucket]`. Allocation is prefix-dense (recycling
-        keeps the high-water mark), so this is exact while the replay's
-        final `alloc_count` stays within the bucket; `check_slot_bucket()`
-        verifies that after the replay (one readback, outside any timing).
+        (site extraction, seeding, gather, channel writes) and the mesh
+        step's sign summaries to the pool prefix `[:slot_bucket]`.
+        Allocation is prefix-dense (recycling keeps the high-water mark),
+        so this is exact while the replay's final `alloc_count` stays
+        within the bucket; `check_slot_bucket()` verifies that after the
+        replay (one readback, outside any timing).
         """
-        if mesh_every or color_every or colors is not None:
-            raise NotImplementedError(
-                "replay_frames: mesh and color cadences are not ported yet")
         depths = self._tensor(depths, torch.float32)
         T_L_Cs = self._tensor(T_L_Cs, torch.float32)
+        run_color = (color_every > 0 and colors is not None
+                     and self.color_enabled)
+        if run_color:
+            colors = self._image(colors)
+            fuse_color = tuple(colors.shape[1:3]) == tuple(depths.shape[1:3])
         run_esdf = esdf_every > 0
         if run_esdf:
             origin, dims = (self.esdf_region() if esdf_region is None
@@ -365,13 +638,25 @@ class DeviceMapper:
             origin_t = device_ints(origin, torch.int32, self.device)
         ch = self.channels
         sb = slot_bucket if 0 < slot_bucket < self.capacity else self.capacity
+        color_rows = (self._color_channels()[:3] if self.color_enabled
+                      else None)
         for k in range(depths.shape[0]):
+            color_now = run_color and (k + 1) % color_every == 0
             self.state = _integrate_frame(
                 self.state, ch["tsdf_distance"], ch["tsdf_weight"],
                 self.dirty, self.esdf_dirty, depths[k], T_L_Cs[k],
                 camera=camera, voxel_size_m=self.voxel_size_m,
                 params=self.params.projective,
-                max_blocks=self.max_blocks_per_frame)
+                max_blocks=self.max_blocks_per_frame,
+                color=((colors[k], self._color_channels())
+                       if color_now and fuse_color else None))
+            if color_now and not fuse_color:
+                _integrate_color_frame(
+                    self._color_channels(), self.dirty, ch["tsdf_distance"],
+                    ch["tsdf_weight"], self.state, colors[k], depths[k],
+                    T_L_Cs[k], camera=camera, voxel_size_m=self.voxel_size_m,
+                    params=self.params.projective,
+                    max_blocks=self.max_blocks_per_frame)
             if run_esdf and (k + 1) % esdf_every == 0:
                 sq, ins, obs = _esdf_solve(
                     self.state, ch["tsdf_distance"][:sb],
@@ -382,7 +667,17 @@ class DeviceMapper:
                 ch["esdf_is_inside"][:sb].copy_(ins)
                 ch["esdf_observed"][:sb].copy_(obs)
                 self.esdf_dirty.zero_()
-        if run_esdf and sb < self.capacity:
+            if mesh_every > 0 and (k + 1) % mesh_every == 0:
+                out = _mesh_dirty_fused(
+                    self.state, self.dirty, self.mesh_pending,
+                    ch["tsdf_distance"], ch["tsdf_weight"], color_rows,
+                    min_weight=float(self.params.mesh.min_weight),
+                    max_blocks=int(mesh_max_blocks),
+                    with_color=self.color_enabled,
+                    max_surface_blocks=int(mesh_surface_blocks),
+                    slot_bucket=sb)
+                self.dirty, self.mesh_pending = out[-2], out[-1]
+        if sb < self.capacity:
             prev = self._slot_bucket_pending
             self._slot_bucket_pending = min(prev, sb) if prev else sb
         # Fold the replayed extent into the host-tracked region. Poses are
@@ -411,12 +706,105 @@ class DeviceMapper:
                 "results for slots beyond the bucket are stale")
         self._slot_bucket_pending = 0
 
+    # ----------------------------------------------------------------- mesh
+    def update_mesh_dirty_device(self, max_blocks: int = 2048,
+                                 return_slots: bool = False):
+        """Incremental marching cubes over the dirty blocks (and their
+        -1-side neighbours, whose cubes read the changed voxels) plus the
+        pending backlog, through the marching_cubes kernel; no host sync.
+
+        Returns (verts bf16[Ns, 3, 16, 512] block-local voxel units with
+        SENTINEL in empty slots, colors bf16 | None, mask bool[Ns, 16, 512],
+        block indices i32[Ns, 3]) and, with `return_slots`, the slots.
+        `ops.mesh_cuda.local_to_world_verts` gives meters. Batched blocks
+        without a surface crossing are queued for take_mesh_clear_keys().
+        """
+        (verts_e, colors_e, table, bidx, slots, clear_bidx, clear_rows,
+         self.dirty, self.mesh_pending) = _mesh_dirty_fused(
+            self.state, self.dirty, self.mesh_pending,
+            self.channels["tsdf_distance"], self.channels["tsdf_weight"],
+            (self._color_channels()[:3] if self.color_enabled
+             else None),
+            min_weight=float(self.params.mesh.min_weight),
+            max_blocks=max_blocks, with_color=self.color_enabled)
+        # Slot -> edge resolution at this (publish) cadence.
+        verts, colors = resolve_edge_soup(verts_e, colors_e, table,
+                                          with_color=self.color_enabled)
+        self._mesh_clear_pending.append((clear_bidx, clear_rows))
+        mask = verts[:, 0] >= 0
+        if return_slots:
+            return verts, colors, mask, bidx, slots
+        return verts, colors, mask, bidx
+
+    def take_mesh_clear_keys(self) -> list:
+        """The block keys whose batch rows had no surface crossing in the
+        mesh updates since the last call (their mesh-layer entries are
+        stale); one small readback per queued update."""
+        pending, self._mesh_clear_pending = self._mesh_clear_pending, []
+        keys = []
+        for bidx, rows in pending:
+            bidx_np, rows_np = bidx.cpu().numpy(), rows.cpu().numpy()
+            keys.extend(tuple(int(v) for v in bidx_np[i])
+                        for i in np.nonzero(rows_np)[0])
+        return keys
+
+    def _mesh_chunk(self, slots, bidx):
+        """Full-map marching cubes (ops/mesh.py) for one block chunk."""
+        cap = self.capacity
+        nbrs = wg.neighbor_slots_of(self.state, bidx)
+        grid = (cap, B, B, B)
+        if self.color_enabled:
+            color_grid = torch.stack(self._color_channels()[:3],
+                                     dim=-1).reshape(grid + (3,))
+        else:
+            color_grid = torch.zeros(grid + (3,), device=self.device)
+        verts, colors, valid = marching_cubes_blocks(
+            self.channels["tsdf_distance"].reshape(grid),
+            self.channels["tsdf_weight"].reshape(grid), color_grid, nbrs,
+            bidx, voxel_size_m=self.voxel_size_m,
+            min_weight=float(self.params.mesh.min_weight))
+        return verts, colors, valid & (slots < cap)[:, None, None]
+
+    def update_mesh_device(self, chunk: int = 2048):
+        """Marching cubes over every allocated block (the cold full-map
+        path). Returns a generator of (verts, colors, valid, block indices)
+        per chunk of `chunk` slots, built lazily; the dirty and pending
+        bookkeeping is cleared at once (one scalar readback)."""
+        count = int(self.state.alloc_count)
+        self.dirty.zero_()
+        self.mesh_pending.zero_()
+        return self._mesh_chunks_lazy(count, chunk)
+
+    def _mesh_chunks_lazy(self, count: int, chunk: int):
+        for start in range(0, max(count, 1), chunk):
+            slots, bidx, _ = wg.allocated_batch_range(
+                self.state, start, max_blocks=min(chunk, self.capacity))
+            verts, colors, valid = self._mesh_chunk(slots, bidx)
+            yield verts, colors, valid, bidx
+
+    def export_mesh(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Full-map mesh to the host (cold path): welded (vertices f32[V, 3],
+        colors u8[V, 3], triangles i32[T, 3]) from the mesh layer."""
+        for verts, colors, valid, bidx in self.update_mesh_device():
+            verts, colors = verts.cpu().numpy(), colors.cpu().numpy()
+            valid, bidx_np = valid.cpu().numpy(), bidx.cpu().numpy()
+            for i in range(bidx_np.shape[0]):
+                m = valid[i].reshape(-1)
+                if not m.any():
+                    continue
+                self.mesh_layer.update_block(
+                    tuple(bidx_np[i]), verts[i].reshape(-1, 3, 3)[m],
+                    colors[i].reshape(-1, 3, 3)[m])
+        return self.mesh_layer.as_arrays()
+
     # ---------------------------------------------------------------- state
     def state_arrays(self) -> Dict[str, np.ndarray]:
         """The allocator state and the channels as numpy arrays, under the
-        reference DeviceMapper's names (WorldGridState fields + channels)."""
+        reference DeviceMapper's names (WorldGridState fields, channels and
+        mesh_pending)."""
         out = self.state.to_numpy()
         out.update({k: v.cpu().numpy() for k, v in self.channels.items()})
+        out["mesh_pending"] = self.mesh_pending.cpu().numpy()
         return out
 
     def load_state_arrays(self, arrays: Dict[str, np.ndarray]) -> None:
@@ -429,6 +817,9 @@ class DeviceMapper:
         for k, v in self.channels.items():
             if k in arrays:
                 v.copy_(torch.tensor(np.asarray(arrays[k]), dtype=v.dtype))
+        self.mesh_pending.copy_(torch.tensor(
+            np.asarray(arrays.get("mesh_pending", False)), dtype=torch.bool
+        ).expand_as(self.mesh_pending))
         self.dirty.zero_()
         self.esdf_dirty.zero_()
         self._aabb_lo = self._aabb_hi = None

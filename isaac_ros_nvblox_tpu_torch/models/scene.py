@@ -76,6 +76,32 @@ class Scene:
         return torch.amin(vals, dim=0)
 
 
+def cluttered_multi_room_scene() -> Scene:
+    """Two connected rooms with a doorway and furniture-scale clutter: a
+    13 x 8.8 x 3.6 m envelope split by a partition wall with a 1 m doorway,
+    with table, shelf, box and sphere clutter in both rooms (the mesh
+    accuracy scene of the benchmark)."""
+    wall_t = 0.1
+    return Scene(primitives=(
+        RoomBox(center=(0.0, 0.0, 1.8), half_extents=(6.5, 4.4, 1.8)),
+        # Partition wall at x = 0 with a doorway gap y in [-0.6, 0.4].
+        Box(center=(0.0, -2.5, 1.8), half_extents=(wall_t, 1.9, 1.8)),
+        Box(center=(0.0, 2.4, 1.8), half_extents=(wall_t, 2.0, 1.8)),
+        # Room A (x < 0): table (top + leg block), shelf, clutter.
+        Box(center=(-3.0, -1.2, 0.75), half_extents=(0.8, 0.5, 0.05)),
+        Box(center=(-3.0, -1.2, 0.35), half_extents=(0.6, 0.35, 0.35)),
+        Box(center=(-5.6, 1.5, 1.0), half_extents=(0.3, 1.0, 1.0)),
+        Sphere(center=(-1.8, 1.2, 0.4), radius=0.4),
+        Box(center=(-4.2, 2.4, 0.3), half_extents=(0.35, 0.3, 0.3)),
+        # Room B (x > 0): sofa-ish slab, cabinet, clutter spheres.
+        Box(center=(2.6, -2.4, 0.45), half_extents=(1.1, 0.5, 0.45)),
+        Box(center=(5.2, 0.8, 0.9), half_extents=(0.4, 0.8, 0.9)),
+        Sphere(center=(1.6, 1.6, 0.5), radius=0.5),
+        Sphere(center=(3.8, 1.0, 0.3), radius=0.3),
+        Box(center=(2.2, 2.8, 0.6), half_extents=(0.3, 0.3, 0.6)),
+    ))
+
+
 def default_test_scene() -> Scene:
     """A 10 x 8 x 3.5 m room with a sphere and a box obstacle."""
     return Scene(primitives=(
@@ -85,15 +111,10 @@ def default_test_scene() -> Scene:
     ))
 
 
-@torch.no_grad()
-def render_depth(scene: Scene, camera: Camera, T_L_C, *,
-                 max_depth: float = 10.0, num_steps: int = 96,
-                 device=None) -> torch.Tensor:
-    """Sphere-trace a z-depth image `f32[H, W]` of the scene.
-
-    Pixels that never hit a surface within `max_depth` get depth 0
-    (invalid), the sensor convention the integrators use.
-    """
+def _sphere_trace(scene: Scene, camera: Camera, T_L_C, max_depth: float,
+                  num_steps: int, device):
+    """Per pixel: (hit point f32[HW, 3], hit bool[HW], ray length f32[HW],
+    camera-frame ray f32[HW, 3])."""
     dev = resolve_device(device)
     T_L_C = torch.as_tensor(np.asarray(T_L_C, np.float32)
                             if not isinstance(T_L_C, torch.Tensor) else T_L_C,
@@ -111,10 +132,38 @@ def render_depth(scene: Scene, camera: Camera, T_L_C, *,
         # Stop advancing once within the hit tolerance.
         advance = torch.where(d > 1e-4, d, torch.zeros_like(d))
         t = torch.clamp_max(t + advance, max_depth * 2.0)
-    hit = (scene.sdf(point(t)) < 1e-3) & (t < max_depth)
+    p = point(t)
+    hit = (scene.sdf(p) < 1e-3) & (t < max_depth)
+    return p, hit, t, dirs_C
+
+
+@torch.no_grad()
+def render_depth(scene: Scene, camera: Camera, T_L_C, *,
+                 max_depth: float = 10.0, num_steps: int = 96,
+                 device=None) -> torch.Tensor:
+    """Sphere-trace a z-depth image `f32[H, W]` of the scene.
+
+    Pixels that never hit a surface within `max_depth` get depth 0
+    (invalid), the sensor convention the integrators use.
+    """
+    _, hit, t, dirs_C = _sphere_trace(scene, camera, T_L_C, max_depth,
+                                      num_steps, device)
     z = t * dirs_C[:, 2]
     depth = torch.where(hit, z, torch.zeros_like(z))
     return depth.reshape(camera.height, camera.width)
+
+
+@torch.no_grad()
+def render_color(scene: Scene, camera: Camera, T_L_C, *,
+                 max_depth: float = 10.0, num_steps: int = 96,
+                 device=None) -> torch.Tensor:
+    """Render `u8[H, W, 3]` colors: position-derived RGB
+    (`|p| * 64 mod 256` of the hit point), 0 where no surface is hit."""
+    p, hit, _, _ = _sphere_trace(scene, camera, T_L_C, max_depth, num_steps,
+                                 device)
+    rgb = torch.fmod(torch.abs(p) * 64.0, 256.0)   # exact, as jnp.mod for x >= 0
+    rgb = torch.where(hit[:, None], rgb, torch.zeros_like(rgb))
+    return rgb.to(torch.uint8).reshape(camera.height, camera.width, 3)
 
 
 def look_at_pose(eye, target) -> np.ndarray:

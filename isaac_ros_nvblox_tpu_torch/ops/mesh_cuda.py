@@ -1,0 +1,252 @@
+"""Marching cubes on the card: wrapper of the `marching_cubes` CUDA kernel
+(`csrc/marching_cubes.cu`), the port's counterpart of
+isaac_ros_nvblox_tpu/ops/mesh_pallas.py, with that module's tensor-op
+helpers.
+
+  * `surface_crossing`: which batch blocks can emit triangles at all.
+  * `marching_cubes_fused`: the kernel for CUDA tensors, its plain PyTorch
+    version `marching_cubes_plain` for CPU tensors. Per block: one
+    interpolated vertex (and color) per cube edge plus the per-cube table
+    (triangle count + 15 edge ids), bfloat16, block-local voxel units.
+  * `resolve_edge_soup`: per-edge planes + table -> the slot-indexed
+    triangle soup, at publish cadence.
+  * `local_to_world_verts`: block-local bf16 soup -> meters + mask.
+
+A build or launch failure raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from isaac_ros_nvblox_tpu_torch import kernels
+from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
+from isaac_ros_nvblox_tpu_torch.core.types import device_constant, fma
+from isaac_ros_nvblox_tpu_torch.ops.color_cuda import F32, I32
+from isaac_ros_nvblox_tpu_torch.ops.mesh_tables import (CORNERS, EDGES,
+                                                        MAX_TRIS_PER_CUBE,
+                                                        build_tables)
+
+V = 512
+K_SLOTS = MAX_TRIS_PER_CUBE * 3      # 15 triangle-vertex slots
+K_PAD = 16
+SENTINEL = -1.0
+
+# Columns of the OCTANT_OFFSETS directions in the 27-neighbourhood
+# (core/world_grid.NEIGHBOR_OFFSETS) order.
+NEIGHBOR_COLS = [int(np.flatnonzero((wg.NEIGHBOR_OFFSETS == d).all(1))[0])
+                 for d in wg.OCTANT_OFFSETS]
+
+
+@functools.lru_cache(maxsize=1)
+def table_rows() -> np.ndarray:
+    """i32[16, 256]: row 0 = triangle count per config, rows 1..15 = the
+    edge id of each triangle-vertex slot (-1 padded)."""
+    tri_table, tri_counts, _, _ = build_tables()
+    return np.concatenate([tri_counts[None, :], tri_table.T]).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=1)
+def kernel_lut() -> np.ndarray:
+    """The kernel's int8 table: per config the 16 entries of
+    `table_rows()`, then the 12 edges' first corners, then their second."""
+    ea = [e[0] for e in EDGES]
+    eb = [e[1] for e in EDGES]
+    return np.concatenate([table_rows().T.reshape(-1), ea, eb]).astype(np.int8)
+
+
+@functools.lru_cache(maxsize=1)
+def _corner_source() -> np.ndarray:
+    """i64[8, 512]: for cube corner c of the cube at lane v, the flat index
+    row * 512 + lane of its voxel among the 8 halo rows (OCTANT_OFFSETS
+    order): the block's own voxel, or the neighbour's the corner carries
+    into."""
+    lane = np.arange(V)
+    lx, ly, lz = lane // 64, (lane // 8) % 8, lane % 8
+    octant = {tuple(d): i for i, d in enumerate(wg.OCTANT_OFFSETS.tolist())}
+    out = np.zeros((8, V), np.int64)
+    for c, (cx, cy, cz) in enumerate(CORNERS.tolist()):
+        px, py, pz = lx + cx, ly + cy, lz + cz
+        row = np.asarray([octant[(a, b, d)] for a, b, d in
+                          zip(px >> 3, py >> 3, pz >> 3)])
+        out[c] = row * V + (px & 7) * 64 + (py & 7) * 8 + (pz & 7)
+    return out
+
+
+@torch.no_grad()
+def surface_crossing(tsdf_rows, weight_rows, nbr8, *, min_weight: float):
+    """bool[N]: the block's 8-row halo holds both a negative and a
+    non-negative TSDF value among voxels with weight >= min_weight, the
+    condition for marching cubes to emit any triangle. Per-slot sign
+    summaries, OR'd over each row's 8 neighbours."""
+    cap = tsdf_rows.shape[0]
+    w_ok = weight_rows >= float(np.float32(min_weight))
+    slot_neg = torch.any(w_ok & (tsdf_rows < 0.0), dim=1)
+    slot_pos = torch.any(w_ok & (tsdf_rows >= 0.0), dim=1)
+    packed = slot_neg.to(torch.int32) | (slot_pos.to(torch.int32) << 1)
+    bits = torch.where(nbr8 >= 0, packed[nbr8.clamp(0, cap - 1).long()], 0)
+    return torch.any((bits & 1) > 0, dim=1) & torch.any((bits & 2) > 0, dim=1)
+
+
+@torch.no_grad()
+def marching_cubes_plain(tsdf_rows, weight_rows, color_rows, nbr8, valid, *,
+                         min_weight: float, with_color: bool):
+    """Plain PyTorch version of the `marching_cubes` kernel; same contract
+    as `marching_cubes_fused`."""
+    dev = tsdf_rows.device
+    cap = tsdf_rows.shape[0]
+    N = nbr8.shape[0]
+    mw = float(np.float32(min_weight))
+    safe = nbr8.clamp(0, cap - 1).long()
+    present = (nbr8 >= 0)[..., None]
+    # An absent neighbour reads row 0's values with weight 0.
+    d_rows = tsdf_rows[safe]                                    # [N, 8, V]
+    w_rows = torch.where(present, weight_rows[safe], 0.0)
+    w_ok = w_rows >= mw
+    has_neg = torch.any((w_ok & (d_rows < 0.0)).reshape(N, -1), dim=1)
+    has_pos = torch.any((w_ok & (d_rows >= 0.0)).reshape(N, -1), dim=1)
+    live = ((valid != 0) & has_neg & has_pos)[:, None, None]
+
+    src = torch.as_tensor(_corner_source().reshape(-1), device=dev)
+
+    def corners(rows):
+        return rows.reshape(N, 8 * V)[:, src].reshape(N, 8, V)
+
+    cd, cw = corners(d_rows), corners(w_rows)
+    cube_ok = torch.amin(cw, dim=1) >= mw                        # [N, V]
+    config = torch.zeros((N, V), dtype=torch.int64, device=dev)
+    for c in range(8):
+        config |= (cd[:, c] < 0.0).to(torch.int64) << c
+    config = torch.where(cube_ok, config, 0)
+    tt = torch.as_tensor(table_rows(), device=dev)
+    table = tt[:, config].permute(1, 0, 2).to(torch.float32)   # [N, 16, V]
+    table[:, 0] = torch.where(cube_ok, table[:, 0], 0.0)
+
+    ea = torch.as_tensor([e[0] for e in EDGES], device=dev)
+    eb = torch.as_tensor([e[1] for e in EDGES], device=dev)
+    da, db = cd[:, ea], cd[:, eb]                                # [N, 12, V]
+    denom = da - db
+    t = torch.clamp(da / torch.where(torch.abs(denom) > 1e-12, denom,
+                                     torch.full_like(denom, 1e-12)), 0.0, 1.0)
+    corner_f = torch.as_tensor(CORNERS, dtype=torch.float32, device=dev)
+    pa, pb = corner_f[ea], corner_f[eb]                           # [12, 3]
+    lane = torch.arange(V, device=dev)
+    base = torch.stack([lane // 64, (lane // 8) % 8, lane % 8]).to(
+        torch.float32)                                            # [3, V]
+    sent = torch.full((N, K_PAD - 12, V), SENTINEL, device=dev)
+    zero = torch.zeros((N, K_PAD - 12, V), device=dev)
+    verts = torch.stack([torch.cat([
+        pa[:, k, None] + t * (pb - pa)[:, k, None] + base[k] + 0.5, sent], 1)
+        for k in range(3)], 1)                                    # [N,3,16,V]
+    verts = torch.where(live[:, None], verts, SENTINEL)
+    table = torch.where(live, table, 0.0)
+    colors_e = None
+    if with_color:
+        cols = []
+        for plane in color_rows:
+            cc = corners(plane[safe])
+            cols.append(torch.cat([fma(t, cc[:, eb] - cc[:, ea], cc[:, ea]),
+                                   zero], 1))
+        colors_e = torch.where(live[:, None], torch.stack(cols, 1), 0.0)
+        colors_e = colors_e.to(torch.bfloat16)
+    return verts.to(torch.bfloat16), colors_e, table.to(torch.bfloat16)
+
+
+@torch.no_grad()
+def marching_cubes_fused(tsdf_rows, weight_rows, color_rows, nbr8, valid, *,
+                         min_weight: float, with_color: bool
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                    torch.Tensor]:
+    """Marching cubes over pool rows with the +1 halo read in place.
+
+    Args:
+      tsdf_rows, weight_rows: `f32[cap, 512]` pool channels.
+      color_rows: (r, g, b) planar `f32[cap, 512]` channels, or None.
+      nbr8: `i32[N, 8]` slots of the block and its 7 positive-octant
+        neighbours (core/world_grid.OCTANT_OFFSETS order; -1 = absent).
+      valid: `i32[N]` (0 = padding block).
+
+    Returns:
+      verts_e: `bf16[N, 3, 16, 512]` block-local voxel coordinates of the
+        interpolated vertex on each cube edge (rows 0..11; rows 12..15
+        SENTINEL). Blocks that are padding or whose halo has no sign
+        crossing among voxels with weight >= min_weight are SENTINEL
+        throughout.
+      colors_e: `bf16[N, 3, 16, 512]` per-edge RGB (0-255), or None.
+      table: `bf16[N, 16, 512]` row 0 = triangle count, rows 1..15 = edge
+        id per triangle-vertex slot (all zero for such blocks).
+    """
+    if tsdf_rows.device.type == "cpu":
+        return marching_cubes_plain(tsdf_rows, weight_rows, color_rows, nbr8,
+                                    valid, min_weight=min_weight,
+                                    with_color=with_color)
+    what = "marching_cubes_fused"
+    dev = tsdf_rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    cap = tsdf_rows.shape[0]
+    N = nbr8.shape[0]
+    planes = tuple(color_rows) if with_color else ()
+    if (any(t.shape != (cap, 512) for t in (tsdf_rows, weight_rows) + planes)
+            or nbr8.shape != (N, 8) or valid.shape != (N,)
+            or len(planes) != (3 if with_color else 0)):
+        raise ValueError(f"{what}: channels f32[cap, 512], nbr8 i32[N, 8], "
+                         "valid i32[N], three color planes with color")
+    kernels.check_tensors(
+        what, dev, [("tsdf_rows", tsdf_rows, F32),
+                    ("weight_rows", weight_rows, F32), ("nbr8", nbr8, I32),
+                    ("valid", valid, I32)]
+        + [(f"color plane {i}", p, F32) for i, p in enumerate(planes)])
+    verts = torch.empty((N, 3, K_PAD, V), dtype=torch.bfloat16, device=dev)
+    colors = (torch.empty_like(verts) if with_color else None)
+    table = torch.empty((N, K_PAD, V), dtype=torch.bfloat16, device=dev)
+    ptrs = [p.data_ptr() for p in planes] or [None] * 3
+    lib = kernels.library("marching_cubes")
+    err = lib.marching_cubes(
+        tsdf_rows.data_ptr(), weight_rows.data_ptr(), *ptrs, nbr8.data_ptr(),
+        valid.data_ptr(), device_constant(kernel_lut(), dev).data_ptr(),
+        verts.data_ptr(),
+        colors.data_ptr() if with_color else None, table.data_ptr(), N, cap,
+        float(np.float32(min_weight)), int(with_color),
+        kernels.stream_handle(tsdf_rows))
+    kernels.LAUNCHES["marching_cubes"] += 1
+    kernels.check("marching_cubes", err, "marching_cubes launch")
+    return verts, colors, table
+
+
+@torch.no_grad()
+def resolve_edge_soup(verts_e, colors_e, table, *, with_color: bool = True):
+    """Per-edge vertex planes + table -> slot-indexed triangle soup
+    (verts bf16[N, 3, 16, 512], colors bf16 | None), SENTINEL / 0 marking
+    empty slots; slot s of a cube holds the vertex of edge table[1 + s]."""
+    N = table.shape[0]
+    n_tris = table[:, 0:1].to(torch.float32)                     # [N, 1, V]
+    edges = table[:, 1:K_PAD].to(torch.float32)                  # [N, 15, V]
+    slot_i = torch.arange(K_SLOTS, dtype=torch.float32,
+                          device=table.device)[None, :, None]
+    valid_s = ((slot_i < n_tris * 3.0) & (edges >= 0.0))[:, None]
+    idx = edges.clamp(0, 11).long()[:, None].expand(N, 3, K_SLOTS, V)
+
+    def soup(planes, empty):
+        got = torch.gather(planes[:, :, :12].to(torch.float32), 2, idx)
+        pad = torch.full((N, 3, K_PAD - K_SLOTS, V), empty,
+                         device=table.device)
+        return torch.cat([torch.where(valid_s, got, empty), pad],
+                         2).to(torch.bfloat16)
+
+    verts = soup(verts_e, SENTINEL)
+    return verts, (soup(colors_e, 0.0) if with_color else None)
+
+
+def local_to_world_verts(verts_local, block_indices, voxel_size_m: float):
+    """bf16 block-local soup `[N, 3, 16, 512]` -> (f32 meters of the same
+    shape, mask bool[N, 16, 512])."""
+    mask = verts_local[:, 0] >= 0.0
+    origin = block_indices.to(torch.float32) * 8.0
+    world = (verts_local.to(torch.float32)
+             + origin[:, :, None, None]) * voxel_size_m
+    return world, mask

@@ -8,6 +8,9 @@ scores hold chip_smoke.py's accuracy limits to what the reference itself
 reaches on this path. Run as a script to print the figures:
 
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_accuracy.py
+
+With `--mesh` it prints the reference's own mesh-accuracy figures at the
+benchmark's accuracy configuration instead (a few minutes on the CPU).
 """
 
 import json
@@ -175,7 +178,65 @@ def test_bench_scene_accuracy_matches_reference():
     assert tsdf_ref <= TSDF_MAE_LIMIT_M and esdf_ref <= ESDF_MAE_LIMIT_M
 
 
+MESH_WORLD = dict(dims=(64, 64, 32), capacity=16384,
+                  origin_block=(-32, -32, -8))
+
+
+def mesh_frames(camera, render):
+    """The benchmark's mesh-accuracy trajectory (bench.py:608-616): 12
+    views orbiting the centre of each of the two rooms. Returns (poses,
+    depths) as numpy arrays; `render(pose)` renders one depth image."""
+    poses = []
+    for room_cx in (-3.0, 3.0):
+        for k in range(12):
+            a = 2 * np.pi * k / 12
+            eye = (room_cx + 1.6 * np.cos(a), 1.4 * np.sin(a), 1.3)
+            poses.append(js.look_at_pose(eye, (room_cx, 0.0, 1.2)))
+    return poses, [np.asarray(render(T)) for T in poses]
+
+
+def mesh_reference():
+    """The reference package's own CPU run of the benchmark's mesh-accuracy
+    configuration (bench.py:582-619): the cluttered two-room scene, 24 VGA
+    frames, tsdf-distance-penalty weighting, 7 m integration, mesh
+    min_weight 0.02, 4096 blocks per frame; full-map marching cubes scored
+    by utils/metrics.py::mesh_accuracy. chip_smoke.py's mesh limits derive
+    from these figures."""
+    import dataclasses
+    from isaac_ros_nvblox_tpu.ops.tsdf import WeightingFunctionType as JW
+    from isaac_ros_nvblox_tpu.utils.metrics import mesh_accuracy
+    jcam = jc.Camera(**ARGS)
+    scene = js.cluttered_multi_room_scene()
+    params = JParams(projective=JTsdf(
+        max_integration_distance_m=7.0,
+        weighting_mode=JW.INVERSE_SQUARE_TSDF_DISTANCE_PENALTY))
+    params = dataclasses.replace(
+        params, mesh=dataclasses.replace(params.mesh, min_weight=0.02))
+    m = JMapper(VOXEL, params=params, world=jwg.WorldGridConfig(**MESH_WORLD),
+                enable_color=False, enable_esdf=False,
+                max_blocks_per_frame=4096)
+    poses, depths = mesh_frames(
+        jcam, lambda T: js.render_depth(scene, jcam, jnp.asarray(T)))
+    m.replay_frames(jnp.asarray(np.stack(depths)),
+                    jnp.asarray(np.stack(poses)), jcam)
+    acc = mesh_accuracy(m, scene)
+    return {k: acc[k] for k in ("mesh_surface_err_m", "mesh_precision",
+                                "mesh_completeness", "mesh_fscore",
+                                "mesh_vertices", "gt_surface_samples",
+                                "tau_m")} | {
+        "allocated_blocks": m.block_count(),
+        "overflow_count": int(m.state.overflow_count)}
+
+
 def main():
+    import sys
+    if "--mesh" in sys.argv:
+        print(json.dumps({
+            "config": "bench mesh accuracy: cluttered two-room scene, 24 "
+                      "640x480 frames, penalty weighting, min_weight 0.02",
+            "backend": jax.default_backend(),
+            "reference": mesh_reference()}))
+        return
     r = run()
     (tsdf_ref, esdf_ref), (tsdf_port, esdf_port) = r["ref"], r["port"]
     (tsdf_pal, esdf_pal), site_pal = pallas_scores(r)

@@ -19,12 +19,19 @@ from isaac_ros_nvblox_tpu_torch.mapper.device_mapper import DeviceMapper
 from isaac_ros_nvblox_tpu_torch.mapper.params import MapperParams
 from isaac_ros_nvblox_tpu_torch.models.camera import Camera
 from isaac_ros_nvblox_tpu_torch.models.scene import (default_test_scene,
-                                                     orbit_pose, render_depth)
+                                                     orbit_pose, render_color,
+                                                     render_depth)
 from isaac_ros_nvblox_tpu_torch.ops import esdf_dense as ed
+from isaac_ros_nvblox_tpu_torch.ops import mesh_cuda as mc
+from isaac_ros_nvblox_tpu_torch.ops.color import (integrate_color_planar,
+                                                  integrate_tsdf_color)
+from isaac_ros_nvblox_tpu_torch.ops.color_cuda import integrate_color_cuda
 from isaac_ros_nvblox_tpu_torch.ops.esdf import EsdfIntegratorParams
 from isaac_ros_nvblox_tpu_torch.ops.tsdf import (TsdfIntegratorParams,
                                                  WeightingFunctionType,
                                                  integrate_tsdf)
+from isaac_ros_nvblox_tpu_torch.ops.tsdf_color_cuda import (
+    integrate_tsdf_color_cuda)
 from isaac_ros_nvblox_tpu_torch.ops.tsdf_cuda import integrate_tsdf_cuda
 from isaac_ros_nvblox_tpu_torch.ops.view import (ViewCalculatorParams,
                                                  WorkspaceBoundsType)
@@ -101,6 +108,111 @@ def test_tsdf_fuse_padding_rows_untouched(dev):
     assert bool((d_k[100] == 7.0).all())
 
 
+def _color_setup(dev, seed=0, depth_shape=None, color_dtype=torch.uint8):
+    d0, w0, slots, bidx, depth, T = _tsdf_setup(dev, seed)
+    cap = d0.shape[0]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    chans = [(torch.rand(cap, 512, generator=g) * 255).to(dev)
+             for _ in range(3)] + [torch.rand(cap, 512, generator=g).to(dev)]
+    color = (torch.rand(CAM.height, CAM.width, 3, generator=g) * 255).to(
+        color_dtype).to(dev)
+    if depth_shape is not None:
+        depth = torch.nn.functional.interpolate(
+            torch.nan_to_num(depth)[None, None], size=depth_shape)[0, 0]
+    return d0, w0.clamp_min(0.5), chans, slots, bidx, depth, T, color
+
+
+@pytest.mark.parametrize("mode", list(WeightingFunctionType))
+@pytest.mark.parametrize("depth_kind", ["aligned", "half", "zero"])
+def test_color_fuse_matches_plain(dev, mode, depth_kind):
+    d0, w0, chans, slots, bidx, depth, T, color = _color_setup(
+        dev, depth_shape=(60, 80) if depth_kind == "half" else None,
+        color_dtype=torch.float32 if depth_kind == "zero" else torch.uint8)
+    if depth_kind == "zero":
+        depth = torch.zeros_like(depth)
+    kw = dict(camera=CAM, voxel_size_m=VOXEL,
+              params=TsdfIntegratorParams(weighting_mode=mode))
+    want = integrate_color_planar(*[c.clone() for c in chans], d0, w0, slots,
+                                  bidx, color, depth, T, **kw)
+    before = kernels.LAUNCHES["color_fuse"]
+    got = integrate_color_cuda(*[c.clone() for c in chans], d0, w0, slots,
+                               bidx, color, depth, T, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["color_fuse"] == before + 1
+    assert int((want[3] != chans[3]).sum()) > 500
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("mode", list(WeightingFunctionType))
+def test_tsdf_color_fuse_matches_plain_and_sequence(dev, mode):
+    d0, w0, chans, slots, bidx, depth, T, color = _color_setup(dev, 1)
+    kw = dict(camera=CAM, voxel_size_m=VOXEL,
+              params=TsdfIntegratorParams(weighting_mode=mode))
+    rows = [d0, w0] + chans
+    want = integrate_tsdf_color(*[r.clone() for r in rows], slots, bidx,
+                                depth, color, T, **kw)
+    before = kernels.LAUNCHES["tsdf_color_fuse"]
+    got = integrate_tsdf_color_cuda(*[r.clone() for r in rows], slots, bidx,
+                                    depth, color, T, **kw)
+    # tsdf_fuse then color_fuse on the same batch, bit for bit.
+    seq = [r.clone() for r in rows]
+    integrate_tsdf_cuda(seq[0], seq[1], slots, bidx, depth, T, **kw)
+    integrate_color_cuda(*seq[2:], seq[0], seq[1], slots, bidx, color, depth,
+                         T, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tsdf_color_fuse"] == before + 1
+    assert int((want[5] != chans[3]).sum()) > 500
+    for g, w, q in zip(got, want, seq):
+        assert torch.equal(g, w)
+        assert torch.equal(g, q)
+
+
+@pytest.mark.parametrize("with_color", [True, False])
+def test_marching_cubes_matches_plain(dev, with_color):
+    """Sphere SDF blocks with noisy weights, absent neighbours and padding
+    rows: all three bf16 outputs bit for bit."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    side = 4
+    r = torch.arange(side)
+    cells = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1).reshape(
+        -1, 3)
+    n = cells.shape[0]
+    cap = n + 4
+    lane = torch.arange(512)
+    local = torch.stack([lane // 64, (lane // 8) % 8, lane % 8], -1)
+    p = ((cells[:, None] * 8 + local[None]).float() + 0.5) * VOXEL
+    sdf = torch.linalg.norm(p - 0.8, dim=-1) - 0.55
+    d = torch.zeros(cap, 512)
+    d[:n] = sdf.clamp(-0.2, 0.2)
+    w = torch.zeros(cap, 512)
+    w[:n] = torch.where(torch.rand(n, 512, generator=g) < 0.05, 1e-5, 1.0)
+    cols = [torch.rand(cap, 512, generator=g) * 255 for _ in range(3)]
+    slot_of = {tuple(c): i for i, c in enumerate(cells.tolist())}
+    nbr8 = torch.tensor([[slot_of.get((c[0] + o[0], c[1] + o[1], c[2] + o[2]),
+                                      -1) for o in wg.OCTANT_OFFSETS.tolist()]
+                         for c in cells.tolist()], dtype=torch.int32)
+    nbr8[::7, 3] = -1
+    valid = torch.ones(n, dtype=torch.int32)
+    valid[::11] = 0
+    args = [t.to(dev) for t in (d, w)]
+    crows = tuple(c.to(dev) for c in cols) if with_color else None
+    kw = dict(min_weight=1e-4, with_color=with_color)
+    want = mc.marching_cubes_plain(*args, crows, nbr8.to(dev), valid.to(dev),
+                                   **kw)
+    before = kernels.LAUNCHES["marching_cubes"]
+    got = mc.marching_cubes_fused(*args, crows, nbr8.to(dev), valid.to(dev),
+                                  **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["marching_cubes"] == before + 1
+    assert float(want[2][:, 0].float().sum()) > 500
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+        else:
+            assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
 @pytest.mark.parametrize("shape", [(24, 16, 40), (8, 400, 16), (500, 8, 8),
                                    (16, 24, 1)])
 @pytest.mark.parametrize("band", [5, 17, 40])
@@ -164,9 +276,50 @@ def test_device_mapper_cuda_equals_cpu(dev):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
+def test_colored_mesh_slice_cuda_equals_cpu(dev):
+    """Replay at the benchmark's cadence on the card equals the plain path
+    on the CPU: TSDF, colors, ESDF, dirty and pending bits, and the mesh."""
+    scene = default_test_scene()
+    poses = np.stack([orbit_pose(2 * np.pi * k / 12, radius=1.8)
+                      for k in range(10)]).astype(np.float32)
+    depths = torch.stack([render_depth(scene, CAM, T, device="cpu")
+                          for T in poses])
+    colors = torch.stack([render_color(scene, CAM, T, device="cpu")
+                          for T in poses])
+    params = MapperParams(
+        projective=TsdfIntegratorParams(max_integration_distance_m=3.0),
+        esdf=EsdfIntegratorParams(max_esdf_distance_m=0.6))
+    cfg = wg.WorldGridConfig(dims=(48, 48, 24), capacity=4096,
+                             origin_block=(-24, -24, -6))
+    maps = [DeviceMapper(VOXEL, params=params, world=cfg,
+                         max_blocks_per_frame=1024, device=d)
+            for d in ("cpu", dev)]
+    outs = []
+    for m in maps:
+        m.replay_frames(depths, torch.from_numpy(poses), CAM,
+                        colors=colors, esdf_every=4, mesh_every=8,
+                        color_every=8, esdf_region=((-12, -12, -2),
+                                                    (24, 24, 10)),
+                        mesh_max_blocks=512, mesh_surface_blocks=32)
+        m.integrate_color(colors[3], poses[3], CAM, depth=depths[3, ::2, ::2])
+        mesh = m.update_mesh_dirty_device(max_blocks=512)
+        outs.append(([t.cpu() for t in mesh], m.state_arrays(),
+                     m.dirty.cpu().numpy(), m.take_mesh_clear_keys()))
+    (mesh_a, a, dirty_a, keys_a), (mesh_b, b, dirty_b, keys_b) = outs
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    np.testing.assert_array_equal(dirty_a, dirty_b)
+    assert keys_a == keys_b
+    for x, y in zip(mesh_a, mesh_b):
+        assert torch.equal(x, y)
+    assert a["mesh_pending"].any() and bool(mesh_a[2].any())
+
+
 def test_replay_makes_no_host_sync(dev):
-    """Frame steps and ESDF updates of a replay never wait on the device
-    (CUDA's sync debug mode turns any synchronizing call into an error)."""
+    """Frame steps at every cadence (TSDF, TSDF + color, color, ESDF,
+    mesh) and the mesh update never wait on the device (CUDA's sync debug
+    mode turns any synchronizing call into an error)."""
     scene = default_test_scene()
     poses = torch.stack([torch.as_tensor(orbit_pose(2 * np.pi * k / 8),
                                          device=dev) for k in range(4)])
@@ -180,7 +333,14 @@ def test_replay_makes_no_host_sync(dev):
                                               capacity=4096,
                                               origin_block=(-24, -24, -6)),
                      device=dev)
-    m.replay_frames(depths, poses, CAM)          # warm-up (kernel loads)
+    colors = torch.stack([render_color(scene, CAM, poses[k], device=dev)
+                          for k in range(4)])
+    cadence = dict(colors=colors, color_every=2, mesh_every=2,
+                   mesh_max_blocks=512, mesh_surface_blocks=64)
+    # Warm-up: kernel loads and the device tables' one-time copies.
+    m.replay_frames(depths, poses, CAM, **cadence)
+    m.integrate_color(colors[0], poses[0], CAM, depth=depths[0])
+    m.update_mesh_dirty_device(max_blocks=512)
     region = m.esdf_region(margin_blocks=0, mult=1)
     bounded = DeviceMapper(
         VOXEL, params=dataclasses.replace(params, view=ViewCalculatorParams(
@@ -196,7 +356,13 @@ def test_replay_makes_no_host_sync(dev):
     torch.cuda.set_sync_debug_mode("error")
     try:
         m.replay_frames(depths, poses, CAM, esdf_every=2, esdf_region=region)
+        m.replay_frames(depths, poses, CAM, esdf_every=2, esdf_region=region,
+                        slot_bucket=1024, **cadence)
         m.integrate_depth(depths[0], poses[0], CAM)
+        m.integrate_color(colors[1], poses[1], CAM, depth=depths[1])
+        m.integrate_color(colors[1], poses[1], CAM,
+                          depth=depths[1, ::2, ::2].contiguous())
+        mesh = m.update_mesh_dirty_device(max_blocks=512)
         bounded.integrate_depth(depths[1], poses[1], CAM, mask=mask,
                                 mask_mode=2)
     finally:
@@ -204,3 +370,5 @@ def test_replay_makes_no_host_sync(dev):
     torch.cuda.synchronize()
     assert int(m.state.overflow_count) == 0
     assert bool((m.channels["esdf_sq_dist"] < 1e11).any())
+    assert bool((m.channels["color_weight"] > 0).any())
+    assert mesh[0].shape[1:] == (3, 16, 512)

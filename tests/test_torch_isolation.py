@@ -21,7 +21,14 @@ from isaac_ros_nvblox_tpu_torch.models.scene import (default_test_scene,
 from isaac_ros_nvblox_tpu_torch.ops import esdf_dense as ed
 from isaac_ros_nvblox_tpu_torch.ops.tsdf import (TsdfIntegratorParams,
                                                  integrate_tsdf)
+from isaac_ros_nvblox_tpu_torch.ops.color import (integrate_color_planar,
+                                                  integrate_tsdf_color)
+from isaac_ros_nvblox_tpu_torch.ops.color_cuda import integrate_color_cuda
+from isaac_ros_nvblox_tpu_torch.ops.mesh_cuda import (marching_cubes_fused,
+                                                      marching_cubes_plain)
 from isaac_ros_nvblox_tpu_torch.ops.tsdf_cuda import integrate_tsdf_cuda
+from isaac_ros_nvblox_tpu_torch.ops.tsdf_color_cuda import (
+    integrate_tsdf_color_cuda)
 
 torch.set_num_threads(1)
 
@@ -94,8 +101,28 @@ def test_wrappers_take_plain_versions_on_cpu():
     g = torch.where(torch.rand(16, 24, 40) < 0.02, 0.0, float(ed.INF))
     assert torch.equal(ed.edt_pass1(g, 1, 6), ed.edt_pass1_plain(g, 1, 6))
     assert torch.equal(ed.edt_pass(g, 2, 6), ed.edt_pass_plain(g, 2, 6))
-    assert kernels.LAUNCHES == {"tsdf_fuse": 0, "edt_pass1": 0,
-                                "edt_pass": 0}
+    rows = [torch.rand(16, 512) for _ in range(6)]
+    color = torch.from_numpy(rng.randint(0, 256, (24, 32, 3)).astype(np.uint8))
+    a = integrate_color_cuda(*[r.clone() for r in rows[2:]], rows[0],
+                             rows[1] + 1, slots, bidx, color, depth, T, **kw)
+    b = integrate_color_planar(*[r.clone() for r in rows[2:]], rows[0],
+                               rows[1] + 1, slots, bidx, color, depth, T, **kw)
+    a += integrate_tsdf_color_cuda(*[r.clone() for r in rows], slots, bidx,
+                                   depth, color, T, **kw)
+    b += integrate_tsdf_color(*[r.clone() for r in rows], slots, bidx, depth,
+                              color, T, **kw)
+    nbr8 = torch.randint(-1, 16, (8, 8), dtype=torch.int32)
+    mc = dict(min_weight=0.1, with_color=True)
+    a += marching_cubes_fused(rows[0] - 0.5, rows[1], rows[2:5], nbr8, slots,
+                              **mc)
+    b += marching_cubes_plain(rows[0] - 0.5, rows[1], rows[2:5], nbr8, slots,
+                              **mc)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert set(kernels.LAUNCHES) == {"tsdf_fuse", "edt_pass1", "edt_pass",
+                                     "color_fuse", "tsdf_color_fuse",
+                                     "marching_cubes"}
+    assert not any(kernels.LAUNCHES.values())
 
 
 def test_chip_smoke_refuses_without_card(tmp_path):
@@ -125,3 +152,8 @@ def test_kernel_sources_and_build_flags():
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     assert kernels.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
     assert kernels.library_path("edt") != kernels.library_path("tsdf_fuse")
+    # A kernel's build hash covers the headers it includes.
+    for name, headers in kernels.HEADERS.items():
+        for h in headers:
+            assert (kernels.CSRC / h).exists()
+            assert f'#include "{h}"' in (kernels.CSRC / f"{name}.cu").read_text()

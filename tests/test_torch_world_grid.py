@@ -118,3 +118,38 @@ def test_random_masks_sequence(seed):
         grid = rng.rand(9, 9, 9) < 0.15
         origin = rng.randint(-9, 5, 3).astype(np.int32)
         j, t, _, _ = _step(j, t, grid, origin, 128)
+
+
+def test_neighbours_view_batch_and_ranges_match_reference():
+    """neighbor_slots_of / neighbor_slots8_of (world edges included),
+    view_batch and allocated_batch_range on a randomly allocated grid."""
+    rng = np.random.RandomState(7)
+    cfg = dict(dims=(12, 10, 8), capacity=400, origin_block=(-6, -5, -2))
+    j, t = _both(cfg)
+    for _ in range(3):
+        grid = rng.rand(9, 9, 9) < 0.3
+        origin = rng.randint(-9, 3, 3).astype(np.int32)
+        j, t, _, _ = _step(j, t, grid, origin, 256)
+    bidx = np.concatenate([
+        np.asarray(j.block_index_of_slot)[:int(j.alloc_count)],
+        [[-6, -5, -2], [5, 4, 5], [20, 0, 0]]]).astype(np.int32)
+    for jf, tf in ((jwg.neighbor_slots_of, twg.neighbor_slots_of),
+                   (jwg.neighbor_slots8_of, twg.neighbor_slots8_of)):
+        np.testing.assert_array_equal(
+            tf(t, torch.from_numpy(bidx)).numpy(),
+            np.asarray(jf(j, jnp.asarray(bidx))))
+    for trial in range(3):
+        grid = rng.rand(9, 9, 9) < 0.4
+        origin = rng.randint(-9, 3, 3).astype(np.int32)
+        for mb in (16, 128):
+            want = jwg.view_batch(j, jnp.asarray(grid), jnp.asarray(origin),
+                                  max_blocks=mb)
+            got = twg.view_batch(t, torch.from_numpy(grid),
+                                 torch.from_numpy(origin), max_blocks=mb)
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    for start in (0, 100, 390):
+        want = jwg.allocated_batch_range(j, start, max_blocks=64)
+        got = twg.allocated_batch_range(t, start, max_blocks=64)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
