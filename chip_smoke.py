@@ -17,6 +17,14 @@ voxels, a 64x64x32-block world with 16384 pool slots.
     (half-resolution) occlusion depth (kernel color_fuse).
   * mesh_accuracy: the benchmark's accuracy run (bench.py:582-619), the
     mesh scored against the cluttered two-room scene's analytic SDF.
+  * occupancy_frames: the static_occupancy mode on the main path's frames:
+    `integrate_depth` into a log-odds layer every frame (kernel
+    occupancy_fuse), `decay` every 8th, `update_esdf` from occupied voxels
+    every 4th (kernels edt_pass1, edt_pass).
+  * lidar_scans: the node's 1800 x 16 lidar in the cluttered two-room
+    scene, 64 scans through `integrate_pointcloud` (kernel
+    tsdf_lidar_fuse), ESDF every 4th, then `clear_outside_radius` and
+    `clear_tsdf_inside_shapes`.
 
 It builds every CUDA kernel from `isaac_ros_nvblox_tpu_torch/csrc/`, checks
 that each path went through its kernels (launch counts set to 0 just before
@@ -63,6 +71,17 @@ MESH_ERR_LIMIT_M = 0.002
 MESH_PRECISION_MIN = 0.999
 MESH_COMPLETENESS_MIN = 0.89
 MESH_FSCORE_MIN = 0.94
+# Occupancy and lidar limits, from the reference's own CPU run of the same
+# two configurations (its XLA integrators, which the port mirrors;
+# `tests/test_torch_accuracy.py --occupancy` and `--lidar`): occupancy
+# ESDF error 0.0531 m with every occupied voxel near the surface (share
+# 1.0); lidar TSDF error 0.0209 m (9799 blocks; beams a quarter row off
+# the range image's row boundaries, as `lidar_rays` traces them). The
+# limits leave room for the card's own render of the frames and scans,
+# no more.
+OCC_ESDF_MAE_LIMIT_M = 0.055
+OCC_NEAR_SHARE_MIN = 0.999
+LIDAR_TSDF_MAE_LIMIT_M = 0.022
 
 
 def fail(msg: str) -> None:
@@ -195,6 +214,545 @@ def line_candidates(shape, axis: int, reach, device):
     return 1 + torch.minimum(reach, S - 1 - i) + torch.minimum(reach, i)
 
 
+def bucket_of(worst: int) -> int:
+    """The benchmark's batch rule (bench.py:118-130): the smallest bucket
+    that holds the worst frame's touched-block count with 64 blocks of
+    slack."""
+    for bucket in (512, 1024, 2048, 4096, 8192):
+        if worst <= bucket - 64:
+            return bucket
+    return 16384
+
+
+def lidar_rays(lidar, row_offset: float = 0.25) -> np.ndarray:
+    """The lidar's beams, `f32[rows * cols, 3]` unit directions in the
+    sensor frame: `Lidar.unproject`'s column centres, with every row
+    lowered by a quarter row. `unproject` puts a beam on a row boundary of
+    the range image (an integral v), where the last bit of atan2, which
+    differs between the card and the CPU, picks the row a return fills;
+    the offset keeps every return a quarter row from a boundary. Made in
+    numpy, so that the card and the reference trace the same rays."""
+    A, E = lidar.num_azimuth_divisions, lidar.num_elevation_divisions
+    az = (np.arange(A) + 0.5) / A * (2 * np.pi) - np.pi
+    rads_per_row = lidar.elevation_range_rad / max(E - 1, 1)
+    el = (lidar.max_angle_above_zero_elevation_rad
+          - (np.arange(E) + row_offset) * rads_per_row)
+    el, az = np.meshgrid(el, az, indexing="ij")
+    return np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                     np.sin(el)], -1).reshape(-1, 3).astype(np.float32)
+
+
+def lidar_scan(scene, lidar, T_L_S, device, num_steps: int = 96):
+    """Sphere-trace `scene` along the lidar's beams (`lidar_rays`) from the
+    pose T_L_S (f32[4, 4]): points `f32[rows * cols, 3]` in the sensor
+    frame, (0, 0, 0) (out of range, so dropped) where a ray hits nothing
+    within the lidar's max range."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch.core.types import Transform
+    T = torch.as_tensor(T_L_S, dtype=torch.float32, device=device)
+    dirs_S = torch.as_tensor(lidar_rays(lidar), device=device)
+    dirs_L = Transform.rotate(T, dirs_S)
+    t = torch.full((dirs_S.shape[0],), 1e-3, device=device)
+    for _ in range(num_steps):
+        d = scene.sdf(dirs_L * t[:, None] + T[:3, 3])
+        t = torch.clamp_max(t + torch.where(d > 1e-4, d, torch.zeros_like(d)),
+                            2.0 * lidar.max_valid_range_m)
+    hit = ((scene.sdf(dirs_L * t[:, None] + T[:3, 3]) < 1e-3)
+           & (t < lidar.max_valid_range_m))
+    return torch.where(hit[:, None], dirs_S * t[:, None],
+                       torch.zeros_like(dirs_S))
+
+
+def orbit_lidar_poses(n_per_room: int = 32):
+    """A level sensor at 1.3 m on the benchmark's accuracy ellipses
+    (bench.py:609-613: room centres x = -3 and 3 m, radii 1.6 x 1.4 m),
+    heading along the ellipse."""
+    poses = []
+    for cx in (-3.0, 3.0):
+        for k in range(n_per_room):
+            a = 2 * np.pi * k / n_per_room
+            yaw = np.arctan2(1.4 * np.cos(a), -1.6 * np.sin(a))
+            T = np.eye(4, dtype=np.float32)
+            c, s = np.cos(yaw), np.sin(yaw)
+            T[:3, :3] = [[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]]
+            T[:3, 3] = (cx + 1.6 * np.cos(a), 1.4 * np.sin(a), 1.3)
+            poses.append(T)
+    return poses
+
+
+def esdf_aabb_blocks(m):
+    """Blocks per axis of the AABB that `update_esdf` solves over in a
+    whole-map update (the mapper's host-side touched-block AABB)."""
+    return [int(h - l + 1) for l, h in zip(m._aabb_lo, m._aabb_hi)]
+
+
+def timed_run(run, n_steps: int):
+    """Run the path once with the launch counts set to 0 just before and
+    read just after (host wall ms per step, ending in a synchronize), then
+    once more under the profiler (device ms per step, idle share). `run`
+    builds a fresh mapper each time and returns it. Returns (the first
+    run's mapper, its launch counts, the figures)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from isaac_ros_nvblox_tpu_torch import kernels
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(kernels.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t
+    evs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+           if "CUDA" in str(e.device_type)]
+    busy = sum(us for _, us in evs) / 1e3
+    return out, launches, {
+        "ms_per_step": wall * 1e3 / n_steps,
+        "device_ms_per_step": busy / n_steps,
+        "device_idle_share": 1 - busy / 1e3 / traced_wall,
+        "traced_ms_per_step": traced_wall * 1e3 / n_steps,
+        "device_activities_per_step": len(evs) / n_steps,
+        "device_to_host_copies": sum(1 for n, _ in evs if "DtoH" in n),
+        "top_per_step": top_kernels(evs, n_steps, 6)}
+
+
+def edt_check(state, is_site, esdf_sq, origin_t, dims_b, band: int, dev,
+              path: str):
+    """edt_pass1 and edt_pass against their plain versions on a path's
+    ESDF region (origin `origin_t`, `dims_b` blocks), seeded from its map's
+    sites `is_site`: the three passes in the mapper's order (shortest axis
+    first), each fed the plain chain's previous output, each held bit for
+    bit. The plain chain gathered back to the slots must equal the path's
+    ESDF channel `esdf_sq` on every slot. Emits one kernel_check line per
+    pass and returns them by kernel name."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch.ops import esdf_dense as ed
+    in_region, row = ed.region_rows(state.block_index_of_slot,
+                                    state.alloc_count, origin_t, dims_b)
+    seeds = ed.seed_grid(is_site, in_region, row, dims_b)
+    first, mid, last = (int(a) for a in np.argsort(seeds.shape, kind="stable"))
+    nvox = seeds.numel()
+    p1_k = ed.edt_pass1(seeds, first, band)
+    p1_p = ed.edt_pass1_plain(seeds, first, band)
+    p2_k = ed.edt_pass(p1_p, mid, band)
+    p2_p = ed.edt_pass_plain(p1_p, mid, band)
+    p3_k = ed.edt_pass(p2_p, last, band)
+    p3_p = ed.edt_pass_plain(p2_p, last, band)
+    torch.cuda.synchronize()
+    checks = (("edt_pass1", p1_k, p1_p, lambda: ed.edt_pass1(seeds, first, band),
+               lambda: ed.edt_pass1_plain(seeds, first, band)),
+              ("edt_pass", p2_k, p2_p, lambda: ed.edt_pass(p1_p, mid, band),
+               lambda: ed.edt_pass_plain(p1_p, mid, band)),
+              ("edt_pass", p3_k, p3_p, lambda: ed.edt_pass(p2_p, last, band),
+               lambda: ed.edt_pass_plain(p2_p, last, band)))
+    # Work each pass does on these inputs: pass 1 stops at the nearest site
+    # (or the band), the banded passes examine every in-line candidate.
+    reach1 = torch.where(p1_p < float(ed.INF), torch.sqrt(p1_p),
+                         torch.full_like(p1_p, float(band)))
+    ops = {0: 2 * float(line_candidates(seeds.shape, first, reach1, dev)
+                        .sum()),
+           1: 2 * float(line_candidates(seeds.shape, mid, band, dev).sum()
+                        * nvox / seeds.shape[mid]),
+           2: 2 * float(line_candidates(seeds.shape, last, band, dev).sum()
+                        * nvox / seeds.shape[last])}
+    del reach1
+    n_sites = int((seeds == 0).sum())
+    if n_sites == 0:
+        fail(f"the {path} ESDF region holds no site")
+    edt_rows = {}
+    for i, (name, got, ref, fk, fp) in enumerate(checks):
+        exact = bool(torch.equal(got, ref))
+        max_err = float((got - ref).abs().max())
+        ms, how = kernel_ms(fk, "edt_kernel<true>" if i == 0
+                            else "edt_kernel<false>")
+        b_ms, b_by = bound_ms(nvox * 8, ops[i])
+        row_i = {"phase": "kernel_check", "name": name, "path": path,
+                 "axis": [first, mid, last][i], "grid": list(seeds.shape),
+                 "sites": n_sites, "band": band, "bit_exact": exact, "max_abs_err": max_err,
+                 "ms": ms, "ms_timing": how, "ms_call": cuda_ms(fk),
+                 "plain_ms": cuda_ms(fp), "plain_device_ms": plain_device_ms(fp),
+                 "bound_ms": b_ms, "bound_by": b_by}
+        emit(row_i)
+        if not exact:
+            fail(f"{name} along axis {row_i['axis']} is not bit-exact on "
+                 f"the {path} region")
+        edt_rows.setdefault(name, []).append(row_i)
+    sq_plain = ed.gather_slots(p3_p, in_region, row, band)
+    if not torch.equal(sq_plain, esdf_sq):
+        fail(f"the {path} ESDF channel differs from the plain passes' solve")
+    return edt_rows
+
+
+def whole_map_region(m, dev):
+    """(origin i32[3] on `dev`, dims in blocks) of the region a whole-map
+    `update_esdf` solves: the mapper's touched-block AABB, each extent
+    rounded up to its coarse bucket."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch.mapper.device_mapper import (
+        _bucket_blocks_coarse)
+    dims_b = tuple(_bucket_blocks_coarse(n) for n in esdf_aabb_blocks(m))
+    return (torch.as_tensor(np.asarray(m._aabb_lo), dtype=torch.int32,
+                            device=dev), dims_b)
+
+
+def occupancy_phase(dev, smi, camera, scene, depths_r, poses_np, voxel,
+                    world):
+    """The static_occupancy mode's path: every frame integrate_depth
+    (kernel occupancy_fuse), ESDF from occupied voxels every 4th, decay
+    every 8th (the node's 40 / 10 / 5 Hz). Returns its kernels row."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
+    from isaac_ros_nvblox_tpu_torch.core.types import voxel_centers_for_blocks
+    from isaac_ros_nvblox_tpu_torch.mapper.device_mapper import DeviceMapper
+    from isaac_ros_nvblox_tpu_torch.mapper.params import (MapperParams,
+                                                          ProjectiveLayerType)
+    from isaac_ros_nvblox_tpu_torch.ops import esdf as esdf_ops
+    from isaac_ros_nvblox_tpu_torch.ops import view as view_ops
+    from isaac_ros_nvblox_tpu_torch.ops.occupancy import integrate_occupancy
+    from isaac_ros_nvblox_tpu_torch.ops.occupancy_cuda import (
+        integrate_occupancy_cuda)
+
+    params = MapperParams()
+    occ = params.occupancy
+    n_steps = depths_r.shape[0]
+    n_orbit = len(poses_np)
+    grid_kw = dict(camera=camera, voxel_size_m=voxel,
+                   max_distance_m=occ.max_integration_distance_m,
+                   truncation_m=occ.occupied_region_half_width_m)
+    worst = max(int(view_ops.touched_block_grid(
+        depths_r[k], torch.as_tensor(poses_np[k], device=dev),
+        **grid_kw)[0].sum()) for k in range(n_orbit))
+    max_blocks = bucket_of(worst)
+
+    def run():
+        m = DeviceMapper(voxel, params=params, world=world,
+                         projective_layer=ProjectiveLayerType.OCCUPANCY,
+                         max_blocks_per_frame=max_blocks, device=dev)
+        for k in range(n_steps):
+            m.integrate_depth(depths_r[k], poses_np[k % n_orbit], camera)
+            if (k + 1) % 8 == 0:
+                m.decay()
+            if (k + 1) % 4 == 0:
+                m.update_esdf()
+        return m
+
+    run()                                   # warm-up
+    m, launches, times = timed_run(run, n_steps)
+    for name in ("occupancy_fuse", "edt_pass1", "edt_pass"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the occupancy path")
+    n_occ = launches["occupancy_fuse"]
+    overflow = int(m.state.overflow_count)
+    n_blocks = m.block_count()
+    n_alloc = int(m.state.alloc_count)
+
+    # Accuracy against the analytic scene, on the live slots.
+    live = wg.live_slot_mask(m.state)[:n_alloc]
+    ch = m.channels
+    bidx = m.state.block_index_of_slot[:n_alloc]
+    gt = scene.sdf(voxel_centers_for_blocks(torch.where(
+        live[:, None], bidx, torch.zeros_like(bidx)), voxel))
+    sq = ch["esdf_sq_dist"][:n_alloc]
+    inside = ch["esdf_is_inside"][:n_alloc]
+    lo = ch["occupancy_log_odds"][:n_alloc]
+    obs = ch["occupancy_observed"][:n_alloc] > 0
+    if not (bool(torch.isfinite(lo).all()) and bool(torch.isfinite(gt).all())):
+        fail("occupancy rows or the scene SDF are not finite")
+    est = torch.clamp_max(torch.sqrt(torch.clamp_max(sq, esdf_ops.INF_SQ))
+                          * voxel, 2.0)
+    est = torch.where(inside, -est, est)
+    emask = live[:, None] & (gt > 3 * voxel) & (gt < 1.0) & (sq < 1e11)
+    esdf_mae = float((est - gt).abs()[emask].mean())
+    occupied = live[:, None] & obs & (lo > 0)
+    near = gt.abs() <= occ.occupied_region_half_width_m + voxel * np.sqrt(
+        3.0) / 2
+    occ_share = float((occupied & near).sum()) / max(int(occupied.sum()), 1)
+    row = {"phase": "occupancy_frames", "frames": n_steps, "esdf_every": 4,
+           "decay_every": 8, "max_blocks_per_frame": max_blocks,
+           **times, "launches": launches,
+           "allocated_blocks": n_blocks, "alloc_high_water": n_alloc,
+           "esdf_aabb_blocks": esdf_aabb_blocks(m),
+           "blocks_freed_by_decay": int(m.removed_count),
+           "overflow_count": overflow, "esdf_mae_m": esdf_mae,
+           "esdf_voxels_scored": int(emask.sum()),
+           "occupied_voxels": int(occupied.sum()),
+           "occupied_near_surface_share": occ_share,
+           "limits": {"esdf_mae_m": OCC_ESDF_MAE_LIMIT_M,
+                      "occupied_near_surface_share": OCC_NEAR_SHARE_MIN},
+           "nvidia_smi": smi}
+    emit(row)
+    if n_occ != n_steps:
+        fail(f"occupancy_fuse launched {n_occ} times in a run of "
+             f"{n_steps} frames")
+    if overflow != 0:
+        fail(f"occupancy path overflow_count {overflow} != 0")
+    if not esdf_mae <= OCC_ESDF_MAE_LIMIT_M:
+        fail(f"occupancy esdf_mae_m {esdf_mae} > {OCC_ESDF_MAE_LIMIT_M}")
+    if not occ_share >= OCC_NEAR_SHARE_MIN:
+        fail(f"occupied_near_surface_share {occ_share} < "
+             f"{OCC_NEAR_SHARE_MIN}")
+
+    # edt_pass1 / edt_pass on the run's last ESDF region, seeded from the
+    # occupied voxels: the whole map, since the decay just before that
+    # update touched every allocated block.
+    site, _, _ = esdf_ops.esdf_sites_from_occupancy(
+        ch["occupancy_log_odds"], ch["occupancy_observed"] > 0,
+        occupied_log_odds_threshold=float(
+            params.esdf.occupied_log_odds_threshold))
+    edt_check(m.state, site, ch["esdf_sq_dist"], *whole_map_region(m, dev),
+              m.esdf_band_vox, dev, "occupancy_frames")
+    del site
+
+    # occupancy_fuse against its plain version on frame 0's batch of the
+    # built map.
+    st = wg.WorldGridState(**{k: v.clone() for k, v in vars(m.state).items()})
+    T0 = torch.as_tensor(poses_np[0], device=dev)
+    grid, origin = view_ops.touched_block_grid(depths_r[0], T0, **grid_kw)
+    st, slots, bidx0, _ = wg.allocate_and_batch(st, grid, origin,
+                                                max_blocks=max_blocks)
+    kw = dict(camera=camera, voxel_size_m=voxel, params=occ)
+    base = (ch["occupancy_log_odds"].clone(), ch["occupancy_observed"].clone())
+    got = [b.clone() for b in base]
+    want = [b.clone() for b in base]
+    args = (slots, bidx0, depths_r[0], T0)
+    integrate_occupancy_cuda(*got, *args, **kw)
+    integrate_occupancy(*want, *args, **kw)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(a, b) for a, b in zip(got, want))
+    max_err = float((got[0] - want[0]).abs().max())
+    cap = m.capacity
+    n_valid = int((slots < cap).sum())
+    n_view = in_view_voxels(slots, bidx0, T0, camera, voxel, cap)
+    n_upd = int(changed(want, base).sum())
+    ms, how = kernel_ms(lambda: integrate_occupancy_cuda(*got, *args, **kw),
+                        "occupancy_fuse_kernel")
+    plain = cuda_ms(lambda: integrate_occupancy(*want, *args, **kw))
+    plain_dev = plain_device_ms(lambda: integrate_occupancy(*want, *args,
+                                                            **kw))
+    H, W = depths_r.shape[1:]
+    # Each in-view voxel reads its log-odds and observed byte (5 B), an
+    # updated one writes them back; the depth image (f32) is read once.
+    b_ms, b_by = bound_ms(n_view * 5 + n_upd * 5 + H * W * 4
+                          + slots.numel() * 16, n_view * 40)
+    check = {"phase": "kernel_check", "name": "occupancy_fuse",
+             "batch_blocks": n_valid, "in_view_voxels": n_view,
+             "updated_voxels": n_upd, "bit_exact": exact,
+             "max_abs_err": max_err, "ms": ms, "ms_timing": how,
+             "plain_ms": plain, "plain_device_ms": plain_dev,
+             "bound_ms": b_ms, "bound_by": b_by,
+             "launches": n_occ}
+    emit(check)
+    if not exact or n_upd == 0:
+        fail(f"occupancy_fuse differs from its plain version: {check}")
+    del m, st, got, want, base
+    torch.cuda.empty_cache()
+    return {"name": "occupancy_fuse", "route": "cuda",
+            "source": "isaac_ros_nvblox_tpu_torch/csrc/occupancy_fuse.cu",
+            "replaces": "isaac_ros_nvblox_tpu/ops/occupancy_pallas.py:37",
+            "launches": n_occ, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def lidar_phase(dev, smi, voxel, world):
+    """The 3D-lidar path: every scan integrate_pointcloud (kernel
+    tsdf_lidar_fuse), ESDF every 4th, then clearing outside a radius and
+    inside a sphere. Returns its kernels row."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
+    from isaac_ros_nvblox_tpu_torch.core.types import (
+        Transform, voxel_centers_for_blocks)
+    from isaac_ros_nvblox_tpu_torch.mapper.device_mapper import DeviceMapper
+    from isaac_ros_nvblox_tpu_torch.mapper.params import MapperParams
+    from isaac_ros_nvblox_tpu_torch.models.lidar import (
+        Lidar, pointcloud_to_range_image)
+    from isaac_ros_nvblox_tpu_torch.models.scene import (
+        cluttered_multi_room_scene)
+    from isaac_ros_nvblox_tpu_torch.ops import esdf as esdf_ops
+    from isaac_ros_nvblox_tpu_torch.ops import view as view_ops
+    from isaac_ros_nvblox_tpu_torch.ops.lidar_cuda import (
+        integrate_tsdf_lidar_cuda)
+    from isaac_ros_nvblox_tpu_torch.ops.tsdf import (TsdfIntegratorParams,
+                                                     integrate_tsdf_lidar)
+
+    # The node's lidar (runtime/node.py:75-81, nvblox node_params.hpp).
+    lidar = Lidar.equal_vertical_fov(1800, 16, float(np.radians(30.0)),
+                                     min_range_m=0.1)
+    scene = cluttered_multi_room_scene()
+    poses_np = orbit_lidar_poses(32)
+    n_steps = len(poses_np)
+    points = torch.stack([lidar_scan(scene, lidar, T, dev)
+                          for T in poses_np])
+    hit_share = float((points.abs().sum(-1) > 0).float().mean())
+    params = MapperParams(
+        projective=TsdfIntegratorParams(max_integration_distance_m=7.0))
+    proj = params.projective
+    poses_t = [torch.as_tensor(T, device=dev) for T in poses_np]
+    images = [pointcloud_to_range_image(points[k], lidar)
+              for k in range(n_steps)]
+    grid_kw = dict(lidar=lidar, voxel_size_m=voxel,
+                   max_distance_m=proj.max_integration_distance_m,
+                   truncation_m=proj.truncation_m(voxel))
+    worst = max(int(view_ops.touched_block_grid_lidar(
+        images[k], poses_t[k], **grid_kw)[0].sum()) for k in range(n_steps))
+    max_blocks = bucket_of(worst)
+
+    def run():
+        m = DeviceMapper(voxel, params=params, world=world,
+                         enable_color=False,
+                         max_blocks_per_frame=max_blocks, device=dev)
+        for k in range(n_steps):
+            m.integrate_pointcloud(points[k], poses_np[k], lidar)
+            if (k + 1) % 4 == 0:
+                m.update_esdf()
+        return m
+
+    run()                                   # warm-up
+    m, launches, times = timed_run(run, n_steps)
+    for name in ("tsdf_lidar_fuse", "edt_pass1", "edt_pass"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the lidar path")
+    n_lidar = launches["tsdf_lidar_fuse"]
+    overflow = int(m.state.overflow_count)
+    n_blocks = m.block_count()
+    n_alloc = int(m.state.alloc_count)
+    ch = m.channels
+    bidx = m.state.block_index_of_slot[:n_alloc]
+    gt = scene.sdf(voxel_centers_for_blocks(bidx, voxel))
+    tsdf = ch["tsdf_distance"][:n_alloc]
+    w = ch["tsdf_weight"][:n_alloc]
+    near = (gt.abs() < 0.1) & (w > 0.5)
+    tsdf_mae = float((tsdf - gt).abs()[near].mean())
+    finite = bool(torch.isfinite(tsdf).all()) and bool(torch.isfinite(w).all())
+
+    # edt_pass1 / edt_pass on the largest region the path solves: a
+    # whole-map update of the finished map (the run's first update solved
+    # the whole map of its time, later ones the last scans' range cubes).
+    m.update_esdf(full=True)
+    site, _, _ = esdf_ops.esdf_sites_from_tsdf(
+        ch["tsdf_distance"], ch["tsdf_weight"], voxel_size_m=voxel,
+        max_site_distance_vox=params.esdf.max_site_distance_vox,
+        min_weight=params.esdf.min_weight)
+    edt_check(m.state, site, ch["esdf_sq_dist"], *whole_map_region(m, dev),
+              m.esdf_band_vox, dev, "lidar_scans")
+    del site
+
+    # Clearing at the end of the run: outside 5 m of the last pose, and
+    # inside one sphere (around room B's small sphere, 1.5 m from the last
+    # pose).
+    removed0 = int(m.removed_count)
+    live0 = n_blocks
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    m.clear_outside_radius(poses_np[-1][:3, 3], 5.0)
+    torch.cuda.synchronize()
+    t_radius = time.perf_counter() - t
+    w_before = int((m.channels["tsdf_weight"] > 0).sum())
+    t = time.perf_counter()
+    m.clear_tsdf_inside_shapes(spheres=[((3.8, 1.0, 0.3), 0.5)])
+    torch.cuda.synchronize()
+    t_shapes = time.perf_counter() - t
+    freed = int(m.removed_count) - removed0
+    unobserved = w_before - int((m.channels["tsdf_weight"] > 0).sum())
+    row = {"phase": "lidar_scans", "scans": n_steps,
+           "lidar": [lidar.num_azimuth_divisions,
+                     lidar.num_elevation_divisions],
+           "ray_hit_share": hit_share, "esdf_every": 4,
+           "max_blocks_per_frame": max_blocks, **times,
+           "launches": launches,
+           "allocated_blocks": live0, "alloc_high_water": n_alloc,
+           "esdf_aabb_blocks": esdf_aabb_blocks(m),
+           "overflow_count": overflow, "tsdf_mae_m": tsdf_mae,
+           "tsdf_voxels_scored": int(near.sum()),
+           "blocks_freed_by_clear_outside_radius": freed,
+           "blocks_after_clearing": m.block_count(),
+           "voxels_unobserved_by_sphere": unobserved,
+           "clear_outside_radius_ms": t_radius * 1e3,
+           "clear_tsdf_inside_shapes_ms": t_shapes * 1e3,
+           "limits": {"tsdf_mae_m": LIDAR_TSDF_MAE_LIMIT_M},
+           "nvidia_smi": smi}
+    emit(row)
+    if n_lidar != n_steps:
+        fail(f"tsdf_lidar_fuse launched {n_lidar} times in a run of "
+             f"{n_steps} scans")
+    if overflow != 0:
+        fail(f"lidar path overflow_count {overflow} != 0")
+    if not finite:
+        fail("lidar TSDF rows are not finite")
+    if not tsdf_mae <= LIDAR_TSDF_MAE_LIMIT_M:
+        fail(f"lidar tsdf_mae_m {tsdf_mae} > {LIDAR_TSDF_MAE_LIMIT_M}")
+    if freed <= 0 or unobserved <= 0:
+        fail(f"clearing freed {freed} blocks, unobserved {unobserved} voxels")
+
+    # tsdf_lidar_fuse against its plain version on scan 0's batch of the
+    # built map (a 360-degree scan: the batch straddles the +-pi seam).
+    st = wg.WorldGridState(**{k: v.clone() for k, v in vars(m.state).items()})
+    grid, origin = view_ops.touched_block_grid_lidar(images[0], poses_t[0],
+                                                     **grid_kw)
+    st, slots, bidx0, _ = wg.allocate_and_batch(st, grid, origin,
+                                                max_blocks=max_blocks)
+    kw = dict(lidar=lidar, voxel_size_m=voxel, params=proj)
+    base = (ch["tsdf_distance"].clone(), ch["tsdf_weight"].clone())
+    got = [b.clone() for b in base]
+    want = [b.clone() for b in base]
+    args = (slots, bidx0, images[0], poses_t[0])
+    integrate_tsdf_lidar_cuda(*got, *args, **kw)
+    integrate_tsdf_lidar(*want, *args, **kw)
+    torch.cuda.synchronize()
+    exact = all(torch.equal(a, b) for a, b in zip(got, want))
+    max_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    cap = m.capacity
+    real = (slots >= 0) & (slots < cap)
+    p_S = Transform.apply(Transform.inverse(poses_t[0]),
+                          voxel_centers_for_blocks(bidx0, voxel))
+    uv, _, ok = lidar.project(p_S)
+    ok = ok & real[:, None]
+    n_view = int(ok.sum())
+    A = lidar.num_azimuth_divisions
+    # In-view voxels within 8 columns (1.6 degrees) on either side of the
+    # +-pi seam.
+    seam = int((ok & ((uv[..., 0] < 8.0) | (uv[..., 0] > A - 8.0))).sum())
+    n_upd = int(changed(want, base).sum())
+    if not exact:
+        # Name the voxels that differ, for the record.
+        diff = changed(got, want)
+        emit({"phase": "kernel_check_detail", "name": "tsdf_lidar_fuse",
+              "differing_voxels": int(diff.sum())})
+    ms, how = kernel_ms(lambda: integrate_tsdf_lidar_cuda(*got, *args, **kw),
+                        "tsdf_lidar_fuse_kernel")
+    plain = cuda_ms(lambda: integrate_tsdf_lidar(*want, *args, **kw))
+    plain_dev = plain_device_ms(lambda: integrate_tsdf_lidar(*want, *args,
+                                                             **kw))
+    E = lidar.num_elevation_divisions
+    # Each in-view voxel reads its distance and weight (8 B), an updated
+    # one writes them back; the range image (f32) is read once. Two atan2
+    # and two roots per in-view voxel: ~150 operations.
+    b_ms, b_by = bound_ms(n_view * 8 + n_upd * 8 + E * A * 4
+                          + slots.numel() * 16, n_view * 150)
+    check = {"phase": "kernel_check", "name": "tsdf_lidar_fuse",
+             "batch_blocks": int(real.sum()), "in_view_voxels": n_view,
+             "seam_voxels": seam, "updated_voxels": n_upd,
+             "bit_exact": exact, "max_abs_err": max_err, "ms": ms,
+             "ms_timing": how, "plain_ms": plain,
+             "plain_device_ms": plain_dev, "bound_ms": b_ms,
+             "bound_by": b_by, "launches": n_lidar}
+    emit(check)
+    if not exact or n_upd == 0 or seam == 0:
+        fail(f"tsdf_lidar_fuse differs from its plain version: {check}")
+    del m, st, got, want, base, points
+    torch.cuda.empty_cache()
+    return {"name": "tsdf_lidar_fuse", "route": "cuda",
+            "source": "isaac_ros_nvblox_tpu_torch/csrc/tsdf_lidar_fuse.cu",
+            "replaces": "isaac_ros_nvblox_tpu/ops/lidar_pallas.py:36",
+            "launches": n_lidar, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -211,7 +769,6 @@ def main() -> None:
                                                          Sphere, orbit_pose,
                                                          render_depth)
     from isaac_ros_nvblox_tpu_torch.ops import esdf as esdf_ops
-    from isaac_ros_nvblox_tpu_torch.ops import esdf_dense as ed
     from isaac_ros_nvblox_tpu_torch.ops import view as view_ops
     from isaac_ros_nvblox_tpu_torch.ops.tsdf import (TsdfIntegratorParams,
                                                      integrate_tsdf)
@@ -463,62 +1020,14 @@ def main() -> None:
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                     "bound_by": b_by, "library_ms": None})
 
-    # edt_pass1 / edt_pass on the path's ESDF region, seeded from the map.
+    # edt_pass1 / edt_pass on the path's ESDF region, seeded from the map
+    # (the path's last update came after its last frame).
     is_site, _, _ = esdf_ops.esdf_sites_from_tsdf(
         ch["tsdf_distance"], ch["tsdf_weight"], voxel_size_m=voxel,
         max_site_distance_vox=params.esdf.max_site_distance_vox,
         min_weight=params.esdf.min_weight)
-    in_region, row = ed.region_rows(mapper.state.block_index_of_slot,
-                                    mapper.state.alloc_count, origin_t,
-                                    dims_b)
-    seeds = ed.seed_grid(is_site, in_region, row, dims_b)
-    first, mid, last = (int(a) for a in np.argsort(seeds.shape, kind="stable"))
-    nvox = seeds.numel()
-    p1_k = ed.edt_pass1(seeds, first, band)
-    p1_p = ed.edt_pass1_plain(seeds, first, band)
-    p2_k = ed.edt_pass(p1_p, mid, band)
-    p2_p = ed.edt_pass_plain(p1_p, mid, band)
-    p3_k = ed.edt_pass(p2_p, last, band)
-    p3_p = ed.edt_pass_plain(p2_p, last, band)
-    torch.cuda.synchronize()
-    checks = (("edt_pass1", p1_k, p1_p, lambda: ed.edt_pass1(seeds, first, band),
-               lambda: ed.edt_pass1_plain(seeds, first, band)),
-              ("edt_pass", p2_k, p2_p, lambda: ed.edt_pass(p1_p, mid, band),
-               lambda: ed.edt_pass_plain(p1_p, mid, band)),
-              ("edt_pass", p3_k, p3_p, lambda: ed.edt_pass(p2_p, last, band),
-               lambda: ed.edt_pass_plain(p2_p, last, band)))
-    # Work each pass does on these inputs: pass 1 stops at the nearest site
-    # (or the band), the banded passes examine every in-line candidate.
-    reach1 = torch.where(p1_p < float(ed.INF), torch.sqrt(p1_p),
-                         torch.full_like(p1_p, float(band)))
-    ops = {0: 2 * float(line_candidates(seeds.shape, first, reach1, dev)
-                        .sum()),
-           1: 2 * float(line_candidates(seeds.shape, mid, band, dev).sum()
-                        * nvox / seeds.shape[mid]),
-           2: 2 * float(line_candidates(seeds.shape, last, band, dev).sum()
-                        * nvox / seeds.shape[last])}
-    edt_rows = {}
-    for i, (name, got, ref, fk, fp) in enumerate(checks):
-        exact = bool(torch.equal(got, ref))
-        max_err = float((got - ref).abs().max())
-        ms, how = kernel_ms(fk, "edt_kernel<true>" if i == 0
-                            else "edt_kernel<false>")
-        b_ms, b_by = bound_ms(nvox * 8, ops[i])
-        row_i = {"phase": "kernel_check", "name": name,
-                 "axis": [first, mid, last][i], "grid": list(seeds.shape),
-                 "band": band, "bit_exact": exact, "max_abs_err": max_err,
-                 "ms": ms, "ms_timing": how, "ms_call": cuda_ms(fk),
-                 "plain_ms": cuda_ms(fp), "plain_device_ms": plain_device_ms(fp),
-                 "bound_ms": b_ms, "bound_by": b_by}
-        emit(row_i)
-        if not exact:
-            fail(f"{name} along axis {row_i['axis']} is not bit-exact")
-        edt_rows.setdefault(name, []).append(row_i)
-    # The ESDF channel the path left equals the plain passes' chain on the
-    # same map (the path's last update came after its last frame).
-    sq_plain = ed.gather_slots(p3_p, in_region, row, band)
-    if not torch.equal(sq_plain, ch["esdf_sq_dist"]):
-        fail("the ESDF channel differs from the plain passes' solve")
+    edt_rows = edt_check(mapper.state, is_site, ch["esdf_sq_dist"], origin_t,
+                         dims_b, band, dev, "main_path")
 
     for name, src_line in (("edt_pass1", 260), ("edt_pass", 113)):
         rs = edt_rows[name]
@@ -535,6 +1044,14 @@ def main() -> None:
 
     del mapper
     torch.cuda.empty_cache()
+
+    # ---- the occupancy path (static_occupancy mode) ----------------------
+    world = wg.WorldGridConfig(dims=(64, 64, 32), capacity=16384,
+                               origin_block=(-32, -32, -8))
+    results.append(occupancy_phase(
+        dev, smi, camera, scene, depths_r,
+        [orbit_pose(2 * np.pi * k / n_frames, radius=1.5)
+         for k in range(n_frames)], voxel, world))
 
     # ---- the colored-mesh pipeline at the reference's cadence ------------
     from isaac_ros_nvblox_tpu_torch.mapper.device_mapper import (
@@ -854,6 +1371,12 @@ def main() -> None:
             and acc["mesh_completeness"] >= MESH_COMPLETENESS_MIN
             and acc["mesh_fscore"] >= MESH_FSCORE_MIN):
         fail(f"mesh accuracy outside its limits: {acc_row}")
+
+    del am
+    torch.cuda.empty_cache()
+
+    # ---- the 3D-lidar path ------------------------------------------------
+    results.append(lidar_phase(dev, smi, voxel, world))
 
     emit({"kernels": results})
     print(smi, flush=True)

@@ -114,6 +114,86 @@ class Transform:
         x, y, z = vectors[..., 0], vectors[..., 1], vectors[..., 2]
         return torch.stack(mat3_rows(T[:3, :3], x, y, z), dim=-1)
 
+    @staticmethod
+    def from_rotation_translation(R, t) -> torch.Tensor:
+        """`f32[..., 4, 4]` from rotations `[..., 3, 3]` and translations
+        `[..., 3]`."""
+        R = torch.as_tensor(R, dtype=torch.float32)
+        t = torch.as_tensor(t, dtype=torch.float32, device=R.device)
+        T = torch.zeros(R.shape[:-2] + (4, 4), dtype=torch.float32,
+                        device=R.device)
+        T[..., :3, :3] = R
+        T[..., :3, 3] = t
+        T[..., 3, 3] = 1.0
+        return T
+
+    @staticmethod
+    def interpolate(T0, T1, alpha) -> torch.Tensor:
+        """Pose at `alpha` between T0 and T1: translation lerp, rotation by
+        normalized quaternion lerp (shortest arc). `alpha` may be a float
+        or a tensor `f32[K]` (then `f32[K, 4, 4]`)."""
+        q0 = quaternion_from_matrix(T0[:3, :3])
+        q1 = quaternion_from_matrix(T1[:3, :3])
+        q1 = torch.where(torch.sum(q0 * q1) < 0.0, -q1, q1)
+        a = torch.as_tensor(alpha, dtype=torch.float32, device=T0.device)
+        a4 = a[..., None]
+        q = q0 * (1.0 - a4) + q1 * a4
+        q = q / torch.clamp_min(torch.linalg.norm(q, dim=-1, keepdim=True),
+                                1e-12)
+        t = T0[:3, 3] * (1.0 - a4) + T1[:3, 3] * a4
+        return Transform.from_rotation_translation(matrix_from_quaternion(q),
+                                                   t)
+
+
+def quaternion_from_matrix(R) -> torch.Tensor:
+    """Rotation matrix `f32[3, 3]` -> unit quaternion (w, x, y, z), by the
+    branch-free 4-candidate construction: each candidate from one pivot of
+    the diagonal, the largest pivot chosen by `where`."""
+    m00, m01, m02 = R[0, 0], R[0, 1], R[0, 2]
+    m10, m11, m12 = R[1, 0], R[1, 1], R[1, 2]
+    m20, m21, m22 = R[2, 0], R[2, 1], R[2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp_min(x, 1e-12))
+
+    s0 = safe_sqrt(tr + 1.0) * 2.0
+    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0,
+                      (m10 - m01) / s0])
+    s1 = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
+    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1,
+                      (m02 + m20) / s1])
+    s2 = safe_sqrt(1.0 + m11 - m00 - m22) * 2.0
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2,
+                      (m12 + m21) / s2])
+    s3 = safe_sqrt(1.0 + m22 - m00 - m11) * 2.0
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3,
+                      0.25 * s3])
+    use0 = tr > 0.0
+    use1 = ~use0 & (m00 > m11) & (m00 > m22)
+    use2 = ~use0 & ~use1 & (m11 > m22)
+    q = torch.where(use0, q0, torch.where(use1, q1, torch.where(use2, q2,
+                                                                 q3)))
+    return q / torch.clamp_min(torch.linalg.norm(q), 1e-12)
+
+
+def matrix_from_quaternion(q) -> torch.Tensor:
+    """Unit quaternions `[..., 4]` (w, x, y, z) -> rotations `[..., 3, 3]`."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rows = [torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                         2 * (x * z + w * y)], -1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                         2 * (y * z - w * x)], -1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                         1 - 2 * (x * x + y * y)], -1)]
+    return torch.stack(rows, -2).to(torch.float32)
+
+
+def sqrt32(x) -> torch.Tensor:
+    """float32 square root, correctly rounded on every device (the CPU's
+    vectorized float32 sqrt is not; the float64 root rounds exactly)."""
+    return torch.sqrt(x.double()).float()
+
 
 def norm3(v) -> torch.Tensor:
     """Euclidean norm over the last axis (size 3), in XLA's order."""
@@ -182,9 +262,12 @@ def device_ints(values, dtype, device) -> torch.Tensor:
                         for v in values])
 
 
+_LOCAL_OFFSETS = local_voxel_offsets()
+
+
 def voxel_centers_for_blocks(block_indices, voxel_size_m: float) -> torch.Tensor:
     """World-frame voxel centers `f32[N, 512, 3]` for blocks `i32[N, 3]`."""
-    offs = torch.as_tensor(local_voxel_offsets(), device=block_indices.device)
+    offs = device_constant(_LOCAL_OFFSETS, block_indices.device)
     vox = block_indices[:, None, :] * VOXELS_PER_SIDE + offs[None, :, :]
     return (vox.float() + 0.5) * float(np.float32(voxel_size_m))
 

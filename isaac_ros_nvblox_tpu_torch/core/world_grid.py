@@ -59,7 +59,8 @@ class WorldGridState:
     free_count: torch.Tensor           # i32[] entries in free_stack
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
-        return {f.name: getattr(self, f.name).cpu().numpy()
+        """Copies of the fields (the state is updated in place)."""
+        return {f.name: np.array(getattr(self, f.name).cpu().numpy())
                 for f in dataclasses.fields(self)}
 
     @classmethod
@@ -197,6 +198,40 @@ def allocate_and_batch(state: WorldGridState, mask_grid, mask_origin_block,
         overflow_count=state.overflow_count + n_overflow,
         free_count=state.free_count - n_reused)
     return state, slots, bidx, n_sel
+
+
+@torch.no_grad()
+def free_slots(state: WorldGridState, slots_to_free) -> WorldGridState:
+    """Deallocate the given slots `i32[N]` and recycle their storage.
+
+    Clears their slot_grid cells, marks their rows with
+    FREED_BLOCK_SENTINEL and pushes them onto `free_stack` in input order
+    (allocation pops it LIFO). Out-of-range and already-freed entries are
+    ignored. `slot_grid`, `block_index_of_slot` and `free_stack` are updated
+    in place; the returned state holds the new `free_count`. Callers reset
+    the freed rows' channels.
+    """
+    cap = state.block_index_of_slot.shape[0]
+    safe = slots_to_free.clamp(0, cap - 1)
+    bidx = state.block_index_of_slot[safe.long()]
+    ok = ((slots_to_free >= 0) & (slots_to_free < cap)
+          & (safe < state.alloc_count)
+          & (bidx[:, 0] < FREED_BLOCK_SENTINEL))
+    D = state.slot_grid.shape
+    cells = bidx - state.origin_block
+    c = [cells[:, a].clamp(0, D[a] - 1) for a in range(3)]
+    lin = (c[0] * D[1] + c[1]) * D[2] + c[2]
+    set_rows_drop(state.slot_grid.view(-1),
+                  torch.where(ok, lin, torch.full_like(lin, -1)), -1)
+    set_rows_drop(state.block_index_of_slot,
+                  torch.where(ok, safe, torch.full_like(safe, cap)),
+                  FREED_BLOCK_SENTINEL)
+    order = torch.cumsum(ok, 0, dtype=_I32) - 1
+    set_rows_drop(state.free_stack,
+                  torch.where(ok, state.free_count + order,
+                              torch.full_like(order, cap)), safe)
+    return dataclasses.replace(
+        state, free_count=state.free_count + ok.sum(dtype=_I32))
 
 
 def _in_grid(cells, dims) -> torch.Tensor:

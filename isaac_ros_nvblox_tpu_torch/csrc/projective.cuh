@@ -1,10 +1,12 @@
-// Projection, nearest sampling, weighting and the TSDF and color updates
-// shared by the projective kernels (tsdf_fuse.cu, color_fuse.cu,
-// tsdf_color_fuse.cu).
+// Projection (pinhole and spherical), nearest sampling, weighting and the
+// TSDF and color updates shared by the projective kernels (tsdf_fuse.cu,
+// color_fuse.cu, tsdf_color_fuse.cu, occupancy_fuse.cu,
+// tsdf_lidar_fuse.cu).
 //
 // Each kernel runs one CTA per batch entry (a 512-voxel block) and one
 // thread per voxel, lane v = lx*64 + ly*8 + lz. The arithmetic repeats the
-// plain PyTorch versions step for step (ops/tsdf.py, ops/color.py), whose
+// plain PyTorch versions step for step (ops/tsdf.py, ops/color.py,
+// ops/occupancy.py, models/lidar.py), whose
 // float32 roundings follow the reference's XLA path (core/types.py): every
 // source that includes this header is built with -fmad=false, and the one
 // contraction the plain versions perform, fma_emul, is spelled out here in
@@ -92,26 +94,25 @@ struct Pixel {
   bool in_view;   // z > 0 and the pixel center inside the image
 };
 
-// Voxel `lane` of block `b` (block index bidx[3b..3b+2]) seen from the
-// camera at T_L_C (f32[4, 4], row-major): T_C_L = inverse(T_L_C) as R^T
-// and -R^T t, then p_C = R^T x + t', each accumulated as the plain version
-// (core/types.py Transform) does, then the pinhole projection.
-__device__ __forceinline__ Pixel project_voxel(const int* __restrict__ bidx,
-                                               int b, int lane,
-                                               const float* __restrict__ T_L_C,
-                                               const Params& p) {
+// Voxel `lane` of block `b` (block index bidx[3b..3b+2]) in the frame of
+// the sensor at T_L_S (f32[4, 4], row-major): T_S_L = inverse(T_L_S) as
+// R^T and -R^T t, then p_S = R^T x + t', each accumulated as the plain
+// version (core/types.py Transform) does.
+__device__ __forceinline__ void voxel_in_sensor(const int* __restrict__ bidx,
+                                                int b, int lane,
+                                                const float* __restrict__ T_L_S,
+                                                float voxel, float pc[3]) {
   const int lx = lane >> 6, ly = (lane >> 3) & 7, lz = lane & 7;
-  const float x = ((float)(bidx[3 * b + 0] * 8 + lx) + 0.5f) * p.voxel;
-  const float y = ((float)(bidx[3 * b + 1] * 8 + ly) + 0.5f) * p.voxel;
-  const float z = ((float)(bidx[3 * b + 2] * 8 + lz) + 0.5f) * p.voxel;
+  const float x = ((float)(bidx[3 * b + 0] * 8 + lx) + 0.5f) * voxel;
+  const float y = ((float)(bidx[3 * b + 1] * 8 + ly) + 0.5f) * voxel;
+  const float z = ((float)(bidx[3 * b + 2] * 8 + lz) + 0.5f) * voxel;
   float R[9], t[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
 #pragma unroll
-    for (int j = 0; j < 3; ++j) R[3 * i + j] = __ldg(T_L_C + 4 * i + j);
-    t[i] = __ldg(T_L_C + 4 * i + 3);
+    for (int j = 0; j < 3; ++j) R[3 * i + j] = __ldg(T_L_S + 4 * i + j);
+    t[i] = __ldg(T_L_S + 4 * i + 3);
   }
-  float pc[3];
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
     float ti = t[0] * -R[r];
@@ -122,6 +123,16 @@ __device__ __forceinline__ Pixel project_voxel(const int* __restrict__ bidx,
     s = fma_emul(z, R[6 + r], s);
     pc[r] = s + ti;
   }
+}
+
+// Voxel `lane` of block `b` seen from the camera at T_L_C: the voxel in
+// the camera frame, then the pinhole projection.
+__device__ __forceinline__ Pixel project_voxel(const int* __restrict__ bidx,
+                                               int b, int lane,
+                                               const float* __restrict__ T_L_C,
+                                               const Params& p) {
+  float pc[3];
+  voxel_in_sensor(bidx, b, lane, T_L_C, p.voxel, pc);
   Pixel px;
   px.z = pc[2];
   const bool zpos = px.z > 1e-6f;
@@ -130,6 +141,57 @@ __device__ __forceinline__ Pixel project_voxel(const int* __restrict__ bidx,
   px.v = p.fy * pc[1] / zs + p.cy;
   px.in_view = zpos && px.u >= 0.0f && px.u <= p.u_max && px.v >= 0.0f &&
                px.v <= p.v_max;
+  return px;
+}
+
+// The float32 constants of models/lidar.py::Lidar.scalars, in that order.
+constexpr int N_LIDAR_SCALARS = 8;
+
+struct LidarParams {
+  float u_scale;            // A / (2 pi) as the reference's XLA folds it
+  float pi;                 // float32(pi)
+  float max_el;             // top elevation (rad)
+  float r_per_row;          // float32 reciprocal of rad per row
+  float el_lo, el_hi;       // valid elevation band (rad)
+  float min_range, max_range;
+};
+
+inline LidarParams make_lidar_params(const float* s) {
+  LidarParams l;
+  l.u_scale = s[0];
+  l.pi = s[1];
+  l.max_el = s[2];
+  l.r_per_row = s[3];
+  l.el_lo = s[4];
+  l.el_hi = s[5];
+  l.min_range = s[6];
+  l.max_range = s[7];
+  return l;
+}
+
+// Voxel `lane` of block `b` seen from the lidar at T_L_S: the spherical
+// projection of models/lidar.py::Lidar.project. The Pixel's z is the
+// range r = sqrt(x^2 + y^2 + z^2) (accumulated as fma(z, z, fma(x, x,
+// y*y)), correctly rounded); u = (atan2(y, x) + pi) * A/(2 pi); the
+// elevation is arcsin(clip(z / max(r, 1e-9), -1, 1)) in XLA's expansion
+// 2 atan2(q, 1 + sqrt((1 - q)(1 + q))); v = (max_el - el) / rad per row;
+// in_view is the lidar's range and elevation test.
+__device__ __forceinline__ Pixel project_voxel_lidar(
+    const int* __restrict__ bidx, int b, int lane,
+    const float* __restrict__ T_L_S, const Params& p, const LidarParams& l) {
+  float pc[3];
+  voxel_in_sensor(bidx, b, lane, T_L_S, p.voxel, pc);
+  const float r = sqrtf(fma_emul(pc[2], pc[2],
+                                 fma_emul(pc[0], pc[0], pc[1] * pc[1])));
+  const float az = atan2f(pc[1], pc[0]);
+  const float q = fminf(fmaxf(pc[2] / fmaxf(r, 1e-9f), -1.0f), 1.0f);
+  const float el = 2.0f * atan2f(q, 1.0f + sqrtf((1.0f - q) * (1.0f + q)));
+  Pixel px;
+  px.z = r;
+  px.u = (az + l.pi) * l.u_scale;
+  px.v = (l.max_el - el) * l.r_per_row;
+  px.in_view = r >= l.min_range && r <= l.max_range && el >= l.el_lo &&
+               el <= l.el_hi;
   return px;
 }
 

@@ -34,12 +34,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # Per-source extra flags. These kernels repeat their plain versions'
 # float32 roundings, so nvcc must not contract a*b+c on its own.
-EXTRA_FLAGS = {name: ["-fmad=false"] for name in
-               ("tsdf_fuse", "color_fuse", "tsdf_color_fuse",
-                "marching_cubes")}
+PROJECTIVE = ("tsdf_fuse", "color_fuse", "tsdf_color_fuse", "occupancy_fuse",
+              "tsdf_lidar_fuse")
+EXTRA_FLAGS = {name: ["-fmad=false"]
+               for name in PROJECTIVE + ("marching_cubes",)}
 # Headers a source includes (part of its build hash).
-HEADERS = {name: ["projective.cuh"] for name in
-           ("tsdf_fuse", "color_fuse", "tsdf_color_fuse")}
+HEADERS = {name: ["projective.cuh"] for name in PROJECTIVE}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -73,11 +73,22 @@ SIGNATURES = {
                             _I, _F, _I, _P], _I),
         "marching_cubes_error_string": ([_I], ctypes.c_char_p),
     },
+    "occupancy_fuse": {
+        "occupancy_fuse": ([_P, _P, _P, _P, _P, _P, _FP, _I, _I, _I, _I, _P],
+                           _I),
+        "occupancy_fuse_error_string": ([_I], ctypes.c_char_p),
+    },
+    "tsdf_lidar_fuse": {
+        "tsdf_lidar_fuse": ([_P, _P, _P, _P, _P, _P, _FP, _I, _I, _I, _I, _I,
+                             _P], _I),
+        "tsdf_lidar_fuse_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 LAUNCHES: Dict[str, int] = {"tsdf_fuse": 0, "edt_pass1": 0, "edt_pass": 0,
                             "color_fuse": 0, "tsdf_color_fuse": 0,
-                            "marching_cubes": 0}
+                            "marching_cubes": 0, "occupancy_fuse": 0,
+                            "tsdf_lidar_fuse": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -1,15 +1,29 @@
-"""DeviceMapper: the device-resident depth -> TSDF (+ color) -> ESDF / mesh
-path (port of isaac_ros_nvblox_tpu/mapper/device_mapper.py, TSDF layer with
-color, mesh and ESDF; occupancy, lidar, decay and freespace come in later
-slices).
+"""DeviceMapper: the device-resident depth / lidar -> TSDF or occupancy
+(+ color) -> ESDF / mesh path (port of
+isaac_ros_nvblox_tpu/mapper/device_mapper.py: the TSDF and occupancy
+layers with color, mesh, ESDF, lidar, decay and clearing; freespace comes
+with the dynamics slice).
 
     integrate_depth:  touched-grid -> allocate -> view batch -> TSDF fusion
-                      (kernel tsdf_fuse) -> dirty bits; no host sync
+                      (kernel tsdf_fuse) or, on an occupancy mapper,
+                      log-odds fusion (kernel occupancy_fuse) -> dirty bits;
+                      no host sync
+    integrate_pointcloud:
+                      (motion compensation) -> range image -> lidar grid ->
+                      allocate -> spherical TSDF fusion (kernel
+                      tsdf_lidar_fuse) -> dirty bits; no host sync
     integrate_color:  color-frustum view batch (no allocation) -> color
                       fusion (kernel color_fuse) -> mesh-dirty bits
+    decay:            TSDF weight or occupancy log-odds decay, then the
+                      fully decayed blocks are freed (slots recycled through
+                      the free stack, freed blocks logged in a device ring)
+    clear_outside_radius / clear_tsdf_inside_shapes:
+                      free the blocks outside a radius / unobserve the TSDF
+                      voxels inside spheres and boxes
     update_esdf:      exact banded separable EDT (kernels edt_pass1,
                       edt_pass) over the allocated AABB, or over the dirty
-                      AABB + band, spliced into the ESDF channels
+                      AABB + band, spliced into the ESDF channels; sites
+                      from the TSDF or from occupied voxels
     update_mesh_dirty_device:
                       dirty blocks + their -1-side neighbours -> surface
                       crossing subset -> marching cubes (kernel
@@ -37,16 +51,24 @@ import torch
 from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
 from isaac_ros_nvblox_tpu_torch.core.types import (VOXELS_PER_BLOCK,
                                                    VOXELS_PER_SIDE,
-                                                   device_constant,
-                                                   device_ints,
+                                                   Transform, device_constant,
+                                                   device_ints, fma,
                                                    resolve_device,
-                                                   set_rows_drop)
-from isaac_ros_nvblox_tpu_torch.mapper.params import MapperParams
+                                                   set_rows_drop, sqrt32,
+                                                   voxel_centers_for_blocks)
+from isaac_ros_nvblox_tpu_torch.mapper.params import (MapperParams,
+                                                      ProjectiveLayerType)
 from isaac_ros_nvblox_tpu_torch.models.camera import Camera
+from isaac_ros_nvblox_tpu_torch.models.lidar import (
+    motion_compensate_pointcloud, pointcloud_to_range_image)
+from isaac_ros_nvblox_tpu_torch.ops import decay as decay_ops
 from isaac_ros_nvblox_tpu_torch.ops import esdf as esdf_ops
 from isaac_ros_nvblox_tpu_torch.ops import view as view_ops
 from isaac_ros_nvblox_tpu_torch.ops.color_cuda import integrate_color_cuda
 from isaac_ros_nvblox_tpu_torch.ops.esdf_dense import esdf_from_sites_dense
+from isaac_ros_nvblox_tpu_torch.ops.lidar_cuda import integrate_tsdf_lidar_cuda
+from isaac_ros_nvblox_tpu_torch.ops.occupancy_cuda import (
+    integrate_occupancy_cuda)
 from isaac_ros_nvblox_tpu_torch.ops.mesh import (MeshLayer,
                                                  marching_cubes_blocks)
 from isaac_ros_nvblox_tpu_torch.ops.mesh_cuda import (marching_cubes_fused,
@@ -86,6 +108,29 @@ def _bucket_blocks_coarse(n: int) -> int:
     return _bucket_blocks(n, 64)
 
 
+def _masked_depth(depth, mask, mask_mode: int):
+    """mask_mode 1 keeps the unmasked pixels (background), 2 the masked
+    ones (foreground), 0 all."""
+    if mask_mode == 1:
+        return torch.where(mask > 0, torch.zeros_like(depth), depth)
+    if mask_mode == 2:
+        return torch.where(mask > 0, depth, torch.zeros_like(depth))
+    return depth
+
+
+def _allocate_view(state, grid_origin, *, voxel_size_m: float,
+                   max_blocks: int, view_params=None):
+    """A touched-block grid (grid, origin) -> workspace bounds -> allocate
+    and batch: (state, slots, block indices)."""
+    grid, origin = grid_origin
+    if view_params is not None:
+        grid = view_ops.apply_workspace_bounds_to_grid(
+            grid, origin, voxel_size_m=voxel_size_m, params=view_params)
+    state, slots, bidx, _ = wg.allocate_and_batch(
+        state, grid, origin, max_blocks=max_blocks)
+    return state, slots, bidx
+
+
 @torch.no_grad()
 def _integrate_frame(state, distance, weight, dirty, esdf_dirty, depth,
                      T_L_C, mask=None, *, camera: Camera, voxel_size_m: float,
@@ -101,19 +146,14 @@ def _integrate_frame(state, distance, weight, dirty, esdf_dirty, depth,
     reference's color integrator takes its blocks from the depth frame the
     same way (nvblox_node.cpp:1260-1265).
     """
-    if mask_mode == 1:
-        depth = torch.where(mask > 0, torch.zeros_like(depth), depth)
-    elif mask_mode == 2:
-        depth = torch.where(mask > 0, depth, torch.zeros_like(depth))
-    grid, origin = view_ops.touched_block_grid(
-        depth, T_L_C, camera=camera, voxel_size_m=voxel_size_m,
-        max_distance_m=params.max_integration_distance_m,
-        truncation_m=params.truncation_m(voxel_size_m))
-    if view_params is not None:
-        grid = view_ops.apply_workspace_bounds_to_grid(
-            grid, origin, voxel_size_m=voxel_size_m, params=view_params)
-    state, slots, bidx, _ = wg.allocate_and_batch(
-        state, grid, origin, max_blocks=max_blocks)
+    depth = _masked_depth(depth, mask, mask_mode)
+    state, slots, bidx = _allocate_view(
+        state, view_ops.touched_block_grid(
+            depth, T_L_C, camera=camera, voxel_size_m=voxel_size_m,
+            max_distance_m=params.max_integration_distance_m,
+            truncation_m=params.truncation_m(voxel_size_m)),
+        voxel_size_m=voxel_size_m, max_blocks=max_blocks,
+        view_params=view_params)
     if color is None:
         integrate_tsdf_cuda(distance, weight, slots, bidx, depth, T_L_C,
                             camera=camera, voxel_size_m=voxel_size_m,
@@ -148,6 +188,195 @@ def _integrate_color_frame(chans, dirty, tsdf_distance, tsdf_weight, state,
                          color_image, depth, T_L_C, camera=camera,
                          voxel_size_m=voxel_size_m, params=params)
     set_rows_drop(dirty, slots, True)
+
+
+@torch.no_grad()
+def _integrate_occupancy_frame(state, log_odds, observed, dirty, esdf_dirty,
+                               depth, T_L_C, mask=None, *, camera: Camera,
+                               voxel_size_m: float, params, max_blocks: int,
+                               mask_mode: int = 0, view_params=None):
+    """`_integrate_frame` for the occupancy layer (kernel occupancy_fuse).
+    The view grid takes the occupancy params' max distance, with the
+    occupied half width as its truncation band."""
+    depth = _masked_depth(depth, mask, mask_mode)
+    state, slots, bidx = _allocate_view(
+        state, view_ops.touched_block_grid(
+            depth, T_L_C, camera=camera, voxel_size_m=voxel_size_m,
+            max_distance_m=float(params.max_integration_distance_m),
+            truncation_m=float(params.occupied_region_half_width_m)),
+        voxel_size_m=voxel_size_m, max_blocks=max_blocks,
+        view_params=view_params)
+    integrate_occupancy_cuda(log_odds, observed, slots, bidx, depth, T_L_C,
+                             camera=camera, voxel_size_m=voxel_size_m,
+                             params=params)
+    set_rows_drop(dirty, slots, True)
+    set_rows_drop(esdf_dirty, slots, True)
+    return state
+
+
+@torch.no_grad()
+def _integrate_lidar_frame(state, distance, weight, dirty, esdf_dirty,
+                           range_image, T_L_S, *, lidar, voxel_size_m: float,
+                           params, max_blocks: int, view_params=None):
+    """lidar grid -> allocate -> view batch -> spherical TSDF fusion
+    (kernel tsdf_lidar_fuse) -> dirty bits. The workspace bounds apply as
+    on the camera path."""
+    state, slots, bidx = _allocate_view(
+        state, view_ops.touched_block_grid_lidar(
+            range_image, T_L_S, lidar=lidar, voxel_size_m=voxel_size_m,
+            max_distance_m=params.max_integration_distance_m,
+            truncation_m=params.truncation_m(voxel_size_m)),
+        voxel_size_m=voxel_size_m, max_blocks=max_blocks,
+        view_params=view_params)
+    integrate_tsdf_lidar_cuda(distance, weight, slots, bidx, range_image,
+                              T_L_S, lidar=lidar, voxel_size_m=voxel_size_m,
+                              params=params)
+    set_rows_drop(dirty, slots, True)
+    set_rows_drop(esdf_dirty, slots, True)
+    return state
+
+
+# Per-channel values of freed or cleared rows (recycled slots start in each
+# channel's initial state); every other channel resets to 0.
+_CHANNEL_RESET = {"esdf_sq_dist": float(esdf_ops.INF_SQ)}
+
+
+def _reset_rows(channels: Dict[str, torch.Tensor], slots,
+                reset_extra=()) -> None:
+    """Reset the rows `slots` of every channel to its initial value, in
+    place; slots outside [0, cap) are dropped. reset_extra: ((name, value),
+    ...) overrides."""
+    resets = dict(_CHANNEL_RESET)
+    resets.update(dict(reset_extra))
+    for name, ch in channels.items():
+        set_rows_drop(ch, slots, resets.get(name, 0))
+
+
+@torch.no_grad()
+def _free_mask(state, channels, dirty, esdf_dirty, removed, dead, *,
+               max_free: int, reset_extra=()):
+    """Free the (at most `max_free`, lowest) slots where `dead` (bool[cap])
+    and reset their channels and dirty bits, in place.
+
+    `removed` = (log i32[K, 3], count i32[]): a device ring of freed block
+    indices, written at (count + i) % K, so that publishers learn of
+    removed blocks without a host sync per free. The log is updated in
+    place. Returns (state, new count)."""
+    cap = dead.shape[0]
+    log, count = removed
+    K = log.shape[0]
+    keys = _first_ids(dead, max_free)
+    ok = keys < _BIG
+    idx = torch.where(ok, keys, cap)
+    freed_bidx = state.block_index_of_slot[idx.clamp(0, cap - 1).long()]
+    order = torch.cumsum(ok, 0, dtype=torch.int32) - 1
+    n_ok = ok.sum(dtype=torch.int32)
+    # Where one call frees more than K blocks, the newest K keep the ring.
+    newest = ok & (order >= n_ok - K)
+    set_rows_drop(log, torch.where(newest, torch.remainder(count + order, K),
+                                   K), freed_bidx)
+    count = count + n_ok
+    state = wg.free_slots(state, torch.where(ok, idx, -1))
+    _reset_rows(channels, idx, reset_extra)
+    set_rows_drop(dirty, idx, False)
+    set_rows_drop(esdf_dirty, idx, False)
+    return state, count
+
+
+def _block_centers(state, voxel_size_m: float) -> torch.Tensor:
+    """World block centers `f32[cap, 3]` of every slot's block index."""
+    bs = float(np.float32(voxel_size_m * B))
+    return (state.block_index_of_slot.float() + 0.5) * bs
+
+
+@torch.no_grad()
+def _decay_tsdf_fused(state, channels, dirty, esdf_dirty, removed, T_L_C, *,
+                      camera, voxel_size_m: float, params, max_free: int,
+                      has_view: bool, reset_extra=(),
+                      view_distance_m: float = 7.0):
+    """TSDF weight decay, then the blocks whose weights all decayed away
+    are freed; with a last view (`has_view`), its voxels keep their weight
+    and blocks whose centers it sees are never freed."""
+    d, w, block_max_w = decay_ops.decay_tsdf(
+        channels["tsdf_distance"], channels["tsdf_weight"],
+        state.block_index_of_slot, T_L_C, params=params,
+        voxel_size_m=voxel_size_m,
+        camera=camera if has_view and params.exclude_last_view else None,
+        view_distance_m=view_distance_m)
+    channels["tsdf_distance"].copy_(d)
+    channels["tsdf_weight"].copy_(w)
+    dead = wg.live_slot_mask(state) & (
+        block_max_w < float(np.float32(params.decayed_weight_threshold)))
+    if has_view:
+        p_C = Transform.apply(Transform.inverse(T_L_C),
+                              _block_centers(state, voxel_size_m))
+        _, in_view = camera.project(p_C[:, None, :])
+        dead = dead & ~in_view[:, 0]
+    return _free_mask(state, channels, dirty, esdf_dirty, removed, dead,
+                      max_free=max_free, reset_extra=reset_extra)
+
+
+@torch.no_grad()
+def _decay_occupancy_fused(state, channels, dirty, esdf_dirty, removed, *,
+                           params, max_free: int, dealloc_threshold: float,
+                           reset_extra=()):
+    """Occupancy log-odds decay toward the target, then the blocks whose
+    log-odds all reached it are freed."""
+    lo, block_max = decay_ops.decay_occupancy(channels["occupancy_log_odds"],
+                                              params=params)
+    channels["occupancy_log_odds"].copy_(lo)
+    dead = wg.live_slot_mask(state) & (
+        block_max < float(np.float32(dealloc_threshold)))
+    return _free_mask(state, channels, dirty, esdf_dirty, removed, dead,
+                      max_free=max_free, reset_extra=reset_extra)
+
+
+def _norm3_exact(v) -> torch.Tensor:
+    """`core/types.py::norm3` with a correctly rounded root."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    return sqrt32(fma(z, z, fma(y, y, x * x)))
+
+
+@torch.no_grad()
+def _clear_outside_radius_fused(state, channels, dirty, esdf_dirty, removed,
+                                center_m, radius_m: float, *,
+                                voxel_size_m: float, max_free: int,
+                                reset_extra=()):
+    """Free every live block whose center lies farther than `radius_m`
+    from `center_m` (f32[3] on the device)."""
+    dist = _norm3_exact(_block_centers(state, voxel_size_m) - center_m[None])
+    dead = wg.live_slot_mask(state) & (dist > float(np.float32(radius_m)))
+    return _free_mask(state, channels, dirty, esdf_dirty, removed, dead,
+                      max_free=max_free, reset_extra=reset_extra)
+
+
+@torch.no_grad()
+def _clear_shapes_fused(state, distance, weight, dirty, esdf_dirty, spheres,
+                        aabbs, *, voxel_size_m: float) -> None:
+    """Unobserve (weight and distance 0) the TSDF voxels of live blocks
+    inside spheres `f32[Ks, 4]` (center, radius; radius <= 0 inert) or
+    boxes `f32[Ka, 6]` (lo, hi; empty boxes inert), and mark their blocks
+    dirty; all in place."""
+    centers = voxel_centers_for_blocks(state.block_index_of_slot,
+                                       voxel_size_m)
+    inside = torch.zeros(centers.shape[:2], dtype=torch.bool,
+                         device=centers.device)
+    for k in range(spheres.shape[0]):
+        d = centers - spheres[k, :3]
+        d2 = fma(d[..., 2], d[..., 2], fma(d[..., 1], d[..., 1],
+                                           d[..., 0] * d[..., 0]))
+        r = spheres[k, 3]
+        inside |= (r > 0) & (d2 <= r * r)
+    for k in range(aabbs.shape[0]):
+        lo, hi = aabbs[k, :3], aabbs[k, 3:]
+        inb = torch.all((centers >= lo) & (centers <= hi), dim=-1)
+        inside |= torch.all(hi > lo) & inb
+    inside &= wg.live_slot_mask(state)[:, None]
+    cleared = torch.any(inside, dim=1)
+    weight.masked_fill_(inside, 0.0)
+    distance.masked_fill_(inside, 0.0)
+    dirty |= cleared
+    esdf_dirty |= cleared
 
 
 def _mark(n: int, idx, keep) -> torch.Tensor:
@@ -322,17 +551,24 @@ def _esdf_stats(state, esdf_dirty):
 
 
 @torch.no_grad()
-def _esdf_solve(state, tsdf_distance, tsdf_weight, origin_b, *, dims_b,
-                band: int, voxel_size_m: float, esdf_params):
+def _esdf_solve(state, layer_a, layer_b, origin_b, *, dims_b, band: int,
+                voxel_size_m: float, esdf_params, sites_from: str = "tsdf"):
     """sites -> exact banded EDT over the region: (sq, is_inside, observed).
 
-    The channels may be a pool prefix `[:n]`; the solve then covers the
-    slots below n only (exact when alloc_count <= n)."""
-    n = tsdf_distance.shape[0]
-    is_site, is_inside, observed = esdf_ops.esdf_sites_from_tsdf(
-        tsdf_distance, tsdf_weight, voxel_size_m=voxel_size_m,
-        max_site_distance_vox=float(esdf_params.max_site_distance_vox),
-        min_weight=float(esdf_params.min_weight))
+    `layer_a`/`layer_b` are (tsdf_distance, tsdf_weight), or with
+    sites_from="occupancy" (occupancy_log_odds, occupancy_observed). The
+    channels may be a pool prefix `[:n]`; the solve then covers the slots
+    below n only (exact when alloc_count <= n)."""
+    n = layer_a.shape[0]
+    if sites_from == "occupancy":
+        is_site, is_inside, observed = esdf_ops.esdf_sites_from_occupancy(
+            layer_a, layer_b > 0, occupied_log_odds_threshold=float(
+                esdf_params.occupied_log_odds_threshold))
+    else:
+        is_site, is_inside, observed = esdf_ops.esdf_sites_from_tsdf(
+            layer_a, layer_b, voxel_size_m=voxel_size_m,
+            max_site_distance_vox=float(esdf_params.max_site_distance_vox),
+            min_weight=float(esdf_params.min_weight))
     sq = esdf_from_sites_dense(
         is_site, state.block_index_of_slot[:n],
         torch.clamp_max(state.alloc_count, n), origin_b,
@@ -345,25 +581,39 @@ class DeviceMapper:
                  params: Optional[MapperParams] = None,
                  world: Optional[wg.WorldGridConfig] = None,
                  enable_color: bool = True,
+                 projective_layer: Optional[ProjectiveLayerType] = None,
                  max_blocks_per_frame: int = 4096,
                  device=None):
+        """`projective_layer` OCCUPANCY keeps a log-odds occupancy layer
+        (f32 log-odds, u8 observed) in place of the TSDF, and no color."""
         self.device = resolve_device(device)
         self.voxel_size_m = float(voxel_size_m)
         self.params = params or MapperParams()
         self.world_config = world or wg.WorldGridConfig()
         self.state = wg.create_world_grid(self.world_config, self.device)
         self.max_blocks_per_frame = max_blocks_per_frame
+        self.projective_layer = projective_layer or ProjectiveLayerType.TSDF
+        self._is_occupancy = (self.projective_layer
+                              == ProjectiveLayerType.OCCUPANCY)
         cap = self.world_config.capacity
         dev = self.device
 
         shape = (cap, VOXELS_PER_BLOCK)
-        self.channels: Dict[str, torch.Tensor] = {
-            "tsdf_distance": torch.zeros(shape, device=dev),
-            "tsdf_weight": torch.zeros(shape, device=dev),
+        if self._is_occupancy:
+            self.channels: Dict[str, torch.Tensor] = {
+                "occupancy_log_odds": torch.zeros(shape, device=dev),
+                "occupancy_observed": torch.zeros(shape, dtype=torch.uint8,
+                                                  device=dev)}
+            enable_color = False
+        else:
+            self.channels = {
+                "tsdf_distance": torch.zeros(shape, device=dev),
+                "tsdf_weight": torch.zeros(shape, device=dev)}
+        self.channels.update({
             "esdf_sq_dist": torch.full(shape, esdf_ops.INF_SQ, device=dev),
             "esdf_is_inside": torch.zeros(shape, dtype=torch.bool, device=dev),
             "esdf_observed": torch.zeros(shape, dtype=torch.bool, device=dev),
-        }
+        })
         if enable_color:
             # Planar r/g/b (0-255) and weight: the mesh kernel reads each
             # channel's pool rows directly.
@@ -373,6 +623,14 @@ class DeviceMapper:
         self.esdf_dirty = torch.zeros((cap,), dtype=torch.bool, device=dev)
         # Crossing blocks the mesh surface budget skipped (re-mesh backlog).
         self.mesh_pending = torch.zeros((cap,), dtype=torch.bool, device=dev)
+        # Ring of freed block indices (decay, clearing) for removed-block
+        # publishing: entry i % cap holds the i-th freed block.
+        self.removed_log = torch.zeros((cap, 3), dtype=torch.int32,
+                                       device=dev)
+        self.removed_count = torch.zeros((), dtype=torch.int32, device=dev)
+        # The last depth view (TSDF decay keeps its voxels).
+        self.last_depth_T_L_C = None
+        self.last_depth_camera: Optional[Camera] = None
         # (block indices, rows) of batched blocks with no surface crossing
         # since the last take_mesh_clear_keys().
         self._mesh_clear_pending = []
@@ -402,6 +660,11 @@ class DeviceMapper:
     def block_count(self) -> int:
         return self.refresh_count()
 
+    def _reset_extra(self):
+        """Per-channel reset overrides for freed slots (none until the
+        freespace channels come with the dynamics slice)."""
+        return ()
+
     def _view_bounds(self):
         """Workspace-bounds params, or None when unbounded."""
         v = self.params.view
@@ -409,9 +672,14 @@ class DeviceMapper:
                 == view_ops.WorkspaceBoundsType.UNBOUNDED else v)
 
     def _tensor(self, x, dtype):
+        """`x` on the mapper's device. Host arrays go through pinned memory
+        with an asynchronous copy, so that no step waits on the device."""
         if isinstance(x, torch.Tensor):
             return x.to(device=self.device, dtype=dtype)
-        return torch.tensor(np.asarray(x), dtype=dtype, device=self.device)
+        t = torch.tensor(np.asarray(x), dtype=dtype)
+        if self.device.type == "cpu":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     # ------------------------------------------------------------ integrate
     def integrate_depth(self, depth, T_L_C, camera: Camera,
@@ -430,13 +698,134 @@ class DeviceMapper:
         T_L_C = self._tensor(T_L_C, torch.float32)
         mm = 0 if mask is None else int(mask_mode)
         mask_t = None if mask is None else self._tensor(mask, torch.uint8)
-        self.state = _integrate_frame(
+        if self._is_occupancy:
+            self.state = _integrate_occupancy_frame(
+                self.state, self.channels["occupancy_log_odds"],
+                self.channels["occupancy_observed"], self.dirty,
+                self.esdf_dirty, depth, T_L_C, mask_t, camera=camera,
+                voxel_size_m=self.voxel_size_m, params=self.params.occupancy,
+                max_blocks=self.max_blocks_per_frame, mask_mode=mm,
+                view_params=self._view_bounds())
+        else:
+            self.state = _integrate_frame(
+                self.state, self.channels["tsdf_distance"],
+                self.channels["tsdf_weight"], self.dirty, self.esdf_dirty,
+                depth, T_L_C, mask_t, camera=camera,
+                voxel_size_m=self.voxel_size_m, params=self.params.projective,
+                max_blocks=self.max_blocks_per_frame, mask_mode=mm,
+                view_params=self._view_bounds())
+        self.last_depth_T_L_C = T_L_C
+        self.last_depth_camera = camera
+
+    def integrate_pointcloud(self, points, T_L_S, lidar, timestamps_s=None,
+                             T_L_S_end=None) -> None:
+        """Fuse one lidar scan `f32[N, 3]` (sensor frame) taken at T_L_S:
+        with `timestamps_s` (per point, from scan start) and `T_L_S_end`,
+        motion compensation into the scan-end frame first; then the range
+        image, the lidar view grid, allocation and spherical TSDF fusion
+        (kernel tsdf_lidar_fuse). The step makes no host sync. A TSDF layer
+        only."""
+        if self._is_occupancy:
+            raise NotImplementedError(
+                "lidar integration requires a TSDF projective layer")
+        if not isinstance(T_L_S, torch.Tensor):
+            self._touch_lidar_region(np.asarray(T_L_S), lidar)
+        else:
+            self._region_unknown = True
+        points = self._tensor(points, torch.float32)
+        T_L_S = self._tensor(T_L_S, torch.float32)
+        if timestamps_s is not None and T_L_S_end is not None:
+            T_L_S_end = self._tensor(T_L_S_end, torch.float32)
+            points = motion_compensate_pointcloud(
+                points, self._tensor(timestamps_s, torch.float32), T_L_S,
+                T_L_S_end, lidar)
+            T_L_S = T_L_S_end
+        self.state = _integrate_lidar_frame(
             self.state, self.channels["tsdf_distance"],
             self.channels["tsdf_weight"], self.dirty, self.esdf_dirty,
-            depth, T_L_C, mask_t, camera=camera,
+            pointcloud_to_range_image(points, lidar), T_L_S, lidar=lidar,
             voxel_size_m=self.voxel_size_m, params=self.params.projective,
-            max_blocks=self.max_blocks_per_frame, mask_mode=mm,
+            max_blocks=self.max_blocks_per_frame,
             view_params=self._view_bounds())
+
+    def _touch_lidar_region(self, T_L_S_np: np.ndarray, lidar) -> None:
+        """Fold the lidar's range cube around its origin into the
+        host-side AABBs (no device work)."""
+        bs = self.voxel_size_m * B
+        r = min(self.params.projective.max_integration_distance_m,
+                lidar.max_valid_range_m)
+        o = np.asarray(T_L_S_np, np.float64)[:3, 3]
+        lo = np.floor((o - r) / bs).astype(np.int64) - 1
+        hi = np.floor((o + r) / bs).astype(np.int64) + 1
+        w_lo, w_hi = self._world_bounds()
+        self._touch_block_aabb(np.maximum(lo, w_lo), np.minimum(hi, w_hi))
+
+    # --------------------------------------------------------- decay / clear
+    def _removed(self):
+        return self.removed_log, self.removed_count
+
+    def _touch_allocated(self) -> None:
+        """A map-wide change: the next ESDF update re-solves the whole
+        allocated AABB (host-side, no device sync)."""
+        if self._aabb_lo is not None:
+            self._touch_block_aabb(self._aabb_lo, self._aabb_hi)
+
+    def decay(self, max_free: int = 4096) -> None:
+        """Decay the projective layer (occupancy log-odds toward the
+        prior, or TSDF weights outside the last depth view) and free the
+        fully decayed blocks; their slots recycle through the free stack
+        and their block indices go to the removed ring. No host sync."""
+        if self._is_occupancy:
+            self.state, self.removed_count = _decay_occupancy_fused(
+                self.state, self.channels, self.dirty, self.esdf_dirty,
+                self._removed(), params=self.params.occupancy_decay,
+                max_free=max_free, dealloc_threshold=1e-3,
+                reset_extra=self._reset_extra())
+        else:
+            has_view = (self.last_depth_T_L_C is not None
+                        and self.last_depth_camera is not None)
+            T = (self.last_depth_T_L_C if has_view
+                 else torch.eye(4, dtype=torch.float32, device=self.device))
+            self.state, self.removed_count = _decay_tsdf_fused(
+                self.state, self.channels, self.dirty, self.esdf_dirty,
+                self._removed(), T, camera=self.last_depth_camera,
+                voxel_size_m=self.voxel_size_m, params=self.params.tsdf_decay,
+                max_free=max_free, has_view=has_view,
+                reset_extra=self._reset_extra(),
+                view_distance_m=float(
+                    self.params.projective.max_integration_distance_m))
+        self._touch_allocated()
+
+    def clear_outside_radius(self, center_m, radius_m: float,
+                             max_free: int = 8192) -> None:
+        """Free every block whose center lies farther than `radius_m` from
+        `center_m` (host (x, y, z) or a device f32[3]). No host sync."""
+        center = self._tensor(center_m, torch.float32)
+        self.state, self.removed_count = _clear_outside_radius_fused(
+            self.state, self.channels, self.dirty, self.esdf_dirty,
+            self._removed(), center, float(radius_m),
+            voxel_size_m=self.voxel_size_m, max_free=max_free,
+            reset_extra=self._reset_extra())
+        self._touch_allocated()
+
+    def clear_tsdf_inside_shapes(self, spheres=(), aabbs=(),
+                                 max_shapes: int = 8) -> None:
+        """Unobserve the TSDF voxels inside spheres ((cx, cy, cz), r) and
+        boxes ((lo xyz), (hi xyz)), at most `max_shapes` of each; an
+        occupancy mapper ignores the call. No host sync."""
+        if self._is_occupancy:
+            return
+        sp = [(*c, r) for c, r in list(spheres)[:max_shapes]]
+        ab = [(*lo, *hi) for lo, hi in list(aabbs)[:max_shapes]]
+        _clear_shapes_fused(
+            self.state, self.channels["tsdf_distance"],
+            self.channels["tsdf_weight"], self.dirty, self.esdf_dirty,
+            self._tensor(np.reshape(np.asarray(sp, np.float64), (-1, 4)),
+                         torch.float32),
+            self._tensor(np.reshape(np.asarray(ab, np.float64), (-1, 6)),
+                         torch.float32),
+            voxel_size_m=self.voxel_size_m)
+        self._touch_allocated()
 
     @property
     def color_enabled(self) -> bool:
@@ -556,15 +945,15 @@ class DeviceMapper:
                        for l, h in zip(r_lo, r_hi))
         dev = self.device
         sq_new, is_inside, observed = _esdf_solve(
-            self.state, self.channels["tsdf_distance"],
-            self.channels["tsdf_weight"],
-            torch.as_tensor(r_lo, dtype=torch.int32, device=dev),
+            self.state, *self._esdf_layers(),
+            device_ints(r_lo, torch.int32, dev),
             dims_b=dims_b, band=band, voxel_size_m=self.voxel_size_m,
-            esdf_params=self.params.esdf)
+            esdf_params=self.params.esdf,
+            sites_from="occupancy" if self._is_occupancy else "tsdf")
         # Splice the compute region's blocks into the persistent channel.
         bi = self.state.block_index_of_slot
-        lo = torch.as_tensor(c_lo, dtype=torch.int32, device=dev)
-        hi = torch.as_tensor(c_hi, dtype=torch.int32, device=dev)
+        lo = device_ints(c_lo, torch.int32, dev)
+        hi = device_ints(c_hi, torch.int32, dev)
         live = (torch.arange(self.capacity, device=dev)
                 < self.state.alloc_count)
         in_c = live & torch.all((bi >= lo[None, :]) & (bi <= hi[None, :]),
@@ -576,6 +965,14 @@ class DeviceMapper:
         self.esdf_dirty.zero_()
         self._dirty_lo = self._dirty_hi = None
         self._esdf_has_full = self._esdf_has_full or full
+
+    def _esdf_layers(self):
+        """The projective layer's two channels the ESDF takes its sites
+        from."""
+        if self._is_occupancy:
+            return (self.channels["occupancy_log_odds"],
+                    self.channels["occupancy_observed"])
+        return self.channels["tsdf_distance"], self.channels["tsdf_weight"]
 
     # --------------------------------------------------------------- replay
     def esdf_region(self, margin_blocks: int = 2, mult: int = 4):
@@ -623,6 +1020,9 @@ class DeviceMapper:
         within the bucket; `check_slot_bucket()` verifies that after the
         replay (one readback, outside any timing).
         """
+        if self._is_occupancy:
+            raise ValueError("replay_frames replays a TSDF layer; feed an "
+                             "occupancy mapper with integrate_depth")
         depths = self._tensor(depths, torch.float32)
         T_L_Cs = self._tensor(T_L_Cs, torch.float32)
         run_color = (color_every > 0 and colors is not None
@@ -800,11 +1200,14 @@ class DeviceMapper:
     # ---------------------------------------------------------------- state
     def state_arrays(self) -> Dict[str, np.ndarray]:
         """The allocator state and the channels as numpy arrays, under the
-        reference DeviceMapper's names (WorldGridState fields, channels and
-        mesh_pending)."""
+        reference DeviceMapper's names (WorldGridState fields, channels,
+        mesh_pending, removed_log and removed_count), copied."""
         out = self.state.to_numpy()
-        out.update({k: v.cpu().numpy() for k, v in self.channels.items()})
-        out["mesh_pending"] = self.mesh_pending.cpu().numpy()
+        extra = dict(self.channels, mesh_pending=self.mesh_pending,
+                     removed_log=self.removed_log,
+                     removed_count=self.removed_count)
+        # Copies: every step updates these tensors in place.
+        out.update({k: np.array(v.cpu().numpy()) for k, v in extra.items()})
         return out
 
     def load_state_arrays(self, arrays: Dict[str, np.ndarray]) -> None:
@@ -820,6 +1223,10 @@ class DeviceMapper:
         self.mesh_pending.copy_(torch.tensor(
             np.asarray(arrays.get("mesh_pending", False)), dtype=torch.bool
         ).expand_as(self.mesh_pending))
+        for k in ("removed_log", "removed_count"):
+            t = getattr(self, k)
+            t.copy_(torch.tensor(np.asarray(arrays.get(k, 0)),
+                                 dtype=torch.int32).expand_as(t))
         self.dirty.zero_()
         self.esdf_dirty.zero_()
         self._aabb_lo = self._aabb_hi = None

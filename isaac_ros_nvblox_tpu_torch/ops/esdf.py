@@ -1,8 +1,9 @@
 """ESDF site extraction (port of isaac_ros_nvblox_tpu/ops/esdf.py).
 
-Sites are observed voxels within `max_site_distance_vox` of the surface;
-`is_inside` and `observed` carry the TSDF sign and observation to the ESDF
-channels (EsdfVoxel{squared_distance_vox, is_inside, observed}).
+Sites are observed voxels within `max_site_distance_vox` of the surface
+(TSDF layer) or observed occupied voxels (occupancy layer); `is_inside` and
+`observed` carry the sign and observation to the ESDF channels
+(EsdfVoxel{squared_distance_vox, is_inside, observed}).
 """
 
 from __future__ import annotations
@@ -32,3 +33,13 @@ def esdf_sites_from_tsdf(tsdf_distance, tsdf_weight, *, voxel_size_m,
     band = float(np.float32(max_site_distance_vox) * np.float32(voxel_size_m))
     site = observed & (torch.abs(tsdf_distance) <= band)
     return site, inside, observed
+
+
+def esdf_sites_from_occupancy(log_odds, observed_mask, *,
+                              occupied_log_odds_threshold: float):
+    """Sites from an occupancy layer: observed voxels above the log-odds
+    threshold are sites and inside. Returns (is_site, is_inside,
+    observed) `bool[cap, 512]`."""
+    occupied = observed_mask & (
+        log_odds > float(np.float32(occupied_log_odds_threshold)))
+    return occupied, occupied, observed_mask

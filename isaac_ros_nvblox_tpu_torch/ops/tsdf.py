@@ -147,6 +147,54 @@ def integrate_tsdf(distance, weight, slots, block_indices, depth, T_L_C,
     return distance, weight
 
 
+@torch.no_grad()
+def integrate_tsdf_lidar(distance, weight, slots, block_indices, range_image,
+                         T_L_S, *, lidar, voxel_size_m: float,
+                         params: TsdfIntegratorParams
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fuse one lidar range image `f32[rows, cols]` (spherical model), in
+    place: `integrate_tsdf` with the voxel's range `r` in place of `z`,
+    in the distance and in the weight. Azimuths past the last column clamp
+    to it (no wrap at the +-pi seam). Same pool contract as
+    `integrate_tsdf`; returns (distance, weight), the same tensors."""
+    cap = distance.shape[0]
+    truncation = params.truncation_m(voxel_size_m)
+    centers_L = voxel_centers_for_blocks(block_indices, voxel_size_m)
+    p_S = Transform.apply(Transform.inverse(T_L_S), centers_L)
+    uv, r_vox, in_view = lidar.project(p_S)
+
+    measured = sample_image_nearest(range_image, uv)
+    depth_valid = (measured > 0.0) & torch.isfinite(measured)
+    sdf = measured - r_vox
+    update = (in_view & depth_valid
+              & (r_vox <= params.max_integration_distance_m)
+              & (sdf >= -truncation))
+    update = update & ((slots >= 0) & (slots < cap))[:, None]
+
+    w_new = compute_weight(params.weighting_mode, r_vox, sdf, truncation,
+                           dropoff_epsilon_m=voxel_size_m)
+    w_new = torch.where(update, w_new, torch.zeros_like(w_new))
+    safe = slots.clamp(0, cap - 1).long()
+    d_out, w_out = fuse(distance[safe], weight[safe], sdf, w_new, update,
+                        truncation, params.max_weight)
+    set_rows_drop(distance, slots, d_out)
+    set_rows_drop(weight, slots, w_out)
+    return distance, weight
+
+
+def tsdf_lidar_scalars(lidar, voxel_size_m: float,
+                       params: TsdfIntegratorParams) -> np.ndarray:
+    """The float32 constants the lidar fusion kernel takes: the TSDF
+    kernel's block (`tsdf_scalars` layout, camera entries 0) followed by
+    the lidar's (`Lidar.scalars`)."""
+    truncation = params.truncation_m(voxel_size_m)
+    r_drop, r_pen = weight_constants(truncation, voxel_size_m)
+    return np.concatenate([np.asarray(
+        [0.0, 0.0, 0.0, 0.0, 0.0, 0.0, voxel_size_m, truncation,
+         params.max_integration_distance_m, params.max_weight, r_drop,
+         r_pen], np.float32), lidar.scalars()])
+
+
 def tsdf_scalars(camera: Camera, voxel_size_m: float,
                  params: TsdfIntegratorParams) -> np.ndarray:
     """The float32 constants the fusion kernel takes, rounded as the plain

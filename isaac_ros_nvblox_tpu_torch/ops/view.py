@@ -161,6 +161,85 @@ def touched_block_grid(depth, T_L_C, *, camera: Camera, voxel_size_m: float,
     return touched.reshape(G, G, G), origin_block
 
 
+def _max_pool_same(img, window, stride):
+    """2-D max pool with XLA's "SAME" padding: the output has ceil(n /
+    stride) cells per axis, the input is padded with -inf by
+    (out - 1) * stride + window - n, the smaller half before it."""
+    pads = []
+    for n, k, s in zip(img.shape, window, stride):
+        out = -(-n // s)
+        pad = max((out - 1) * s + k - n, 0)
+        pads.append((pad // 2, pad - pad // 2))
+    (t, b), (left, right) = pads
+    x = F.pad(img[None, None], (left, right, t, b), value=float("-inf"))
+    return F.max_pool2d(x, window, stride=stride)[0, 0]
+
+
+@torch.no_grad()
+def touched_block_grid_lidar(range_image, T_L_S, *, lidar,
+                             voxel_size_m: float, max_distance_m: float,
+                             truncation_m: float):
+    """Mark the blocks touched by a lidar range image (the camera test
+    with the spherical model).
+
+    The grid is centred on the sensor. Each cell's block center is tested
+    against the maximum valid range over its angular footprint, sampled
+    from two coarse max images ((8, 32) and (32, 128) pixel cells, each
+    widened by a centred 3x3 max). The pooling pads both ends as the
+    reference's "SAME" windows do, while the sample index int(u / cell)
+    counts cells from column 0, so at 1800 columns the first cell of the
+    (8, 32) level holds columns 0-19: the reference's offset, kept.
+    Returns (grid bool[G,G,G], origin_block i32[3]); nothing is read back.
+    """
+    bs = block_size_m(voxel_size_m)
+    R = _grid_radius_blocks(max_distance_m, voxel_size_m)
+    G = 2 * R + 1
+    rows, cols = range_image.shape
+
+    origin = T_L_S[:3, 3]
+    origin_block = torch.floor(origin * recip32(bs)).to(torch.int32) - R
+
+    r_valid = torch.where(torch.isfinite(range_image) & (range_image > 0.0),
+                          range_image, torch.zeros_like(range_image))
+    lvl_a, lvl_b = (8, 32), (32, 128)
+    coarse = {lvl: _max_pool_same(_max_pool_same(r_valid, lvl, lvl), (3, 3),
+                                  (1, 1))
+              for lvl in (lvl_a, lvl_b)}
+    global_max = torch.amax(r_valid)
+
+    centers = ((_cell_iota(G, range_image.device).float()
+                + origin_block.float() + 0.5) * bs).reshape(-1, 3)
+    p_S = Transform.apply(Transform.inverse(T_L_S), centers)
+    uv, r, valid = lidar.project(p_S)
+    u, v = uv[..., 0], uv[..., 1]
+
+    # Angular footprint of a block at range r, in pixels.
+    ang = bs / torch.clamp_min(r, 1e-6)
+    fp_u = ang * (cols / (2.0 * np.pi))
+    fp_v = ang * ((lidar.num_elevation_divisions - 1)
+                  / max(lidar.elevation_range_rad, 1e-6))
+
+    def sample(lvl):
+        # The reference samples through a bfloat16 one-hot product.
+        img_l = coarse[lvl]
+        H_l, W_l = img_l.shape
+        big = float(2 ** 30)
+        cu = (u / lvl[1]).clamp(-big, big).to(torch.int32).clamp(0, W_l - 1)
+        cv = (v / lvl[0]).clamp(-big, big).to(torch.int32).clamp(0, H_l - 1)
+        return img_l[cv.long(), cu.long()].to(torch.bfloat16).float()
+
+    fits_a = (fp_v <= 2.0 * lvl_a[0]) & (fp_u <= 2.0 * lvl_a[1])
+    fits_b = (fp_v <= 2.0 * lvl_b[0]) & (fp_u <= 2.0 * lvl_b[1])
+    maxr = torch.where(fits_a, sample(lvl_a),
+                       torch.where(fits_b, sample(lvl_b), global_max))
+
+    margin = truncation_m + bs * float(np.sqrt(3.0) / 2.0)
+    touched = (valid & (r <= max_distance_m + bs)
+               & (r <= maxr + margin) & (maxr > 0.0))
+    near_sensor = norm3(centers - origin) < 1.5 * bs
+    return (touched | near_sensor).reshape(G, G, G), origin_block
+
+
 def apply_workspace_bounds_to_grid(grid, origin_block, *, voxel_size_m: float,
                                    params: ViewCalculatorParams):
     """Mask a touched-block grid by the configured workspace bounds: blocks

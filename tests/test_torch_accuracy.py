@@ -10,7 +10,10 @@ reaches on this path. Run as a script to print the figures:
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_accuracy.py
 
 With `--mesh` it prints the reference's own mesh-accuracy figures at the
-benchmark's accuracy configuration instead (a few minutes on the CPU).
+benchmark's accuracy configuration instead (a few minutes on the CPU);
+with `--occupancy` and `--lidar` the reference's own figures for
+chip_smoke.py's occupancy and lidar paths (its XLA integrators; the
+sources of those paths' limits).
 """
 
 import json
@@ -228,8 +231,179 @@ def mesh_reference():
         "overflow_count": int(m.state.overflow_count)}
 
 
+def _bucket(worst):
+    """bench.py:118-130's batch rule (chip_smoke.py's `bucket_of`)."""
+    for b in (512, 1024, 2048, 4096, 8192):
+        if worst <= b - 64:
+            return b
+    return 16384
+
+
+def _live_region(state):
+    """(origin, dims) of the live blocks' AABB."""
+    bidx = np.asarray(state.block_index_of_slot)
+    n = int(state.alloc_count)
+    live = bidx[:n, 0] < jwg.FREED_BLOCK_SENTINEL
+    lo, hi = bidx[:n][live].min(0), bidx[:n][live].max(0)
+    return lo, tuple(int(d) for d in hi - lo + 1)
+
+
+def occupancy_reference():
+    """The reference's CPU run of chip_smoke.py's occupancy path: the
+    bench scene's 16-frame VGA orbit replayed 4x into an occupancy mapper
+    (default occupancy params: 7 m, half width 0.1 m), decay every 8th
+    frame, the ESDF from occupied sites after the last frame (the numpy
+    EDT, equal to the reference's kernels), scored as chip_smoke.py
+    scores the port."""
+    from isaac_ros_nvblox_tpu.mapper.params import ProjectiveLayerType
+    jcam = jc.Camera(**ARGS)
+    poses, depths = _frames(jcam)
+    mb = _bucket(max(int(np.asarray(jv.touched_block_grid(
+        jnp.asarray(d), jnp.asarray(T), camera=jcam, voxel_size_m=VOXEL,
+        max_distance_m=7.0, truncation_m=0.1)[0]).sum())
+        for d, T in zip(depths, poses)))
+    m = JMapper(VOXEL, params=JParams(), world=jwg.WorldGridConfig(**WORLD),
+                enable_color=False, enable_esdf=False,
+                projective_layer=ProjectiveLayerType.OCCUPANCY,
+                max_blocks_per_frame=mb)
+    for k in range(64):
+        m.integrate_depth(depths[k % 16], poses[k % 16], jcam)
+        if (k + 1) % 8 == 0:
+            m.decay()
+    n = int(m.state.alloc_count)
+    bidx = np.asarray(m.state.block_index_of_slot)
+    lo = np.asarray(m.channels["occupancy_log_odds"])
+    obs = np.asarray(m.channels["occupancy_observed"]) > 0
+    site = np.asarray(jesdf.esdf_sites_from_occupancy(
+        jnp.asarray(lo), jnp.asarray(obs), occupied_log_odds_threshold=0.0)[0])
+    origin, dims = _live_region(m.state)
+    sq = jed.esdf_from_sites_reference(site, bidx - origin, n, dims,
+                                       BAND)[:n]
+    live = (bidx[:n, 0] < jwg.FREED_BLOCK_SENTINEL)[:, None]
+    centers = np.asarray(voxel_centers_for_blocks(
+        jnp.asarray(np.where(live, bidx[:n], 0)), VOXEL))
+    gt = np.asarray(SCENE.sdf(centers))
+    est = np.minimum(np.sqrt(np.minimum(sq, 1e12)) * VOXEL, 2.0)
+    est = np.where(site[:n], -est, est)
+    emask = live & (gt > 3 * VOXEL) & (gt < 1.0) & (sq < 1e11)
+    occupied = live & obs[:n] & (lo[:n] > 0)
+    near = np.abs(gt) <= 0.1 + VOXEL * np.sqrt(3.0) / 2
+    return {"max_blocks_per_frame": mb, "allocated_blocks": m.block_count(),
+            "alloc_high_water": n,
+            "blocks_freed_by_decay": int(m.removed_count),
+            "overflow_count": int(m.state.overflow_count),
+            "esdf_mae_m": float(np.mean(np.abs(est - gt)[emask])),
+            "esdf_voxels_scored": int(emask.sum()),
+            "occupied_voxels": int(occupied.sum()),
+            "occupied_near_surface_share":
+                float((occupied & near).sum() / max(occupied.sum(), 1))}
+
+
+def lidar_orbit_poses(n_per_room=32):
+    """chip_smoke.py's lidar poses: a level sensor at 1.3 m on the
+    benchmark's accuracy ellipses, heading along the ellipse."""
+    poses = []
+    for cx in (-3.0, 3.0):
+        for k in range(n_per_room):
+            a = 2 * np.pi * k / n_per_room
+            yaw = np.arctan2(1.4 * np.cos(a), -1.6 * np.sin(a))
+            T = np.eye(4, dtype=np.float32)
+            c, s_ = np.cos(yaw), np.sin(yaw)
+            T[:3, :3] = [[c, -s_, 0.0], [s_, c, 0.0], [0.0, 0.0, 1.0]]
+            T[:3, 3] = (cx + 1.6 * np.cos(a), 1.4 * np.sin(a), 1.3)
+            poses.append(T)
+    return poses
+
+
+def lidar_rays(lidar, row_offset=0.25):
+    """chip_smoke.py's `lidar_rays`: the beams `f32[rows * cols, 3]` at
+    `unproject`'s column centres, each row lowered by a quarter row, off
+    the range image's row boundaries (where the last bit of atan2 would
+    pick a return's row)."""
+    A, E = lidar.num_azimuth_divisions, lidar.num_elevation_divisions
+    az = (np.arange(A) + 0.5) / A * (2 * np.pi) - np.pi
+    rads_per_row = lidar.elevation_range_rad / max(E - 1, 1)
+    el = (lidar.max_angle_above_zero_elevation_rad
+          - (np.arange(E) + row_offset) * rads_per_row)
+    el, az = np.meshgrid(el, az, indexing="ij")
+    return np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                     np.sin(el)], -1).reshape(-1, 3).astype(np.float32)
+
+
+def _jax_lidar_scan(scene, lidar, T, num_steps=96):
+    """chip_smoke.py's `lidar_scan` in the reference's own terms."""
+    T = jnp.asarray(T)
+    dirs_S = jnp.asarray(lidar_rays(lidar))
+    dirs_L = dirs_S @ T[:3, :3].T
+    t = jnp.full((dirs_S.shape[0],), 1e-3, jnp.float32)
+    for _ in range(num_steps):
+        d = scene.sdf(dirs_L * t[:, None] + T[:3, 3])
+        t = jnp.minimum(t + jnp.where(d > 1e-4, d, 0.0),
+                        2.0 * lidar.max_valid_range_m)
+    hit = ((scene.sdf(dirs_L * t[:, None] + T[:3, 3]) < 1e-3)
+           & (t < lidar.max_valid_range_m))
+    return np.asarray(jnp.where(hit[:, None], dirs_S * t[:, None], 0.0))
+
+
+def lidar_reference():
+    """The reference's CPU run of chip_smoke.py's lidar path: the node's
+    lidar (1800 x 16, 30 deg, 0.1 m), 64 scans of the cluttered two-room
+    scene (32 per room), 7 m integration; the TSDF scored before the
+    clearing, then the same clearing."""
+    from isaac_ros_nvblox_tpu.models.lidar import (Lidar,
+                                                   pointcloud_to_range_image)
+    lidar = Lidar.equal_vertical_fov(1800, 16, float(np.radians(30.0)),
+                                     min_range_m=0.1)
+    scene = js.cluttered_multi_room_scene()
+    poses = lidar_orbit_poses()
+    scans = [_jax_lidar_scan(scene, lidar, T) for T in poses]
+    mb = _bucket(max(int(np.asarray(jv.touched_block_grid_lidar(
+        pointcloud_to_range_image(jnp.asarray(p), lidar), jnp.asarray(T),
+        lidar=lidar, voxel_size_m=VOXEL, max_distance_m=7.0,
+        truncation_m=0.2)[0]).sum()) for p, T in zip(scans, poses)))
+    m = JMapper(VOXEL, params=JParams(projective=JTsdf(
+        max_integration_distance_m=7.0)), world=jwg.WorldGridConfig(**WORLD),
+        enable_color=False, enable_esdf=False, max_blocks_per_frame=mb)
+    for p, T in zip(scans, poses):
+        m.integrate_pointcloud(p, T, lidar)
+    n = int(m.state.alloc_count)
+    bidx = np.asarray(m.state.block_index_of_slot)[:n]
+    gt = np.asarray(scene.sdf(voxel_centers_for_blocks(jnp.asarray(bidx),
+                                                       VOXEL)))
+    d = np.asarray(m.channels["tsdf_distance"])[:n]
+    w = np.asarray(m.channels["tsdf_weight"])[:n]
+    near = (np.abs(gt) < 0.1) & (w > 0.5)
+    out = {"max_blocks_per_frame": mb, "allocated_blocks": m.block_count(),
+           "overflow_count": int(m.state.overflow_count),
+           "ray_hit_share": float(np.mean(np.abs(np.stack(scans)).sum(-1)
+                                          > 0)),
+           "tsdf_mae_m": float(np.mean(np.abs(d[near] - gt[near]))),
+           "tsdf_voxels_scored": int(near.sum())}
+    m.clear_outside_radius(poses[-1][:3, 3], 5.0)
+    w_before = int((np.asarray(m.channels["tsdf_weight"]) > 0).sum())
+    m.clear_tsdf_inside_shapes(spheres=[((3.8, 1.0, 0.3), 0.5)])
+    out["blocks_freed_by_clear_outside_radius"] = int(m.removed_count)
+    out["blocks_after_clearing"] = m.block_count()
+    out["voxels_unobserved_by_sphere"] = w_before - int(
+        (np.asarray(m.channels["tsdf_weight"]) > 0).sum())
+    return out
+
+
 def main():
     import sys
+    for flag, fn, config in (
+            ("--occupancy", occupancy_reference,
+             "chip_smoke occupancy path: bench scene, 16-frame 640x480 orbit "
+             "x4, 0.05 m, occupancy 7 m / 0.1 m, decay every 8th, band 40"),
+            ("--lidar", lidar_reference,
+             "chip_smoke lidar path: cluttered two-room scene, 64 scans of "
+             "an 1800x16 30-degree lidar (beams a quarter row off the row "
+             "boundaries), 0.05 m, 7 m")):
+        if flag in sys.argv:
+            print(json.dumps({"config": config,
+                              "backend": jax.default_backend(),
+                              "reference": fn()}))
+            return
     if "--mesh" in sys.argv:
         print(json.dumps({
             "config": "bench mesh accuracy: cluttered two-room scene, 24 "

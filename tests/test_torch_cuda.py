@@ -35,6 +35,18 @@ from isaac_ros_nvblox_tpu_torch.ops.tsdf_color_cuda import (
 from isaac_ros_nvblox_tpu_torch.ops.tsdf_cuda import integrate_tsdf_cuda
 from isaac_ros_nvblox_tpu_torch.ops.view import (ViewCalculatorParams,
                                                  WorkspaceBoundsType)
+from isaac_ros_nvblox_tpu_torch.core.types import (Transform,
+                                                   voxel_centers_for_blocks)
+from isaac_ros_nvblox_tpu_torch.mapper.params import ProjectiveLayerType
+from isaac_ros_nvblox_tpu_torch.models.lidar import Lidar
+from isaac_ros_nvblox_tpu_torch.ops.decay import TsdfDecayParams
+from isaac_ros_nvblox_tpu_torch.ops.lidar_cuda import (
+    integrate_tsdf_lidar_cuda)
+from isaac_ros_nvblox_tpu_torch.ops.occupancy import (
+    OccupancyIntegratorParams, integrate_occupancy)
+from isaac_ros_nvblox_tpu_torch.ops.occupancy_cuda import (
+    integrate_occupancy_cuda)
+from isaac_ros_nvblox_tpu_torch.ops.tsdf import integrate_tsdf_lidar
 
 pytestmark = pytest.mark.cuda
 
@@ -372,3 +384,279 @@ def test_replay_makes_no_host_sync(dev):
     assert bool((m.channels["esdf_sq_dist"] < 1e11).any())
     assert bool((m.channels["color_weight"] > 0).any())
     assert mesh[0].shape[1:] == (3, 16, 512)
+
+
+# ---------------------------------------------------------------------------
+# Occupancy and lidar (slice 3)
+# ---------------------------------------------------------------------------
+
+# Parameter corners: the defaults, a narrow band with tight clamps and a
+# short range, a wide band with skewed odds.
+OCC_CORNERS = {
+    "default": {},
+    "narrow_clamped": dict(occupied_region_half_width_m=0.05,
+                           min_log_odds=-1.0, max_log_odds=1.2,
+                           max_integration_distance_m=2.5),
+    "wide_skewed": dict(occupied_region_half_width_m=0.25,
+                        free_region_occupancy_probability=0.45,
+                        occupied_region_occupancy_probability=0.9),
+}
+
+
+@pytest.mark.parametrize("corner", list(OCC_CORNERS))
+def test_occupancy_fuse_matches_plain(dev, corner):
+    d0, w0, slots, bidx, depth, T = _tsdf_setup(dev)
+    # Log-odds inside every corner's clamps, as integration keeps them.
+    lo0 = (d0 * 20.0).clamp(-1.0, 1.2)
+    ob0 = (w0 > 1.0).to(torch.uint8)
+    kw = dict(camera=CAM, voxel_size_m=VOXEL,
+              params=OccupancyIntegratorParams(**OCC_CORNERS[corner]))
+    want = integrate_occupancy(lo0.clone(), ob0.clone(), slots, bidx, depth,
+                               T, **kw)
+    before = kernels.LAUNCHES["occupancy_fuse"]
+    got = integrate_occupancy_cuda(lo0.clone(), ob0.clone(), slots, bidx,
+                                   depth, T, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["occupancy_fuse"] == before + 1
+    assert int((want[0] != lo0).sum()) > 200
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def level_pose(x, y, z, yaw, tilt=0.0):
+    c, s_ = np.cos(yaw), np.sin(yaw)
+    R = np.array([[c, -s_, 0.0], [s_, c, 0.0], [0.0, 0.0, 1.0]])
+    R = R @ np.array([[1.0, 0.0, 0.0], [0.0, np.cos(tilt), -np.sin(tilt)],
+                      [0.0, np.sin(tilt), np.cos(tilt)]])
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = R
+    T[:3, 3] = (x, y, z)
+    return T
+
+
+def _lidar_setup(dev, A, E, seed=0, cap=512):
+    """Blocks all around the sensor (the batch straddles the +-pi seam),
+    padding entries, a textured range image with holes, random rows."""
+    rng = np.random.RandomState(seed)
+    bidx = np.stack([rng.randint(-12, 12, 400), rng.randint(-12, 12, 400),
+                     rng.randint(-2, 3, 400)], 1).astype(np.int32)
+    bidx = np.unique(bidx, axis=0)
+    n = bidx.shape[0]
+    slots = np.concatenate([np.arange(n), [cap, -1]]).astype(np.int32)
+    bidx = np.concatenate([bidx, [[0, 0, 0], [1, 1, 1]]]).astype(np.int32)
+    base = 3.0 + 0.8 * np.sin(np.linspace(0, 6 * np.pi, A))[None, :]
+    img = (np.broadcast_to(base, (E, A)) + rng.rand(E, A) * 0.05)
+    img = img.astype(np.float32)
+    img[rng.rand(E, A) < 0.05] = 0.0
+    img[::5, ::11] = np.nan
+    d0 = (rng.randn(cap, 512) * 0.05).astype(np.float32)
+    w0 = (rng.rand(cap, 512) * 2.0).astype(np.float32)
+    T = level_pose(0.11, -0.07, 0.3, 0.4, tilt=0.05)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+    return t(d0), t(w0), t(slots), t(bidx), t(img), t(T)
+
+
+@pytest.mark.parametrize("mode", list(WeightingFunctionType))
+@pytest.mark.parametrize("A,E", [(512, 32), (1800, 16)])
+def test_tsdf_lidar_fuse_matches_plain(dev, mode, A, E):
+    d0, w0, slots, bidx, img, T = _lidar_setup(dev, A, E)
+    lidar = Lidar.equal_vertical_fov(A, E, float(np.radians(30.0)),
+                                     min_range_m=0.1)
+    kw = dict(lidar=lidar, voxel_size_m=VOXEL,
+              params=TsdfIntegratorParams(weighting_mode=mode,
+                                          max_integration_distance_m=6.0))
+    want = integrate_tsdf_lidar(d0.clone(), w0.clone(), slots, bidx, img, T,
+                                **kw)
+    before = kernels.LAUNCHES["tsdf_lidar_fuse"]
+    got = integrate_tsdf_lidar_cuda(d0.clone(), w0.clone(), slots, bidx, img,
+                                    T, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tsdf_lidar_fuse"] == before + 1
+    assert int((want[1] != w0).sum()) > 500
+    # Both seam sides are in the batch.
+    p = Transform.apply(Transform.inverse(T), voxel_centers_for_blocks(
+        bidx[:-2], VOXEL))
+    uv, _, ok = lidar.project(p)
+    u = uv[..., 0][ok]
+    assert bool((u < 0.05 * A).any()) and bool((u > 0.95 * A).any())
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _occupancy_mapper(d, **kw):
+    params = MapperParams(
+        occupancy=OccupancyIntegratorParams(max_integration_distance_m=3.0),
+        esdf=EsdfIntegratorParams(max_esdf_distance_m=0.6))
+    return DeviceMapper(VOXEL, params=params,
+                        world=wg.WorldGridConfig(dims=(48, 48, 24),
+                                                 capacity=4096,
+                                                 origin_block=(-24, -24, -6)),
+                        projective_layer=ProjectiveLayerType.OCCUPANCY,
+                        max_blocks_per_frame=1024, device=d, **kw)
+
+
+def test_occupancy_path_cuda_equals_cpu(dev):
+    """Frames, decay every 2nd, ESDF every 2nd: the card equals the plain
+    path on the CPU in every array."""
+    scene = default_test_scene()
+    poses = [orbit_pose(2 * np.pi * k / 8) for k in range(4)]
+    depths = [render_depth(scene, CAM, T, device="cpu") for T in poses]
+    maps = [_occupancy_mapper(d) for d in ("cpu", dev)]
+    for m in maps:
+        for k, (depth, T) in enumerate(zip(depths, poses)):
+            m.integrate_depth(depth, T, CAM)
+            if k % 2 == 1:
+                m.decay()
+                m.update_esdf()
+    a, b = (m.state_arrays() for m in maps)
+    assert a.keys() == b.keys()
+    assert int(a["removed_count"]) > 100
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def _lidar_points(scene, lidar, T_L_S, device, row_offset=0.25):
+    """Sphere-traced points along the lidar's rays lowered by a quarter
+    row (off the range image's row boundaries, where the card's and the
+    CPU's atan2 may round a point into different rows)."""
+    T = torch.as_tensor(T_L_S, device=device)
+    el = (lidar.max_angle_above_zero_elevation_rad
+          - (torch.arange(lidar.num_elevation_divisions, device=device)
+             + row_offset) * lidar.rads_per_row)
+    az = ((torch.arange(lidar.num_azimuth_divisions, device=device) + 0.5)
+          / lidar.num_azimuth_divisions * (2 * np.pi) - np.pi)
+    elg, azg = torch.meshgrid(el.float(), az.float(), indexing="ij")
+    dirs = torch.stack([torch.cos(elg) * torch.cos(azg),
+                        torch.cos(elg) * torch.sin(azg), torch.sin(elg)],
+                       -1).reshape(-1, 3)
+    dirs_L = Transform.rotate(T, dirs)
+    t = torch.full((dirs.shape[0],), 1e-3, device=device)
+    for _ in range(96):
+        d = scene.sdf(dirs_L * t[:, None] + T[:3, 3])
+        t = torch.clamp_max(t + torch.where(d > 1e-4, d, torch.zeros_like(d)),
+                            20.0)
+    return dirs * t[:, None]
+
+
+def test_lidar_path_cuda_matches_cpu(dev):
+    """Scans (one motion-compensated), ESDF and clearing on the card
+    against the plain path on the CPU. The card's atan2 and the CPU's
+    differ in the last bit on some inputs, so the TSDF is held as the CPU
+    tests hold the port to the reference: blocks alike, and within 1e-5
+    on >= 99.9% of the observed voxels."""
+    scene = default_test_scene()
+    lidar = Lidar.equal_vertical_fov(512, 32, float(np.radians(30.0)),
+                                     min_range_m=0.1)
+    poses = [level_pose(0.3 * k - 0.5, 0.2 * k, 1.3, 0.8 * k)
+             for k in range(4)]
+    scans = [_lidar_points(scene, lidar, T, "cpu") for T in poses]
+    stamps = torch.linspace(0.0, 0.1, scans[0].shape[0])
+    params = MapperParams(
+        projective=TsdfIntegratorParams(max_integration_distance_m=3.0),
+        esdf=EsdfIntegratorParams(max_esdf_distance_m=0.6))
+    out = []
+    for d in ("cpu", dev):
+        m = DeviceMapper(VOXEL, params=params, enable_color=False,
+                         world=wg.WorldGridConfig(dims=(48, 48, 24),
+                                                  capacity=4096,
+                                                  origin_block=(-24, -24, -6)),
+                         max_blocks_per_frame=2048, device=d)
+        m.integrate_pointcloud(scans[0], poses[0], lidar)
+        m.integrate_pointcloud(scans[1], poses[1], lidar)
+        m.integrate_pointcloud(scans[2], poses[2], lidar, timestamps_s=stamps,
+                               T_L_S_end=poses[3])
+        m.update_esdf()
+        before = m.state_arrays()
+        m.clear_outside_radius(poses[3][:3, 3], 2.0)
+        m.clear_tsdf_inside_shapes(spheres=[((0.5, 0.5, 1.0), 0.6)])
+        out.append((before, m.state_arrays()))
+    for stage in (0, 1):
+        a, b = out[0][stage], out[1][stage]
+        common, ia, ib = _common_blocks(a, b)
+        assert len(common) > (500 if stage == 0 else 100)
+        d_a, w_a = a["tsdf_distance"][ia], a["tsdf_weight"][ia]
+        d_b, w_b = b["tsdf_distance"][ib], b["tsdf_weight"][ib]
+        obs = (w_a > 0) | (w_b > 0)
+        bad = (np.abs(d_a - d_b) > 1e-5) | (np.abs(w_a - w_b) > 1e-5)
+        assert obs.sum() > (20000 if stage == 0 else 2000)
+        assert (bad & obs).sum() <= 1e-3 * obs.sum()
+        if stage == 0:
+            sq_a, sq_b = a["esdf_sq_dist"][ia], b["esdf_sq_dist"][ib]
+            assert (sq_a < 1e11).sum() > 10000
+            assert (sq_a == sq_b).mean() > 0.995
+    n_a, n_b = int(out[0][1]["removed_count"]), int(out[1][1]["removed_count"])
+    assert n_a > 100 and abs(n_a - n_b) <= 0.01 * n_a
+
+
+def _common_blocks(a, b):
+    """The live blocks two maps share (at least 99% of either's), and
+    their slots on each side."""
+    blocks = []
+    for x in (a, b):
+        n = int(x["alloc_count"])
+        blocks.append({tuple(k): i for i, k in
+                       enumerate(x["block_index_of_slot"][:n].tolist())
+                       if k[0] < wg.FREED_BLOCK_SENTINEL})
+    common = sorted(blocks[0].keys() & blocks[1].keys())
+    assert len(common) >= 0.99 * max(len(blocks[0]), len(blocks[1]))
+    return (common, [blocks[0][k] for k in common],
+            [blocks[1][k] for k in common])
+
+
+def test_slice3_entry_points_make_no_host_sync(dev):
+    """The occupancy frame step, decay and the ESDF from occupancy (host
+    poses), lidar integration (device and host poses, with motion
+    compensation), TSDF decay with and without a last view, and both
+    clearings never wait on the device."""
+    scene = default_test_scene()
+    poses = [orbit_pose(2 * np.pi * k / 8) for k in range(4)]
+    depths = torch.stack([render_depth(scene, CAM, T, device=dev)
+                          for T in poses])
+    om = _occupancy_mapper(dev)
+    lidar = Lidar.equal_vertical_fov(512, 32, float(np.radians(30.0)),
+                                     min_range_m=0.1)
+    l_pose = level_pose(0.2, -0.3, 1.3, 0.7)
+    pts = _lidar_points(scene, lidar, l_pose, dev)
+    stamps = torch.linspace(0.0, 0.1, pts.shape[0], device=dev)
+    T_dev = torch.as_tensor(l_pose, device=dev)
+    lm = DeviceMapper(VOXEL, params=MapperParams(
+        projective=TsdfIntegratorParams(max_integration_distance_m=3.0),
+        tsdf_decay=TsdfDecayParams(decay_factor=0.5)),
+        enable_color=False, max_blocks_per_frame=2048, device=dev,
+        world=wg.WorldGridConfig(dims=(48, 48, 24), capacity=4096,
+                                 origin_block=(-24, -24, -6)))
+
+    def occupancy_steps(k):
+        om.integrate_depth(depths[k], poses[k], CAM)
+        om.decay()
+        om.update_esdf()
+
+    def lidar_steps():
+        lm.integrate_pointcloud(pts, l_pose, lidar)
+        lm.integrate_pointcloud(pts, T_dev, lidar, timestamps_s=stamps,
+                                T_L_S_end=T_dev)
+        lm.decay()
+        lm.integrate_depth(depths[0], poses[0], CAM)
+        lm.decay()
+        lm.clear_outside_radius(l_pose[:3, 3], 2.5)
+        lm.clear_tsdf_inside_shapes(spheres=[((0.5, 0.0, 1.0), 0.5)],
+                                    aabbs=[((-1.0, -1.0, 0.0),
+                                            (0.0, 0.0, 1.0))])
+        lm.clear_tsdf_inside_shapes(spheres=[((0.2, 0.0, 1.0), 0.3)])
+
+    occupancy_steps(0)          # warm-up: kernel loads, device constants
+    lidar_steps()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k in (1, 2):
+            occupancy_steps(k)
+        lidar_steps()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int(om.state.overflow_count) == 0
+    assert bool((om.channels["esdf_sq_dist"] < 1e11).any())
+    assert int(om.removed_count) > 0 and int(lm.removed_count) > 0

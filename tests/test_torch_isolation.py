@@ -29,6 +29,14 @@ from isaac_ros_nvblox_tpu_torch.ops.mesh_cuda import (marching_cubes_fused,
 from isaac_ros_nvblox_tpu_torch.ops.tsdf_cuda import integrate_tsdf_cuda
 from isaac_ros_nvblox_tpu_torch.ops.tsdf_color_cuda import (
     integrate_tsdf_color_cuda)
+from isaac_ros_nvblox_tpu_torch.models.lidar import Lidar
+from isaac_ros_nvblox_tpu_torch.ops.lidar_cuda import (
+    integrate_tsdf_lidar_cuda)
+from isaac_ros_nvblox_tpu_torch.ops.occupancy import (
+    OccupancyIntegratorParams, integrate_occupancy)
+from isaac_ros_nvblox_tpu_torch.ops.occupancy_cuda import (
+    integrate_occupancy_cuda)
+from isaac_ros_nvblox_tpu_torch.ops.tsdf import integrate_tsdf_lidar
 
 torch.set_num_threads(1)
 
@@ -117,11 +125,28 @@ def test_wrappers_take_plain_versions_on_cpu():
                               **mc)
     b += marching_cubes_plain(rows[0] - 0.5, rows[1], rows[2:5], nbr8, slots,
                               **mc)
+    occ = dict(camera=cam, voxel_size_m=0.05,
+               params=OccupancyIntegratorParams())
+    lo = torch.randn(16, 512)
+    obs = (torch.rand(16, 512) < 0.5).to(torch.uint8)
+    a += integrate_occupancy_cuda(lo.clone(), obs.clone(), slots, bidx, depth,
+                                  T, **occ)
+    b += integrate_occupancy(lo.clone(), obs.clone(), slots, bidx, depth, T,
+                             **occ)
+    lidar = Lidar.equal_vertical_fov(64, 8, 0.5, min_range_m=0.1)
+    rng_img = torch.from_numpy((1.0 + rng.rand(8, 64)).astype(np.float32))
+    lkw = dict(lidar=lidar, voxel_size_m=0.05, params=TsdfIntegratorParams())
+    a += integrate_tsdf_lidar_cuda(d0.clone(), w0.clone(), slots, bidx - 4,
+                                   rng_img, T, **lkw)
+    b += integrate_tsdf_lidar(d0.clone(), w0.clone(), slots, bidx - 4,
+                              rng_img, T, **lkw)
+    assert float(b[-1].max()) > 0
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert set(kernels.LAUNCHES) == {"tsdf_fuse", "edt_pass1", "edt_pass",
                                      "color_fuse", "tsdf_color_fuse",
-                                     "marching_cubes"}
+                                     "marching_cubes", "occupancy_fuse",
+                                     "tsdf_lidar_fuse"}
     assert not any(kernels.LAUNCHES.values())
 
 
