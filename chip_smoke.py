@@ -25,6 +25,12 @@ voxels, a 64x64x32-block world with 16384 pool slots.
     scene, 64 scans through `integrate_pointcloud` (kernel
     tsdf_lidar_fuse), ESDF every 4th, then `clear_outside_radius` and
     `clear_tsdf_inside_shapes`.
+  * dynamic_frames: the dynamic mapping mode (`MultiMapper`). Timed: the
+    bench's dynamics row (bench.py:246-293), the main path's frames 25 ms
+    apart through `replay_frames_dynamic` (kernels detect_dynamic,
+    tsdf_fuse, occupancy_fuse, dilate_dense). Scored: the scene of
+    tools/dynamics_quality.py, an intruder sphere crossing confident
+    freespace, detected (`detect_dynamic`) and integrated (`integrate_depth`).
 
 It builds every CUDA kernel from `isaac_ros_nvblox_tpu_torch/csrc/`, checks
 that each path went through its kernels (launch counts set to 0 just before
@@ -82,6 +88,20 @@ MESH_FSCORE_MIN = 0.94
 OCC_ESDF_MAE_LIMIT_M = 0.055
 OCC_NEAR_SHARE_MIN = 0.999
 LIDAR_TSDF_MAE_LIMIT_M = 0.022
+# Dynamics limits, from the reference's own CPU run of the scored sequence
+# (its XLA path; `tests/test_torch_accuracy.py --dynamics`): 315 011
+# high-confidence freespace voxels after the 64 build frames; on each of
+# the 8 intruder frames it detects exactly the ground-truth pixels (TPR 1.0,
+# FPR 0.0); 1382 occupied voxels in the dynamic map after the 8 frames.
+# Agreement allowed (the card renders its own frames): the voxel count
+# within 0.1%, detected pixels within 0.5% per frame, mean TPR at most
+# 0.005 below the reference's, occupied voxels within 1%.
+DYN_REF_HC_VOXELS = 315011
+DYN_REF_DETECTED = (5728, 4719, 8683, 33738, 24602, 13306, 7118, 4691)
+DYN_REF_MEAN_TPR = 1.0
+DYN_REF_OCCUPIED = 1382
+DYN_HC_TOL, DYN_DETECTED_TOL, DYN_TPR_TOL, DYN_OCCUPIED_TOL = (
+    0.001, 0.005, 0.005, 0.01)
 
 
 def fail(msg: str) -> None:
@@ -753,6 +773,358 @@ def lidar_phase(dev, smi, voxel, world):
             "library_ms": None}
 
 
+def intruder_center(k: int):
+    """The intruder of tools/dynamics_quality.py:80-91: a 0.25 m sphere
+    flying across the room, its centre on frame k of 8."""
+    t = k / 7.0
+    return (-1.6 + 3.2 * t, 1.4 - 2.2 * t, 1.0)
+
+
+def detect_reads(state, p_L, depth_s, voxel: float, max_depth: float):
+    """(distinct slot_grid cells, distinct high_confidence bytes) the
+    detection's evaluated pixels read: a pixel with 0 < z <= max depth
+    whose endpoint lies in the world grid reads its cell's slot, and one
+    whose block is allocated its voxel's byte."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch.core.types import recip32
+    g = torch.floor(p_L * recip32(voxel)).clamp(-2.0 ** 30, 2.0 ** 30).to(
+        torch.int32)
+    b = torch.div(g, 8, rounding_mode="floor")
+    cell = b - state.origin_block
+    D = state.slot_grid.shape
+    z = depth_s.reshape(-1)
+    ok = (z > 0) & (z <= max_depth)
+    for a in range(3):
+        ok &= (cell[:, a] >= 0) & (cell[:, a] < D[a])
+    lin = ((cell[:, 0] * D[1] + cell[:, 1]) * D[2] + cell[:, 2])[ok].long()
+    slot = state.slot_grid.reshape(-1)[lin].long()
+    l = (g - b * 8)[ok].long()
+    byte = (slot * 512 + (l[:, 0] * 8 + l[:, 1]) * 8 + l[:, 2])[slot >= 0]
+    return int(torch.unique(lin).numel()), int(torch.unique(byte).numel())
+
+
+def dynamics_phase(dev, smi, camera, depths_r, poses_r, max_blocks: int,
+                   voxel: float, world):
+    """The dynamic mapping mode. (a) Timed, the bench's dynamics row: the
+    main path's 64 frames 25 ms apart through `replay_frames_dynamic`, the
+    first replay without a freespace region, then replays over the
+    allocated AABB with slot bucket 4096; against plain `replay_frames` of
+    the same frames. (b) Scored, tools/dynamics_quality.py's scene: the
+    map built from the room and box, then 8 intruder frames detected and
+    integrated. Holds dilate_dense and detect_dynamic against their plain
+    versions. Returns their kernels rows."""
+    import dataclasses
+    import torch
+    import torch.nn.functional as F
+    from isaac_ros_nvblox_tpu_torch import kernels
+    from isaac_ros_nvblox_tpu_torch.mapper.device_mapper import DeviceMapper
+    from isaac_ros_nvblox_tpu_torch.mapper.multi_mapper import MultiMapper
+    from isaac_ros_nvblox_tpu_torch.mapper.params import (MapperParams,
+                                                          MappingType,
+                                                          MultiMapperParams)
+    from isaac_ros_nvblox_tpu_torch.models.scene import (Box, RoomBox, Scene,
+                                                         Sphere, orbit_pose,
+                                                         render_depth)
+    from isaac_ros_nvblox_tpu_torch.ops import halo
+    from isaac_ros_nvblox_tpu_torch.ops.detect import detect_dynamic_plain
+    from isaac_ros_nvblox_tpu_torch.ops.detect_cuda import detect_dynamic
+    from isaac_ros_nvblox_tpu_torch.ops.tsdf import TsdfIntegratorParams
+
+    params = MapperParams(
+        projective=TsdfIntegratorParams(max_integration_distance_m=5.0))
+    static = dataclasses.replace(params,
+                                 remove_small_connected_components=False)
+    max_depth = 5.0
+
+    def multi(mb):
+        return MultiMapper(MultiMapperParams(
+            mapping_type=MappingType.DYNAMIC, block_capacity=16384,
+            max_blocks_per_frame=mb, static_mapper=static), world=world,
+            device=dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    # ---- (a) timed: the bench's dynamics row ------------------------------
+    n_steps = depths_r.shape[0]
+    slot_bucket = 4096
+    mm = multi(max_blocks)
+    sm = mm.static_mapper
+    clock = [0.0]
+
+    def dyn_pass(region=None):
+        times = clock[0] + 25.0 * torch.arange(n_steps, device=dev,
+                                               dtype=torch.float32)
+        clock[0] += 25.0 * n_steps
+        mm.replay_frames_dynamic(depths_r, poses_r, times, camera,
+                                 region=region,
+                                 slot_bucket=slot_bucket if region else 0)
+
+    dyn_pass()                       # warm-up: no region, view-batch form
+    sm._refresh_region_from_device()
+    region = sm.esdf_region(margin_blocks=0, mult=1)
+
+    def fast():
+        dyn_pass(region)
+
+    fast()                           # warm-up of the full-pool form
+    plain = DeviceMapper(voxel, params=params, world=world,
+                         max_blocks_per_frame=max_blocks, device=dev)
+    plain.replay_frames(depths_r, poses_r, camera)
+    kernels.reset_launch_counts()
+    t_first = timed(fast)
+    launches = dict(kernels.LAUNCHES)
+    t_plain, t_dyn = [], []
+    for _ in range(3):
+        t_plain.append(timed(lambda: plain.replay_frames(depths_r, poses_r,
+                                                         camera)))
+        t_dyn.append(timed(fast))
+    diffs = sorted(d - p for d, p in zip(t_dyn, t_plain))
+    evs, wall = trace(fast, 1)
+    sm.check_slot_bucket()
+    busy = sum(us for _, us in evs) / 1e3
+    overflow = [int(sm.state.overflow_count),
+                int(mm.dynamic_mapper.state.overflow_count)]
+    row = {"phase": "dynamic_frames", "part": "timed", "frames": n_steps,
+           "frame_spacing_ms": 25.0, "max_blocks_per_frame": max_blocks,
+           "dynamic_max_blocks_per_frame":
+               mm.dynamic_mapper.max_blocks_per_frame,
+           "slot_bucket": slot_bucket,
+           "freespace_region_origin": [int(v) for v in region[0]],
+           "freespace_region_dims_blocks": [int(v) for v in region[1]],
+           "ms_per_frame": float(np.median(t_dyn)) / n_steps * 1e3,
+           "dynamics_ms": diffs[len(diffs) // 2] / n_steps * 1e3,
+           "plain_replay_ms_per_frame": float(np.median(t_plain))
+           / n_steps * 1e3,
+           "replay_s_dynamic": [t_first] + t_dyn, "replay_s_plain": t_plain,
+           "device_ms_per_frame": busy / n_steps,
+           "device_idle_share": 1 - busy / 1e3 / wall,
+           "device_activities_per_frame": len(evs) / n_steps,
+           "device_to_host_copies": sum(1 for n, _ in evs if "DtoH" in n),
+           "top_per_frame": top_kernels(evs, n_steps, 8),
+           "launches": launches, "allocated_blocks": sm.block_count(),
+           "alloc_high_water": int(sm.state.alloc_count),
+           "dynamic_blocks": mm.dynamic_mapper.block_count(),
+           "overflow_count": overflow, "nvidia_smi": smi}
+    emit(row)
+    for name in ("detect_dynamic", "tsdf_fuse", "occupancy_fuse",
+                 "dilate_dense"):
+        if launches[name] != n_steps:
+            fail(f"{name} launched {launches[name]} times in a dynamic "
+                 f"replay of {n_steps} frames")
+    if overflow != [0, 0]:
+        fail(f"dynamic_frames overflow_count {overflow} != 0")
+
+    # dilate_dense on the replay's own region: the occupancy indicator of
+    # the built map over the freespace region, as the path assembles it.
+    fs = static.freespace
+    ch = sm.channels
+    occ = ((ch["tsdf_distance"][:slot_bucket]
+            < fs.max_tsdf_distance_for_occupancy_m)
+           & (ch["tsdf_weight"][:slot_bucket] > 1e-6)).float()
+    dims = tuple(int(d) for d in region[1])
+    dense, _, _ = halo.assemble_dense_grid(
+        occ, sm.state.block_index_of_slot[:slot_bucket], sm.state.alloc_count,
+        torch.as_tensor(np.asarray(region[0]), dtype=torch.int32,
+                        device=dev), dims)
+
+    def voxels(g):
+        """A dense grid as one [1, 1, 8Cx, 8Cy, 8Cz] voxel volume."""
+        cx, cy, cz = g.shape[:3]
+        return g.view(cx, cy, cz, 8, 8, 8).permute(0, 3, 1, 4, 2, 5).reshape(
+            1, 1, 8 * cx, 8 * cy, 8 * cz)
+
+    got = halo.dilate_dense_grid(dense)
+    want = halo.dilate_dense_grid_plain(dense)
+    vol = voxels(dense).contiguous()
+    lib = F.max_pool3d(vol, 3, stride=1, padding=1)
+    torch.cuda.synchronize()
+    exact9 = bool(torch.equal(got, want))
+    lib_equal = bool(torch.equal(lib, voxels(got)))
+    err9 = float((got - want).abs().max())
+    g = torch.Generator(device="cpu").manual_seed(9)
+    shapes = []
+    for shape in ((1, 5, 3), (4, 3, 1), (7, 5, 9), (1, 1, 1), dims):
+        r = torch.rand(shape + (512,), generator=g)
+        grid = torch.where(r < 0.05, torch.rand(shape + (512,), generator=g)
+                           * 7.0, 0.0).to(dev)
+        a, b = halo.dilate_dense_grid(grid), halo.dilate_dense_grid_plain(grid)
+        c = F.max_pool3d(voxels(grid).contiguous(), 3, stride=1, padding=1)
+        torch.cuda.synchronize()
+        shapes.append({"dims": list(shape), "bit_exact": bool(torch.equal(a, b)),
+                       "equals_max_pool3d": bool(torch.equal(c, voxels(a)))})
+        err9 = max(err9, float((a - b).abs().max()))
+    ms9, how9 = kernel_ms(lambda: halo.dilate_dense_grid(dense),
+                          "dilate_dense_kernel")
+    plain9 = cuda_ms(lambda: halo.dilate_dense_grid_plain(dense))
+    plain9_dev = plain_device_ms(lambda: halo.dilate_dense_grid_plain(dense))
+    lib9 = plain_device_ms(lambda: F.max_pool3d(vol, 3, stride=1, padding=1))
+    lib9_call = cuda_ms(lambda: F.max_pool3d(vol, 3, stride=1, padding=1))
+    nvox = dense.numel()
+    # The dense grid is read once and written once (f32); 26 comparisons
+    # a voxel.
+    b9, b9_by = bound_ms(2 * nvox * 4, 26 * nvox)
+    check9 = {"phase": "kernel_check", "name": "dilate_dense",
+              "grid_blocks": list(dims), "voxels": nvox,
+              "occupied_voxels": int(dense.sum()),
+              "dilated_voxels": int(want.sum()), "bit_exact": exact9,
+              "equals_max_pool3d": lib_equal, "edge_shapes": shapes,
+              "max_abs_err": err9, "ms": ms9, "ms_timing": how9,
+              "plain_ms": plain9, "plain_device_ms": plain9_dev,
+              "library_ms": lib9, "library_ms_call": lib9_call,
+              "library": "F.max_pool3d(kernel 3, stride 1, padding 1) on "
+                         "[1, 1, 8Cx, 8Cy, 8Cz], permutes not timed",
+              "bound_ms": b9, "bound_by": b9_by,
+              "launches": launches["dilate_dense"]}
+    emit(check9)
+    if not (exact9 and lib_equal and int(want.sum()) > int(dense.sum()) > 0
+            and all(s["bit_exact"] and s["equals_max_pool3d"]
+                    for s in shapes)):
+        fail(f"dilate_dense differs from its plain version: {check9}")
+    del mm, plain, dense, got, want, vol, lib
+    torch.cuda.empty_cache()
+
+    # ---- (b) scored: tools/dynamics_quality.py's scene ---------------------
+    room = Scene(primitives=(
+        RoomBox(center=(0.0, 0.0, 1.5), half_extents=(3.0, 2.2, 1.5)),
+        Box(center=(-1.5, -1.0, 0.4), half_extents=(0.4, 0.4, 0.4))))
+    n_orbit = 16
+    poses16 = [orbit_pose(2 * np.pi * k / n_orbit, radius=1.5)
+               for k in range(n_orbit)]
+    pt = torch.stack([torch.as_tensor(T, device=dev) for T in poses16])
+    d16 = torch.stack([render_depth(room, camera, pt[k], device=dev)
+                       for k in range(n_orbit)])
+    dr, pr = torch.cat([d16] * 4), torch.cat([pt] * 4)
+    times = 300.0 * torch.arange(4 * n_orbit, device=dev, dtype=torch.float32)
+    sc = multi(2048)
+    s2 = sc.static_mapper
+    sc.replay_frames_dynamic(dr[:n_orbit], pr[:n_orbit], times[:n_orbit],
+                             camera)
+    s2._refresh_region_from_device()
+    region2 = s2.esdf_region(margin_blocks=0, mult=1)
+    sc.replay_frames_dynamic(dr[n_orbit:], pr[n_orbit:], times[n_orbit:],
+                             camera, region=region2)
+    hc = s2.channels["freespace_high_confidence"]
+    n_hc = int(hc.sum())
+    frames, intr = [], []
+    for k in range(8):
+        scene = Scene(primitives=room.primitives + (
+            Sphere(center=intruder_center(k), radius=0.25),))
+        d_static = render_depth(room, camera, pt[k], device=dev)
+        d_intr = render_depth(scene, camera, pt[k], device=dev)
+        gt = (d_intr < d_static - 2 * voxel) & (d_intr > 0) & (
+            d_intr <= max_depth)
+        mask = sc.detect_dynamic(d_intr, pt[k], camera) > 0
+        n_gt = max(int(gt.sum()), 1)
+        frames.append({"gt_pixels": int(gt.sum()),
+                       "detected": int(mask.sum()),
+                       "tpr": int((mask & gt).sum()) / n_gt,
+                       "fpr": int((mask & ~gt).sum())
+                       / max(int((~gt).sum()), 1)})
+        intr.append((d_intr, pt[k], poses16[k]))
+
+    # detect_dynamic on each intruder frame of the built map, subsample 1
+    # and 2, against its plain version.
+    det_kw = dict(camera=camera, voxel_size_m=voxel, max_depth_m=max_depth)
+    exact10, err10 = True, 0.0
+    for d_intr, T_t, _ in intr:
+        for s in (1, 2):
+            a = detect_dynamic(s2.state, hc, d_intr, T_t, subsample=s,
+                               **det_kw)
+            b = detect_dynamic_plain(s2.state, hc, d_intr, T_t, subsample=s,
+                                     **det_kw)[0].to(torch.uint8)
+            torch.cuda.synchronize()
+            exact10 &= bool(torch.equal(a, b))
+            err10 = max(err10, float((a.float() - b.float()).abs().max()))
+    big = int(np.argmax([f["gt_pixels"] for f in frames]))
+    d_big, T_big, _ = intr[big]
+    H, W = d_big.shape
+    _, p_L = detect_dynamic_plain(s2.state, hc, d_big, T_big, **det_kw)
+    n_cells, n_bytes = detect_reads(s2.state, p_L, d_big, voxel, max_depth)
+    ms10, how10 = kernel_ms(lambda: detect_dynamic(s2.state, hc, d_big, T_big,
+                                                   **det_kw),
+                            "detect_dynamic_kernel")
+    plain10 = cuda_ms(lambda: detect_dynamic_plain(s2.state, hc, d_big, T_big,
+                                                   **det_kw))
+    plain10_dev = plain_device_ms(lambda: detect_dynamic_plain(
+        s2.state, hc, d_big, T_big, **det_kw))
+    # Each pixel reads its depth (f32) and writes its mask byte; the
+    # endpoints read the distinct slot_grid entries (i32) and
+    # high_confidence bytes they land in. About 30 operations a pixel.
+    b10, b10_by = bound_ms(H * W * 5 + n_cells * 4 + n_bytes, 30 * H * W)
+
+    # The 8 frames through the eager tick, 300 ms steps on.
+    for k, (d_intr, _, T) in enumerate(intr):
+        sc.integrate_depth(d_intr, T, camera, time_ms=300.0 * (64 + k))
+    n_occ = int((sc.dynamic_mapper.channels["occupancy_log_odds"] > 0).sum())
+    overflow2 = [int(s2.state.overflow_count),
+                 int(sc.dynamic_mapper.state.overflow_count)]
+    mean_tpr = float(np.mean([f["tpr"] for f in frames]))
+    scored = {"phase": "dynamic_frames", "part": "scored",
+              "frames_built": 4 * n_orbit, "frame_spacing_ms": 300.0,
+              "freespace_region_origin": [int(v) for v in region2[0]],
+              "freespace_region_dims_blocks": [int(v) for v in region2[1]],
+              "allocated_blocks": s2.block_count(),
+              "high_confidence_voxels": n_hc, "intruder_frames": frames,
+              "mean_tpr": mean_tpr,
+              "mean_fpr": float(np.mean([f["fpr"] for f in frames])),
+              "dynamic_occupied_voxels": n_occ, "overflow_count": overflow2,
+              "reference": {"high_confidence_voxels": DYN_REF_HC_VOXELS,
+                            "detected": list(DYN_REF_DETECTED),
+                            "mean_tpr": DYN_REF_MEAN_TPR,
+                            "dynamic_occupied_voxels": DYN_REF_OCCUPIED},
+              "tolerances": {"high_confidence_voxels": DYN_HC_TOL,
+                             "detected": DYN_DETECTED_TOL,
+                             "mean_tpr": DYN_TPR_TOL,
+                             "dynamic_occupied_voxels": DYN_OCCUPIED_TOL},
+              "nvidia_smi": smi}
+    emit(scored)
+    check10 = {"phase": "kernel_check", "name": "detect_dynamic",
+               "frames": len(intr), "subsamples": [1, 2],
+               "bit_exact": exact10, "max_abs_err": err10,
+               "timed_frame": big, "image": [H, W],
+               "slot_cells_read": n_cells, "high_confidence_bytes_read":
+               n_bytes, "ms": ms10, "ms_timing": how10, "plain_ms": plain10,
+               "plain_device_ms": plain10_dev, "bound_ms": b10,
+               "bound_by": b10_by, "library_ms": None,
+               "library": "none: no torch call back-projects and looks up "
+                          "the voxel",
+               "launches": launches["detect_dynamic"]}
+    emit(check10)
+    if not exact10:
+        fail(f"detect_dynamic differs from its plain version: {check10}")
+    if overflow2 != [0, 0]:
+        fail(f"dynamic_frames scored overflow_count {overflow2} != 0")
+    if abs(n_hc - DYN_REF_HC_VOXELS) > DYN_HC_TOL * DYN_REF_HC_VOXELS:
+        fail(f"high-confidence voxels {n_hc}, reference {DYN_REF_HC_VOXELS}")
+    for f, ref in zip(frames, DYN_REF_DETECTED):
+        if abs(f["detected"] - ref) > DYN_DETECTED_TOL * ref:
+            fail(f"detected pixels {f['detected']}, reference {ref}")
+    if mean_tpr < DYN_REF_MEAN_TPR - DYN_TPR_TOL:
+        fail(f"mean TPR {mean_tpr}, reference {DYN_REF_MEAN_TPR}")
+    if abs(n_occ - DYN_REF_OCCUPIED) > DYN_OCCUPIED_TOL * DYN_REF_OCCUPIED:
+        fail(f"dynamic occupied voxels {n_occ}, reference "
+             f"{DYN_REF_OCCUPIED}")
+    del sc, hc
+    torch.cuda.empty_cache()
+    return [{"name": "dilate_dense", "route": "cuda",
+             "source": "isaac_ros_nvblox_tpu_torch/csrc/dilate.cu",
+             "replaces": "isaac_ros_nvblox_tpu/ops/halo.py:201",
+             "launches": launches["dilate_dense"], "max_abs_err": err9,
+             "ms": ms9, "plain_ms": plain9, "bound_ms": b9, "bound_by": b9_by,
+             "library_ms": lib9},
+            {"name": "detect_dynamic", "route": "cuda",
+             "source": "isaac_ros_nvblox_tpu_torch/csrc/detect_dynamic.cu",
+             "replaces": "isaac_ros_nvblox_tpu/ops/detect_pallas.py:72",
+             "launches": launches["detect_dynamic"], "max_abs_err": err10,
+             "ms": ms10, "plain_ms": plain10, "bound_ms": b10,
+             "bound_by": b10_by, "library_ms": None}]
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1377,6 +1749,10 @@ def main() -> None:
 
     # ---- the 3D-lidar path ------------------------------------------------
     results.append(lidar_phase(dev, smi, voxel, world))
+
+    # ---- the dynamic mode (MultiMapper) ------------------------------------
+    results.extend(dynamics_phase(dev, smi, camera, depths_r, poses_r,
+                                  max_blocks, voxel, world))
 
     emit({"kernels": results})
     print(smi, flush=True)

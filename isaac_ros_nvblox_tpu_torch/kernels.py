@@ -35,7 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Per-source extra flags. These kernels repeat their plain versions'
 # float32 roundings, so nvcc must not contract a*b+c on its own.
 PROJECTIVE = ("tsdf_fuse", "color_fuse", "tsdf_color_fuse", "occupancy_fuse",
-              "tsdf_lidar_fuse")
+              "tsdf_lidar_fuse", "detect_dynamic")
 EXTRA_FLAGS = {name: ["-fmad=false"]
                for name in PROJECTIVE + ("marching_cubes",)}
 # Headers a source includes (part of its build hash).
@@ -83,12 +83,22 @@ SIGNATURES = {
                              _P], _I),
         "tsdf_lidar_fuse_error_string": ([_I], ctypes.c_char_p),
     },
+    "dilate": {
+        "dilate_dense": ([_P, _P, _I, _I, _I, _F, _P], _I),
+        "dilate_error_string": ([_I], ctypes.c_char_p),
+    },
+    "detect_dynamic": {
+        "detect_dynamic": ([_P, _P, _P, _P, _P, _P, _FP, _I, _I, _I, _I, _I,
+                            _I, _I, _P], _I),
+        "detect_dynamic_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 LAUNCHES: Dict[str, int] = {"tsdf_fuse": 0, "edt_pass1": 0, "edt_pass": 0,
                             "color_fuse": 0, "tsdf_color_fuse": 0,
                             "marching_cubes": 0, "occupancy_fuse": 0,
-                            "tsdf_lidar_fuse": 0}
+                            "tsdf_lidar_fuse": 0, "dilate_dense": 0,
+                            "detect_dynamic": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

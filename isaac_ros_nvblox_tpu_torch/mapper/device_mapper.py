@@ -1,8 +1,7 @@
 """DeviceMapper: the device-resident depth / lidar -> TSDF or occupancy
 (+ color) -> ESDF / mesh path (port of
 isaac_ros_nvblox_tpu/mapper/device_mapper.py: the TSDF and occupancy
-layers with color, mesh, ESDF, lidar, decay and clearing; freespace comes
-with the dynamics slice).
+layers with color, mesh, ESDF, lidar, decay, clearing and freespace).
 
     integrate_depth:  touched-grid -> allocate -> view batch -> TSDF fusion
                       (kernel tsdf_fuse) or, on an occupancy mapper,
@@ -29,6 +28,11 @@ with the dynamics slice).
                       crossing subset -> marching cubes (kernel
                       marching_cubes) -> slot-indexed soup
     export_mesh:      full-map marching cubes -> welded host mesh
+    update_freespace: the freespace state machine over the view (TSDF
+                      mappers built with enable_freespace): full pool with
+                      a per-voxel frustum test and the dense 3^3 occupancy
+                      dilation (kernel dilate_dense) when the block region
+                      is known, else the view batch with a halo dilation
     replay_frames:    the offline loop over N frames: TSDF every frame, TSDF
                       + color in one pass (kernel tsdf_color_fuse) every
                       `color_every`, ESDF every `esdf_every` and mesh every
@@ -66,6 +70,10 @@ from isaac_ros_nvblox_tpu_torch.ops import esdf as esdf_ops
 from isaac_ros_nvblox_tpu_torch.ops import view as view_ops
 from isaac_ros_nvblox_tpu_torch.ops.color_cuda import integrate_color_cuda
 from isaac_ros_nvblox_tpu_torch.ops.esdf_dense import esdf_from_sites_dense
+from isaac_ros_nvblox_tpu_torch.ops.freespace import (
+    update_freespace, update_freespace_fullpool)
+from isaac_ros_nvblox_tpu_torch.ops.halo import (dilate_occupancy_dense,
+                                                 gather_halo_sliced)
 from isaac_ros_nvblox_tpu_torch.ops.lidar_cuda import integrate_tsdf_lidar_cuda
 from isaac_ros_nvblox_tpu_torch.ops.occupancy_cuda import (
     integrate_occupancy_cuda)
@@ -238,7 +246,8 @@ def _integrate_lidar_frame(state, distance, weight, dirty, esdf_dirty,
 
 # Per-channel values of freed or cleared rows (recycled slots start in each
 # channel's initial state); every other channel resets to 0.
-_CHANNEL_RESET = {"esdf_sq_dist": float(esdf_ops.INF_SQ)}
+_CHANNEL_RESET = {"esdf_sq_dist": float(esdf_ops.INF_SQ),
+                  "freespace_last_occupied_ms": -1e9}
 
 
 def _reset_rows(channels: Dict[str, torch.Tensor], slots,
@@ -329,6 +338,107 @@ def _decay_occupancy_fused(state, channels, dirty, esdf_dirty, removed, *,
         block_max < float(np.float32(dealloc_threshold)))
     return _free_mask(state, channels, dirty, esdf_dirty, removed, dead,
                       max_free=max_free, reset_extra=reset_extra)
+
+
+def _fullpool_in_view(block_index_of_slot, T_L_C, *, camera: Camera,
+                      voxel_size_m: float, view_distance_m: float):
+    """bool[n, 512]: each voxel center of the slots' blocks lies in the
+    camera's view within `view_distance_m`. The reference spells this
+    transform out element by element, and XLA folds the voxel size into
+    the rotation (R * vs) and fuses the first product into the sum; this
+    follows that order."""
+    dev = block_index_of_slot.device
+    lane = torch.arange(VOXELS_PER_BLOCK, device=dev)
+    bi = block_index_of_slot.float()
+    X = [bi[:, a:a + 1] * 8.0 + l.float() + 0.5
+         for a, l in enumerate((lane // 64, (lane // 8) % 8, lane % 8))]
+    T_C_L = Transform.inverse(T_L_C)
+    vs = float(np.float32(voxel_size_m))
+    pc = []
+    for i in range(3):
+        Rv = [T_C_L[i, j] * vs for j in range(3)]
+        pc.append(fma(Rv[2], X[2], fma(Rv[0], X[0], Rv[1] * X[1]))
+                  + T_C_L[i, 3])
+    z = pc[2]
+    zs = torch.where(z > 1e-6, z, torch.ones_like(z))
+    u = camera.fx * pc[0] / zs + camera.cx
+    v = camera.fy * pc[1] / zs + camera.cy
+    return ((z > 1e-6) & (z <= view_distance_m)
+            & (u >= 0.0) & (u <= camera.width - 1.0)
+            & (v >= 0.0) & (v <= camera.height - 1.0))
+
+
+@torch.no_grad()
+def _freespace_fused(consecutive_ms, last_occupied_ms, high_confidence,
+                     state, tsdf_distance, tsdf_weight, T_L_C, time_ms,
+                     last_update_ms, origin_b=None, *, camera: Camera,
+                     voxel_size_m: float, params, view_distance_m: float,
+                     max_blocks: int, dims_b=None, slot_bucket: int = 0):
+    """The freespace state machine with its 26-neighbourhood occupancy
+    check, on the three channels in place. Two forms:
+
+      * dims_b given (a block region covering the allocated AABB, at
+        `origin_b` i32[3]): every pool row (or the prefix
+        `[:slot_bucket]`, exact while allocation stays inside it;
+        check_slot_bucket() verifies) with a per-voxel frustum test, and
+        the neighbourhood check as the dense-region dilation
+        `dilate_occupancy_dense` (kernel dilate_dense);
+      * dims_b None (no region known yet): the view batch of a max-distance
+        pseudo-depth frame, its halo by `gather_halo_sliced` and a
+        separable slice-max.
+
+    A voxel counts as occupied when any voxel of its 3^3 neighbourhood
+    is; the state machine then sees it at a distance below the threshold
+    (threshold - 1 m), a free one far (1000 m)."""
+    cap = tsdf_distance.shape[0]
+    dev = tsdf_distance.device
+    thr = params.max_tsdf_distance_for_occupancy_m
+    occ_far = (torch.full((), thr - 1.0, device=dev),
+               torch.full((), 1e3, device=dev))
+    if dims_b is not None:
+        sb = min(slot_bucket, cap) if slot_bucket else cap
+        bidx_b = state.block_index_of_slot[:sb]
+        tsdf_b, w_b = tsdf_distance[:sb], tsdf_weight[:sb]
+        in_view = _fullpool_in_view(
+            bidx_b, T_L_C, camera=camera, voxel_size_m=voxel_size_m,
+            view_distance_m=view_distance_m)
+        in_view &= (torch.arange(sb, device=dev) < state.alloc_count)[:, None]
+        if params.check_neighborhood:
+            occ = ((tsdf_b < thr) & (w_b > 1e-6)).float()
+            occ_d = dilate_occupancy_dense(
+                occ, None, origin_b, dims_b=dims_b,
+                block_index_of_slot=bidx_b, alloc_count=state.alloc_count)
+            eff = torch.where(occ_d > 0.5, *occ_far)
+        else:
+            eff = tsdf_b
+        update_freespace_fullpool(
+            consecutive_ms[:sb], last_occupied_ms[:sb], high_confidence[:sb],
+            eff, w_b, in_view, time_ms, last_update_ms, params=params)
+        return consecutive_ms, last_occupied_ms, high_confidence
+
+    pseudo = torch.full((camera.height, camera.width), view_distance_m,
+                        device=dev)
+    grid, origin = view_ops.touched_block_grid(
+        pseudo, T_L_C, camera=camera, voxel_size_m=voxel_size_m,
+        max_distance_m=view_distance_m, truncation_m=2 * voxel_size_m)
+    slots, bidx, _ = wg.view_batch(state, grid, origin, max_blocks=max_blocks)
+    d_rows = None
+    if params.check_neighborhood:
+        occ = ((tsdf_distance < thr) & (tsdf_weight > 1e-6)).float()
+        pad = gather_halo_sliced(occ.reshape(cap, B, B, B),
+                                 wg.neighbor_slots_of(state, bidx))
+        t = torch.maximum(torch.maximum(pad[..., 0:8], pad[..., 1:9]),
+                          pad[..., 2:10])
+        t = torch.maximum(torch.maximum(t[:, :, 0:8], t[:, :, 1:9]),
+                          t[:, :, 2:10])
+        dil = torch.maximum(torch.maximum(t[:, 0:8], t[:, 1:9]), t[:, 2:10])
+        d_rows = torch.where(dil.reshape(-1, VOXELS_PER_BLOCK) > 0.5,
+                             *occ_far)
+    return update_freespace(
+        consecutive_ms, last_occupied_ms, high_confidence, tsdf_distance,
+        tsdf_weight, slots, bidx, T_L_C, time_ms, last_update_ms,
+        camera=camera, voxel_size_m=voxel_size_m, params=params,
+        distance_rows=d_rows)
 
 
 def _norm3_exact(v) -> torch.Tensor:
@@ -583,9 +693,12 @@ class DeviceMapper:
                  enable_color: bool = True,
                  projective_layer: Optional[ProjectiveLayerType] = None,
                  max_blocks_per_frame: int = 4096,
+                 enable_freespace: bool = False,
                  device=None):
         """`projective_layer` OCCUPANCY keeps a log-odds occupancy layer
-        (f32 log-odds, u8 observed) in place of the TSDF, and no color."""
+        (f32 log-odds, u8 observed) in place of the TSDF, and no color.
+        `enable_freespace` (TSDF layer only) adds the freespace channels
+        that `update_freespace` keeps and dynamic detection reads."""
         self.device = resolve_device(device)
         self.voxel_size_m = float(voxel_size_m)
         self.params = params or MapperParams()
@@ -609,6 +722,16 @@ class DeviceMapper:
             self.channels = {
                 "tsdf_distance": torch.zeros(shape, device=dev),
                 "tsdf_weight": torch.zeros(shape, device=dev)}
+            if enable_freespace:
+                self.channels.update({
+                    "freespace_consecutive_ms": torch.zeros(shape,
+                                                            device=dev),
+                    "freespace_last_occupied_ms": torch.full(shape, -1e9,
+                                                             device=dev),
+                    "freespace_high_confidence": torch.full(
+                        shape, bool(self.params.freespace
+                                    .initialize_to_high_confidence_freespace),
+                        dtype=torch.bool, device=dev)})
         self.channels.update({
             "esdf_sq_dist": torch.full(shape, esdf_ops.INF_SQ, device=dev),
             "esdf_is_inside": torch.zeros(shape, dtype=torch.bool, device=dev),
@@ -647,6 +770,9 @@ class DeviceMapper:
         self._region_unknown = False
         # Smallest slot bucket of replays not yet checked (0: none).
         self._slot_bucket_pending = 0
+        # Time of the last freespace update (ms; f32 on the device, so
+        # that a replay's last frame time needs no readback).
+        self._freespace_last_update_ms = torch.zeros((), device=dev)
 
     # ---------------------------------------------------------------- sizes
     @property
@@ -661,8 +787,12 @@ class DeviceMapper:
         return self.refresh_count()
 
     def _reset_extra(self):
-        """Per-channel reset overrides for freed slots (none until the
-        freespace channels come with the dynamics slice)."""
+        """Per-channel reset overrides for freed slots: freespace starts
+        as `initialize_to_high_confidence_freespace` says."""
+        if "freespace_high_confidence" in self.channels:
+            return (("freespace_high_confidence",
+                     bool(self.params.freespace
+                          .initialize_to_high_confidence_freespace)),)
         return ()
 
     def _view_bounds(self):
@@ -716,6 +846,41 @@ class DeviceMapper:
                 view_params=self._view_bounds())
         self.last_depth_T_L_C = T_L_C
         self.last_depth_camera = camera
+
+    # ------------------------------------------------------------ freespace
+    def _time(self, t) -> torch.Tensor:
+        """A time in ms as an f32 scalar on the device (a fill kernel for
+        a host number: no host->device copy)."""
+        if isinstance(t, torch.Tensor):
+            return t.to(device=self.device, dtype=torch.float32)
+        return torch.full((), float(t), device=self.device)
+
+    def update_freespace(self, time_ms, T_L_C, camera: Camera) -> None:
+        """The freespace state machine over the current view at `time_ms`
+        (a mapper without freespace channels ignores the call). With the
+        block region known on the host, the full-pool form over that
+        region (kernel dilate_dense), else the view-batch form. No host
+        sync."""
+        if "freespace_consecutive_ms" not in self.channels:
+            return
+        if not self._region_unknown and self._aabb_lo is not None:
+            origin, dims = self.esdf_region(margin_blocks=0)
+            origin_b = device_ints(origin, torch.int32, self.device)
+            dims_b = tuple(int(d) for d in dims)
+        else:
+            origin_b, dims_b = None, None
+        t = self._time(time_ms)
+        ch = self.channels
+        _freespace_fused(
+            ch["freespace_consecutive_ms"], ch["freespace_last_occupied_ms"],
+            ch["freespace_high_confidence"], self.state, ch["tsdf_distance"],
+            ch["tsdf_weight"], self._tensor(T_L_C, torch.float32), t,
+            self._freespace_last_update_ms, origin_b, camera=camera,
+            voxel_size_m=self.voxel_size_m, params=self.params.freespace,
+            view_distance_m=float(
+                self.params.projective.max_integration_distance_m),
+            max_blocks=self.max_blocks_per_frame, dims_b=dims_b)
+        self._freespace_last_update_ms = t
 
     def integrate_pointcloud(self, points, T_L_S, lidar, timestamps_s=None,
                              T_L_S_end=None) -> None:
@@ -1201,11 +1366,16 @@ class DeviceMapper:
     def state_arrays(self) -> Dict[str, np.ndarray]:
         """The allocator state and the channels as numpy arrays, under the
         reference DeviceMapper's names (WorldGridState fields, channels,
-        mesh_pending, removed_log and removed_count), copied."""
+        mesh_pending, removed_log and removed_count), copied. A freespace
+        mapper adds `freespace_last_update_ms` (the reference's
+        `_freespace_last_update_ms`)."""
         out = self.state.to_numpy()
         extra = dict(self.channels, mesh_pending=self.mesh_pending,
                      removed_log=self.removed_log,
                      removed_count=self.removed_count)
+        if "freespace_consecutive_ms" in self.channels:
+            extra["freespace_last_update_ms"] = (
+                self._freespace_last_update_ms)
         # Copies: every step updates these tensors in place.
         out.update({k: np.array(v.cpu().numpy()) for k, v in extra.items()})
         return out
@@ -1227,6 +1397,9 @@ class DeviceMapper:
             t = getattr(self, k)
             t.copy_(torch.tensor(np.asarray(arrays.get(k, 0)),
                                  dtype=torch.int32).expand_as(t))
+        self._freespace_last_update_ms = torch.tensor(
+            float(np.asarray(arrays.get("freespace_last_update_ms", 0.0))),
+            dtype=torch.float32, device=self.device)
         self.dirty.zero_()
         self.esdf_dirty.zero_()
         self._aabb_lo = self._aabb_hi = None

@@ -1,9 +1,10 @@
 """Mapper parameters (port of isaac_ros_nvblox_tpu/mapper/params.py).
 
-Holds the groups the TSDF, occupancy, colored-mesh, ESDF and decay paths
-read, with the reference's field names and defaults, and the mapping-type
-enums. The freespace group, the overlays and `make_params` come with the
-runtime slice.
+Holds the groups the TSDF, occupancy, colored-mesh, ESDF, decay and
+freespace paths read, the depth and mask preprocessing switches, the
+MultiMapper's top-level parameters and the mapping-type enums, with the
+reference's field names and defaults. The overlays and `make_params` come
+with the runtime slice.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import enum
 from isaac_ros_nvblox_tpu_torch.ops.decay import (OccupancyDecayParams,
                                                   TsdfDecayParams)
 from isaac_ros_nvblox_tpu_torch.ops.esdf import EsdfIntegratorParams
+from isaac_ros_nvblox_tpu_torch.ops.freespace import FreespaceIntegratorParams
 from isaac_ros_nvblox_tpu_torch.ops.mesh import MeshIntegratorParams
 from isaac_ros_nvblox_tpu_torch.ops.occupancy import OccupancyIntegratorParams
 from isaac_ros_nvblox_tpu_torch.ops.tsdf import (TsdfIntegratorParams,
@@ -30,15 +32,30 @@ class MappingType(enum.Enum):
     HUMAN_WITH_STATIC_OCCUPANCY = "human_with_static_occupancy"
 
 
+class EsdfMode(enum.Enum):
+    """nvblox's EsdfMode: a 2-D slice or the full 3-D field."""
+    K2D = "2d"
+    K3D = "3d"
+
+
 class ProjectiveLayerType(enum.Enum):
     TSDF = "tsdf"
     OCCUPANCY = "occupancy"
 
 
 @dataclasses.dataclass
+class EsdfSliceParams:
+    """Slice heights (nvblox's esdf_slice_* parameters)."""
+    esdf_slice_min_height: float = 0.1
+    esdf_slice_max_height: float = 0.3
+    esdf_slice_height: float = 0.3
+    slice_height_above_plane_m: float = 0.1
+    slice_height_thickness_m: float = 0.2
+
+
+@dataclasses.dataclass
 class MapperParams:
-    """Per-mapper parameters of the TSDF / occupancy + color + mesh + ESDF
-    mapper."""
+    """Per-mapper parameters (the static_mapper / dynamic_mapper groups)."""
     projective: TsdfIntegratorParams = dataclasses.field(
         default_factory=TsdfIntegratorParams)
     occupancy: OccupancyIntegratorParams = dataclasses.field(
@@ -47,12 +64,44 @@ class MapperParams:
         default_factory=ViewCalculatorParams)
     esdf: EsdfIntegratorParams = dataclasses.field(
         default_factory=EsdfIntegratorParams)
+    esdf_slice: EsdfSliceParams = dataclasses.field(
+        default_factory=EsdfSliceParams)
     mesh: MeshIntegratorParams = dataclasses.field(
         default_factory=MeshIntegratorParams)
     tsdf_decay: TsdfDecayParams = dataclasses.field(
         default_factory=TsdfDecayParams)
     occupancy_decay: OccupancyDecayParams = dataclasses.field(
         default_factory=OccupancyDecayParams)
+    freespace: FreespaceIntegratorParams = dataclasses.field(
+        default_factory=FreespaceIntegratorParams)
+    # Depth preprocessing: grow invalid regions by this many dilations.
+    do_depth_preprocessing: bool = False
+    depth_preprocessing_num_dilations: int = 3
+    # Mask preprocessing: drop mask components below the size threshold.
+    remove_small_connected_components: bool = True
+    connected_mask_component_size_threshold: int = 2000
+
+
+@dataclasses.dataclass
+class MultiMapperParams:
+    """Top-level mapping configuration (the multi_mapper group)."""
+    voxel_size_m: float = 0.05
+    mapping_type: MappingType = MappingType.STATIC_TSDF
+    esdf_mode: EsdfMode = EsdfMode.K2D
+    block_capacity: int = 16384
+    static_mapper: MapperParams = dataclasses.field(
+        default_factory=MapperParams)
+    # Dynamic-detection pixel stride: s > 1 evaluates every s-th pixel of
+    # every s-th row and repeats the result over s x s tiles.
+    dynamic_detection_subsample: int = 1
+    dynamic_mapper: MapperParams = dataclasses.field(
+        default_factory=lambda: MapperParams(
+            projective=TsdfIntegratorParams(max_integration_distance_m=4.0)))
+    # Per-frame block budget of the foreground occupancy mapper (dynamic
+    # objects cover a small masked footprint).
+    dynamic_max_blocks_per_frame: int = 512
+    # Per-frame view-batch budget of the background (static) mapper.
+    max_blocks_per_frame: int = 2048
 
 
 def projective_layer_type(mapping_type: MappingType) -> ProjectiveLayerType:

@@ -13,7 +13,8 @@ With `--mesh` it prints the reference's own mesh-accuracy figures at the
 benchmark's accuracy configuration instead (a few minutes on the CPU);
 with `--occupancy` and `--lidar` the reference's own figures for
 chip_smoke.py's occupancy and lidar paths (its XLA integrators; the
-sources of those paths' limits).
+sources of those paths' limits); with `--dynamics` its figures for the
+scored part of chip_smoke.py's `dynamic_frames` phase.
 """
 
 import json
@@ -389,9 +390,94 @@ def lidar_reference():
     return out
 
 
+# The intruder of tools/dynamics_quality.py:80-91: a 0.25 m sphere flying
+# across the room through confident freespace, one position per frame.
+def intruder_center(k):
+    t = k / 7.0
+    return (-1.6 + 3.2 * t, 1.4 - 2.2 * t, 1.0)
+
+
+def dynamics_reference():
+    """The reference's CPU run of the scored part of chip_smoke.py's
+    `dynamic_frames` phase (its XLA path, `use_pallas` false): the room and
+    box of tools/dynamics_quality.py without the sphere, the 16-frame VGA
+    orbit 4x over at 300 ms spacing through `replay_frames_dynamic` in two
+    calls (frames 0-15 without a region, then frames 16-63 over the
+    allocated AABB); the 8 intruder frames detected on that map and scored
+    against the geometric ground truth as the tool scores them; then the 8
+    frames through the eager `integrate_depth`, and the dynamic map's
+    occupied voxels."""
+    import dataclasses
+    from isaac_ros_nvblox_tpu.mapper.multi_mapper import (
+        MultiMapper, _detect_dynamic_fused)
+    from isaac_ros_nvblox_tpu.mapper.params import (MappingType,
+                                                    MultiMapperParams)
+    jcam = jc.Camera(**ARGS)
+    prims = SCENE.primitives[:1] + SCENE.primitives[2:]
+    room = js.Scene(primitives=prims)
+    poses = [js.orbit_pose(2 * np.pi * k / 16, radius=1.5) for k in range(16)]
+    depths = [np.asarray(js.render_depth(room, jcam, jnp.asarray(T)))
+              for T in poses]
+    mm = MultiMapper(
+        MultiMapperParams(mapping_type=MappingType.DYNAMIC,
+                          block_capacity=16384,
+                          static_mapper=dataclasses.replace(
+                              JParams(projective=JTsdf(
+                                  max_integration_distance_m=5.0)),
+                              remove_small_connected_components=False)),
+        world=jwg.WorldGridConfig(**WORLD))
+    sm = mm.static_mapper
+    sm.use_pallas_integrate = False
+    mm.dynamic_mapper.use_pallas_integrate = False
+    depths_r = jnp.asarray(np.stack(depths * 4))
+    poses_r = jnp.asarray(np.stack(poses * 4))
+    times = jnp.asarray(300.0 * np.arange(64), jnp.float32)
+    mm.replay_frames_dynamic(depths_r[:16], poses_r[:16], times[:16], jcam)
+    sm._refresh_region_from_device()
+    region = sm.esdf_region(margin_blocks=0, mult=1)
+    mm.replay_frames_dynamic(depths_r[16:], poses_r[16:], times[16:], jcam,
+                             region=region)
+    hc = sm.channels["freespace_high_confidence"]
+    out = {"high_confidence_voxels": int(jnp.sum(hc)),
+           "region_origin": [int(v) for v in region[0]],
+           "region_dims_blocks": [int(v) for v in region[1]],
+           "allocated_blocks": sm.block_count(),
+           "overflow_count": int(sm.state.overflow_count), "frames": []}
+    intr = []
+    for k in range(8):
+        scene = js.Scene(primitives=prims + (js.Sphere(
+            center=intruder_center(k), radius=0.25),))
+        T = poses[k % 16]
+        d_static = np.asarray(js.render_depth(room, jcam, jnp.asarray(T)))
+        d_intr = np.asarray(js.render_depth(scene, jcam, jnp.asarray(T)))
+        gt = ((d_intr < d_static - 2 * VOXEL) & (d_intr > 0)
+              & (d_intr <= 5.0))
+        mask, _ = _detect_dynamic_fused(
+            sm.state, hc, jnp.asarray(d_intr), jnp.asarray(T), camera=jcam,
+            voxel_size_m=VOXEL, max_depth_m=5.0, subsample=1)
+        mask = np.asarray(mask)
+        out["frames"].append({
+            "gt_pixels": int(gt.sum()), "detected": int(mask.sum()),
+            "tpr": float((mask & gt).sum() / max(gt.sum(), 1)),
+            "fpr": float((mask & ~gt).sum() / max((~gt).sum(), 1))})
+        intr.append((d_intr, T))
+    for k, (d_intr, T) in enumerate(intr):
+        mm.integrate_depth(d_intr, T, jcam, time_ms=300.0 * (64 + k))
+    lo = np.asarray(mm.dynamic_mapper.channels["occupancy_log_odds"])
+    out["mean_tpr"] = float(np.mean([f["tpr"] for f in out["frames"]]))
+    out["dynamic_occupied_voxels"] = int((lo > 0).sum())
+    out["dynamic_overflow_count"] = int(
+        mm.dynamic_mapper.state.overflow_count)
+    return out
+
+
 def main():
     import sys
     for flag, fn, config in (
+            ("--dynamics", dynamics_reference,
+             "chip_smoke dynamic_frames scored part: bench room + box, "
+             "16-frame 640x480 orbit x4 at 300 ms, 0.05 m, 5 m, 16384 "
+             "slots; 8 intruder frames (0.25 m sphere)"),
             ("--occupancy", occupancy_reference,
              "chip_smoke occupancy path: bench scene, 16-frame 640x480 orbit "
              "x4, 0.05 m, occupancy 7 m / 0.1 m, decay every 8th, band 40"),

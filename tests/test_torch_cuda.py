@@ -47,6 +47,13 @@ from isaac_ros_nvblox_tpu_torch.ops.occupancy import (
 from isaac_ros_nvblox_tpu_torch.ops.occupancy_cuda import (
     integrate_occupancy_cuda)
 from isaac_ros_nvblox_tpu_torch.ops.tsdf import integrate_tsdf_lidar
+from isaac_ros_nvblox_tpu_torch.mapper.multi_mapper import MultiMapper
+from isaac_ros_nvblox_tpu_torch.mapper.params import (MappingType,
+                                                      MultiMapperParams)
+from isaac_ros_nvblox_tpu_torch.ops.detect import detect_dynamic_plain
+from isaac_ros_nvblox_tpu_torch.ops.detect_cuda import detect_dynamic
+from isaac_ros_nvblox_tpu_torch.ops.halo import (dilate_dense_grid,
+                                                 dilate_dense_grid_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -660,3 +667,152 @@ def test_slice3_entry_points_make_no_host_sync(dev):
     assert int(om.state.overflow_count) == 0
     assert bool((om.channels["esdf_sq_dist"] < 1e11).any())
     assert int(om.removed_count) > 0 and int(lm.removed_count) > 0
+
+
+# ---------------------------------------------------------------------------
+# Dynamics (slice 4): the 3^3 dilation and dynamic-pixel detection
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dims", [(20, 16, 9), (1, 5, 3), (4, 3, 1),
+                                  (1, 1, 1), (3, 7, 5)])
+@pytest.mark.parametrize("kind", ["binary", "positive"])
+def test_dilate_dense_matches_plain(dev, dims, kind):
+    g = torch.Generator(device="cpu").manual_seed(sum(dims))
+    r = torch.rand(dims + (512,), generator=g)
+    grid = (r < 0.02).float() if kind == "binary" else torch.where(
+        r < 0.05, torch.rand(dims + (512,), generator=g) * 7.0, 0.0)
+    grid = grid.to(dev)
+    for fill in (0.0, 0.5):
+        want = dilate_dense_grid_plain(grid, fill)
+        before = kernels.LAUNCHES["dilate_dense"]
+        got = dilate_dense_grid(grid, fill)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["dilate_dense"] == before + 1
+        assert torch.equal(got, want)
+    assert int((want > grid).sum()) > 0
+
+
+def _detect_setup(dev, seed=0):
+    """A world grid with a block of allocated cells, random high-confidence
+    bytes, and a depth image with zero, negative, too-far, inf and NaN
+    pixels."""
+    rng = np.random.default_rng(seed)
+    cfg = wg.WorldGridConfig(dims=(16, 16, 8), capacity=512,
+                             origin_block=(-8, -8, -2))
+    st = wg.create_world_grid(cfg, dev)
+    cells = rng.random((16, 16, 8)) < 0.6
+    n = int(cells.sum())
+    sg = np.full((16, 16, 8), -1, np.int32)
+    sg[cells] = rng.permutation(n).astype(np.int32)
+    st.slot_grid.copy_(torch.as_tensor(sg))
+    hc = torch.as_tensor(rng.random((512, 512)) < 0.5, device=dev)
+    depth = rng.uniform(0.2, 6.0, (CAM.height, CAM.width)).astype(np.float32)
+    bad = rng.random(depth.shape)
+    depth[bad < 0.03] = 0.0
+    depth[(bad >= 0.03) & (bad < 0.05)] = -1.0
+    depth[(bad >= 0.05) & (bad < 0.06)] = np.inf
+    depth[(bad >= 0.06) & (bad < 0.07)] = np.nan
+    return st, hc, torch.as_tensor(depth, device=dev)
+
+
+@pytest.mark.parametrize("subsample", [1, 2, 3])
+@pytest.mark.parametrize("pose", ["inside", "tilted", "outside"])
+def test_detect_dynamic_matches_plain(dev, subsample, pose):
+    st, hc, depth = _detect_setup(dev, subsample)
+    T = level_pose(0.1, -0.2, 0.5, 0.3, tilt=-1.2)
+    if pose == "tilted":
+        T = level_pose(-0.3, 0.1, 1.0, 2.0, tilt=-0.6)
+    if pose == "outside":           # most endpoints leave the world grid
+        T = level_pose(3.0, -2.5, 1.5, 0.7, tilt=-1.4)
+    T = torch.as_tensor(T, device=dev)
+    kw = dict(camera=CAM, voxel_size_m=VOXEL, max_depth_m=5.0,
+              subsample=subsample)
+    want, _ = detect_dynamic_plain(st, hc, depth, T, **kw)
+    before = kernels.LAUNCHES["detect_dynamic"]
+    got = detect_dynamic(st, hc, depth, T, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["detect_dynamic"] == before + 1
+    assert got.dtype == torch.uint8
+    assert torch.equal(got, want.to(torch.uint8))
+    if pose != "outside":
+        assert int(got.sum()) > 100
+
+
+def test_dynamics_make_no_host_sync(dev):
+    """The MultiMapper's dynamic tick (detection, both masked
+    integrations, the freespace update in both forms; no component filter)
+    and replay_frames_dynamic with a region and a slot bucket never wait
+    on the device."""
+    scene = default_test_scene()
+    poses = [orbit_pose(2 * np.pi * k / 8) for k in range(4)]
+    depths = torch.stack([render_depth(scene, CAM, T, device=dev)
+                          for T in poses])
+    poses_t = torch.stack([torch.as_tensor(T, device=dev) for T in poses])
+    times = torch.arange(4, device=dev, dtype=torch.float32) * 300.0
+    sp = dataclasses.replace(
+        MapperParams(projective=TsdfIntegratorParams(
+            max_integration_distance_m=3.0)),
+        remove_small_connected_components=False)
+    mm = MultiMapper(MultiMapperParams(
+        mapping_type=MappingType.DYNAMIC, block_capacity=4096,
+        max_blocks_per_frame=1024, static_mapper=sp),
+        world=wg.WorldGridConfig(dims=(48, 48, 24), capacity=4096,
+                                 origin_block=(-24, -24, -6)), device=dev)
+    # Warm-up: kernel loads, the view-batch form, then a known region.
+    mm.replay_frames_dynamic(depths, poses_t, times, CAM)
+    mm.static_mapper._refresh_region_from_device()
+    region = mm.static_mapper.esdf_region(margin_blocks=0, mult=1)
+    mm.replay_frames_dynamic(depths, poses_t, times + 1200.0, CAM,
+                             region=region, slot_bucket=2048)
+    mm.integrate_depth(depths[0], poses[0], CAM, time_ms=2400.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mm.replay_frames_dynamic(depths, poses_t, times + 2700.0, CAM,
+                                 region=region, slot_bucket=2048)
+        for k in range(4):
+            mm.integrate_depth(depths[k], poses[k], CAM,
+                               time_ms=3900.0 + 300.0 * k)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    mm.static_mapper.check_slot_bucket()
+    for m in (mm.static_mapper, mm.dynamic_mapper):
+        assert int(m.state.overflow_count) == 0
+    hc = mm.static_mapper.channels["freespace_high_confidence"]
+    assert int(hc.sum()) > 10000
+
+
+def test_dynamics_slice_cuda_equals_cpu(dev):
+    """The replay with a region and the eager ticks on the card equal the
+    plain path on the CPU in every array."""
+    scene = default_test_scene()
+    poses = np.stack([orbit_pose(2 * np.pi * k / 8) for k in range(4)])
+    depths = torch.stack([render_depth(scene, CAM, T, device="cpu")
+                          for T in poses])
+    times = torch.arange(4, dtype=torch.float32) * 300.0
+    sp = dataclasses.replace(
+        MapperParams(projective=TsdfIntegratorParams(
+            max_integration_distance_m=3.0)),
+        remove_small_connected_components=False)
+    out = []
+    for d in ("cpu", dev):
+        mm = MultiMapper(MultiMapperParams(
+            mapping_type=MappingType.DYNAMIC, block_capacity=4096,
+            max_blocks_per_frame=1024, static_mapper=sp),
+            world=wg.WorldGridConfig(dims=(48, 48, 24), capacity=4096,
+                                     origin_block=(-24, -24, -6)), device=d)
+        mm.replay_frames_dynamic(depths, torch.from_numpy(poses.astype(
+            np.float32)), times, CAM)
+        mm.replay_frames_dynamic(depths, torch.from_numpy(poses.astype(
+            np.float32)), times + 1200.0, CAM,
+            region=((-12, -12, -2), (24, 24, 10)))
+        for k in range(4):
+            mm.integrate_depth(depths[k], poses[k], CAM,
+                               time_ms=2400.0 + 300.0 * k)
+        out.append(mm.state_arrays())
+    a, b = out
+    assert a.keys() == b.keys()
+    assert int(a["static_mapper/freespace_high_confidence"].sum()) > 10000
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)

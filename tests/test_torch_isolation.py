@@ -15,6 +15,9 @@ import torch
 
 from isaac_ros_nvblox_tpu_torch import kernels
 from isaac_ros_nvblox_tpu_torch.mapper.device_mapper import DeviceMapper
+from isaac_ros_nvblox_tpu_torch.mapper.multi_mapper import MultiMapper
+from isaac_ros_nvblox_tpu_torch.mapper.params import (MappingType,
+                                                      MultiMapperParams)
 from isaac_ros_nvblox_tpu_torch.models.camera import Camera
 from isaac_ros_nvblox_tpu_torch.models.scene import (default_test_scene,
                                                      render_depth)
@@ -37,6 +40,11 @@ from isaac_ros_nvblox_tpu_torch.ops.occupancy import (
 from isaac_ros_nvblox_tpu_torch.ops.occupancy_cuda import (
     integrate_occupancy_cuda)
 from isaac_ros_nvblox_tpu_torch.ops.tsdf import integrate_tsdf_lidar
+from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
+from isaac_ros_nvblox_tpu_torch.ops.detect import detect_dynamic_plain
+from isaac_ros_nvblox_tpu_torch.ops.detect_cuda import detect_dynamic
+from isaac_ros_nvblox_tpu_torch.ops.halo import (dilate_dense_grid,
+                                                 dilate_dense_grid_plain)
 
 torch.set_num_threads(1)
 
@@ -66,6 +74,12 @@ def test_modules_import_without_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(MODULES) >= 14
+    # The dynamics slice's modules are among them.
+    pkg = "isaac_ros_nvblox_tpu_torch."
+    assert {pkg + m for m in (
+        "ops.freespace", "ops.masking", "ops.detect", "ops.detect_cuda",
+        "ops.ground_plane", "ops.backproject", "ops.image_preproc",
+        "ops.halo", "mapper.multi_mapper")} <= set(MODULES)
 
 
 def test_sources_name_no_jax():
@@ -86,8 +100,16 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         DeviceMapper(0.05)
     with pytest.raises(RuntimeError, match="CUDA"):
+        MultiMapper(MultiMapperParams(block_capacity=64))
+    with pytest.raises(RuntimeError, match="CUDA"):
         render_depth(default_test_scene(), cam, np.eye(4, dtype=np.float32))
     assert DeviceMapper(0.05, device="cpu").device.type == "cpu"
+    mm = MultiMapper(MultiMapperParams(mapping_type=MappingType.DYNAMIC,
+                                       block_capacity=64),
+                     world=wg.WorldGridConfig(dims=(8, 8, 8), capacity=64),
+                     device="cpu")
+    assert mm.static_mapper.device.type == "cpu"
+    assert mm.dynamic_mapper.device.type == "cpu"
 
 
 def test_wrappers_take_plain_versions_on_cpu():
@@ -141,12 +163,32 @@ def test_wrappers_take_plain_versions_on_cpu():
     b += integrate_tsdf_lidar(d0.clone(), w0.clone(), slots, bidx - 4,
                               rng_img, T, **lkw)
     assert float(b[-1].max()) > 0
+    grid = torch.where(torch.rand(2, 3, 1, 512) < 0.05, torch.rand(2, 3, 1,
+                                                                   512), 0.0)
+    a, b = list(a), list(b)
+    a.append(dilate_dense_grid(grid))
+    b.append(dilate_dense_grid_plain(grid))
+    st = wg.create_world_grid(wg.WorldGridConfig(dims=(8, 8, 8), capacity=16,
+                                                 origin_block=(-4, -4, 0)),
+                              "cpu")
+    st.slot_grid[3:5, 3:5, 4:6] = torch.arange(8, dtype=torch.int32).view(
+        2, 2, 2)
+    hc = torch.rand(16, 512) < 0.5
+    for s in (1, 2):
+        a.append(detect_dynamic(st, hc, depth, T, camera=cam,
+                                voxel_size_m=0.05, max_depth_m=5.0,
+                                subsample=s))
+        b.append(detect_dynamic_plain(st, hc, depth, T, camera=cam,
+                                      voxel_size_m=0.05, max_depth_m=5.0,
+                                      subsample=s)[0].to(torch.uint8))
+    assert int(b[-1].sum()) > 0 and float(a[-3].max()) > 0
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert set(kernels.LAUNCHES) == {"tsdf_fuse", "edt_pass1", "edt_pass",
                                      "color_fuse", "tsdf_color_fuse",
                                      "marching_cubes", "occupancy_fuse",
-                                     "tsdf_lidar_fuse"}
+                                     "tsdf_lidar_fuse", "dilate_dense",
+                                     "detect_dynamic"}
     assert not any(kernels.LAUNCHES.values())
 
 
