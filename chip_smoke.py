@@ -221,19 +221,6 @@ def changed(new, old):
     return out
 
 
-def line_candidates(shape, axis: int, reach, device):
-    """Candidates a 1-D pass examines per voxel: 1 + the in-line offsets
-    within `reach` (a tensor of per-voxel reaches, or an int) on each side."""
-    import torch
-    S = shape[axis]
-    i = torch.arange(S, device=device, dtype=torch.float32)
-    view = [1, 1, 1]
-    view[axis] = S
-    i = i.view(view)
-    reach = torch.as_tensor(reach, dtype=torch.float32, device=device)
-    return 1 + torch.minimum(reach, S - 1 - i) + torch.minimum(reach, i)
-
-
 def bucket_of(worst: int) -> int:
     """The benchmark's batch rule (bench.py:118-130): the smallest bucket
     that holds the worst frame's touched-block count with 64 blocks of
@@ -340,68 +327,78 @@ def timed_run(run, n_steps: int):
         "top_per_step": top_kernels(evs, n_steps, 6)}
 
 
-def edt_check(state, is_site, esdf_sq, origin_t, dims_b, band: int, dev,
+def edt_check(state, is_site, esdf_sq, origin_t, dims_b, band: int,
               path: str):
     """edt_pass1 and edt_pass against their plain versions on a path's
     ESDF region (origin `origin_t`, `dims_b` blocks), seeded from its map's
     sites `is_site`: the three passes in the mapper's order (shortest axis
-    first), each fed the plain chain's previous output, each held bit for
-    bit. The plain chain gathered back to the slots must equal the path's
-    ESDF channel `esdf_sq` on every slot. Emits one kernel_check line per
-    pass and returns them by kernel name."""
+    first), each with the block mask the solve gives it (`needed_masks`),
+    each fed the plain chain's previous output, each held bit for bit. The
+    plain chain gathered back to the slots must equal the path's ESDF
+    channel `esdf_sq` on every slot. Emits one kernel_check line per pass
+    and returns them by kernel name."""
     import torch
     from isaac_ros_nvblox_tpu_torch.ops import esdf_dense as ed
     in_region, row = ed.region_rows(state.block_index_of_slot,
                                     state.alloc_count, origin_t, dims_b)
     seeds = ed.seed_grid(is_site, in_region, row, dims_b)
-    first, mid, last = (int(a) for a in np.argsort(seeds.shape, kind="stable"))
+    axes = ed.pass_order(seeds.shape)
+    masks = ed.needed_masks(row, dims_b, band)
     nvox = seeds.numel()
-    p1_k = ed.edt_pass1(seeds, first, band)
-    p1_p = ed.edt_pass1_plain(seeds, first, band)
-    p2_k = ed.edt_pass(p1_p, mid, band)
-    p2_p = ed.edt_pass_plain(p1_p, mid, band)
-    p3_k = ed.edt_pass(p2_p, last, band)
-    p3_p = ed.edt_pass_plain(p2_p, last, band)
-    torch.cuda.synchronize()
-    checks = (("edt_pass1", p1_k, p1_p, lambda: ed.edt_pass1(seeds, first, band),
-               lambda: ed.edt_pass1_plain(seeds, first, band)),
-              ("edt_pass", p2_k, p2_p, lambda: ed.edt_pass(p1_p, mid, band),
-               lambda: ed.edt_pass_plain(p1_p, mid, band)),
-              ("edt_pass", p3_k, p3_p, lambda: ed.edt_pass(p2_p, last, band),
-               lambda: ed.edt_pass_plain(p2_p, last, band)))
-    # Work each pass does on these inputs: pass 1 stops at the nearest site
-    # (or the band), the banded passes examine every in-line candidate.
-    reach1 = torch.where(p1_p < float(ed.INF), torch.sqrt(p1_p),
-                         torch.full_like(p1_p, float(band)))
-    ops = {0: 2 * float(line_candidates(seeds.shape, first, reach1, dev)
-                        .sum()),
-           1: 2 * float(line_candidates(seeds.shape, mid, band, dev).sum()
-                        * nvox / seeds.shape[mid]),
-           2: 2 * float(line_candidates(seeds.shape, last, band, dev).sum()
-                        * nvox / seeds.shape[last])}
-    del reach1
     n_sites = int((seeds == 0).sum())
     if n_sites == 0:
         fail(f"the {path} ESDF region holds no site")
+    hb = (band + 7) // 8
     edt_rows = {}
-    for i, (name, got, ref, fk, fp) in enumerate(checks):
+    inp = seeds
+    for i, (axis, need) in enumerate(zip(axes, masks)):
+        name, match = (("edt_pass1", "edt_sweep") if i == 0
+                       else ("edt_pass", "edt_minplus"))
+        fk = getattr(ed, name)
+        fp = getattr(ed, name + "_plain")
+        got = fk(inp, axis, band, need)
+        ref = fp(inp, axis, band, need)
+        torch.cuda.synchronize()
         exact = bool(torch.equal(got, ref))
         max_err = float((got - ref).abs().max())
-        ms, how = kernel_ms(fk, "edt_kernel<true>" if i == 0
-                            else "edt_kernel<false>")
-        b_ms, b_by = bound_ms(nvox * 8, ops[i])
+        ms, how = kernel_ms(lambda: fk(inp, axis, band, need), match)
+        # Least work: every output written once; the input of the blocks
+        # within the band of a needed block along the line read once; per
+        # needed voxel the two sweeps (pass 1), or 3 operations for each
+        # offset k with k^2 below the output, which an exact method must
+        # examine (the banded passes).
+        in_blocks = int(ed.dilate_blocks(need, axis, hb).sum())
+        n_need = int(need.sum()) * 512
+        if i == 0:
+            n_ops = 5.0 * n_need
+        else:
+            fin = ref < float(ed.INF)
+            reach = (torch.ceil(torch.sqrt(ref[fin])) - 1).clamp(0, band)
+            n_ops = 3.0 * float(reach.sum())
+            del fin, reach
+        b_ms, b_by = bound_ms(nvox * 4 + in_blocks * 512 * 4, n_ops)
         row_i = {"phase": "kernel_check", "name": name, "path": path,
-                 "axis": [first, mid, last][i], "grid": list(seeds.shape),
-                 "sites": n_sites, "band": band, "bit_exact": exact, "max_abs_err": max_err,
-                 "ms": ms, "ms_timing": how, "ms_call": cuda_ms(fk),
-                 "plain_ms": cuda_ms(fp), "plain_device_ms": plain_device_ms(fp),
+                 "axis": axis, "grid": list(seeds.shape),
+                 "sites": n_sites, "band": band,
+                 "pruned_share": 1 - n_need / nvox,
+                 "input_share": in_blocks * 512 / nvox,
+                 "bit_exact": exact, "max_abs_err": max_err,
+                 "ms": ms, "ms_timing": how,
+                 "ms_call": cuda_ms(lambda: fk(inp, axis, band, need)),
+                 "plain_ms": cuda_ms(lambda: fp(inp, axis, band, need)),
+                 "plain_device_ms": plain_device_ms(
+                     lambda: fp(inp, axis, band, need)),
                  "bound_ms": b_ms, "bound_by": b_by}
         emit(row_i)
         if not exact:
-            fail(f"{name} along axis {row_i['axis']} is not bit-exact on "
-                 f"the {path} region")
+            fail(f"{name} along axis {axis} is not bit-exact on the {path} "
+                 f"region")
+        if how != "profiler":
+            fail(f"the profiler's trace holds no {match} kernel for {name}")
         edt_rows.setdefault(name, []).append(row_i)
-    sq_plain = ed.gather_slots(p3_p, in_region, row, band)
+        del got
+        inp = ref
+    sq_plain = ed.gather_slots(inp, in_region, row, band)
     if not torch.equal(sq_plain, esdf_sq):
         fail(f"the {path} ESDF channel differs from the plain passes' solve")
     return edt_rows
@@ -524,7 +521,7 @@ def occupancy_phase(dev, smi, camera, scene, depths_r, poses_np, voxel,
         occupied_log_odds_threshold=float(
             params.esdf.occupied_log_odds_threshold))
     edt_check(m.state, site, ch["esdf_sq_dist"], *whole_map_region(m, dev),
-              m.esdf_band_vox, dev, "occupancy_frames")
+              m.esdf_band_vox, "occupancy_frames")
     del site
 
     # occupancy_fuse against its plain version on frame 0's batch of the
@@ -658,7 +655,7 @@ def lidar_phase(dev, smi, voxel, world):
         max_site_distance_vox=params.esdf.max_site_distance_vox,
         min_weight=params.esdf.min_weight)
     edt_check(m.state, site, ch["esdf_sq_dist"], *whole_map_region(m, dev),
-              m.esdf_band_vox, dev, "lidar_scans")
+              m.esdf_band_vox, "lidar_scans")
     del site
 
     # Clearing at the end of the run: outside 5 m of the last pose, and
@@ -1399,7 +1396,7 @@ def main() -> None:
         max_site_distance_vox=params.esdf.max_site_distance_vox,
         min_weight=params.esdf.min_weight)
     edt_rows = edt_check(mapper.state, is_site, ch["esdf_sq_dist"], origin_t,
-                         dims_b, band, dev, "main_path")
+                         dims_b, band, "main_path")
 
     for name, src_line in (("edt_pass1", 260), ("edt_pass", 113)):
         rs = edt_rows[name]

@@ -54,8 +54,7 @@ SIGNATURES = {
         "tsdf_fuse_error_string": ([_I], ctypes.c_char_p),
     },
     "edt": {
-        "edt_pass_launch": ([_P, _P, _I, _I, _I, _I, _I, _P], _I),
-        "edt_lines_per_cta": ([_I], _I),
+        "edt_pass_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
         "edt_error_string": ([_I], ctypes.c_char_p),
     },
     "color_fuse": {

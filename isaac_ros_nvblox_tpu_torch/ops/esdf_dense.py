@@ -11,12 +11,19 @@ site has per-axis offsets <= band, so the banded passes are exact there.
 
 The in-region sites of live slots are seeded into a dense grid
 `f32[Nx*8, Ny*8, Nz*8]` (0 at sites, INF elsewhere); the first pass
-(`edt_pass1`, kernel `csrc/edt.cu` FIRST) turns the {0, INF} seeds into
-squared 1-D distances, the other two (`edt_pass`) run the min-plus along
-the remaining axes, and the result is gathered back per slot. Every finite
-value is an integer below 2^24 in float32, so the order of passes and of
-candidates cannot change a bit of the output: it equals the reference's
-and its numpy `esdf_from_sites_reference` exactly.
+(`edt_pass1`, kernels `edt_sweep_*` in `csrc/edt.cu`) turns the seeds into
+squared 1-D distances with two linear sweeps, the other two (`edt_pass`,
+kernel `edt_minplus_kernel`) run the banded min-plus along the remaining
+axes, and the result is gathered back per slot. Every finite value is an
+integer below 2^24 in float32, so the order of passes and of candidates
+cannot change a bit of the output: it equals the reference's and its numpy
+`esdf_from_sites_reference` exactly.
+
+Output pruning, as in the reference (`needed_masks`): only the allocated
+blocks are gathered, so the last pass computes only those, the middle pass
+only what the last reads (allocated blocks dilated by ceil(band/8) blocks
+along the last axis) and the first what the middle reads. A pruned block
+holds INF.
 
 `edt_pass1` / `edt_pass` launch their kernels for CUDA tensors and use the
 plain PyTorch versions (loops over k on INF-padded shifted views) for CPU
@@ -49,58 +56,86 @@ def _shifted_views(grid, axis: int, band: int):
     return g, g.shape[-1], F.pad(g, (band, band), value=float(INF))
 
 
-def edt_pass1_plain(grid, axis: int, band: int) -> torch.Tensor:
-    """First pass on {0, INF} seeds: d = min_k in[i+k] + |k|, then
-    d*d where d <= band, else INF."""
+def needed_voxels(needed, shape) -> torch.Tensor:
+    """bool[X, Y, Z]: each voxel's byte of the block mask `needed`
+    (bool or u8[ceil(X/8), ceil(Y/8), ceil(Z/8)])."""
+    v = needed.bool()
+    for a in range(3):
+        v = v.repeat_interleave(8, dim=a)
+    return v[:shape[0], :shape[1], :shape[2]]
+
+
+def _prune(out, needed):
+    if needed is None:
+        return out
+    return torch.where(needed_voxels(needed, out.shape), out,
+                       torch.full((), float(INF), device=out.device))
+
+
+def edt_pass1_plain(grid, axis: int, band: int, needed=None) -> torch.Tensor:
+    """First pass on non-negative input ({0, INF} seeds in a solve): d =
+    min_k in[i+k] + |k|, then d*d where d <= band, else INF; INF in the
+    blocks that `needed` marks 0."""
     g, S, pad = _shifted_views(grid, axis, band)
     acc = torch.full_like(g, float(INF))
     for k in range(-band, band + 1):
         acc = torch.minimum(acc, pad[..., k + band:k + band + S] + float(abs(k)))
     out = torch.where(acc <= float(band), acc * acc,
                       torch.full_like(acc, float(INF)))
-    return out.movedim(-1, axis).contiguous()
+    return _prune(out.movedim(-1, axis).contiguous(), needed)
 
 
-def edt_pass_plain(grid, axis: int, band: int) -> torch.Tensor:
-    """Banded 1-D min-plus: out[i] = min_{|k|<=band} in[i+k] + k^2."""
+def edt_pass_plain(grid, axis: int, band: int, needed=None) -> torch.Tensor:
+    """Banded 1-D min-plus: out[i] = min_{|k|<=band} in[i+k] + k^2; INF in
+    the blocks that `needed` marks 0."""
     g, S, pad = _shifted_views(grid, axis, band)
     acc = torch.full_like(g, float(INF))
     for k in range(-band, band + 1):
         acc = torch.minimum(acc, pad[..., k + band:k + band + S] + float(k * k))
-    return acc.movedim(-1, axis).contiguous()
+    return _prune(acc.movedim(-1, axis).contiguous(), needed)
 
 
-def _launch(grid, axis: int, band: int, first: bool) -> torch.Tensor:
+def _launch(grid, axis: int, band: int, first: bool, needed) -> torch.Tensor:
     if (grid.device.type != "cuda" or grid.dtype != torch.float32
             or grid.dim() != 3):
         raise ValueError("edt pass: grid must be a CUDA f32[X, Y, Z] tensor")
     grid = grid.contiguous()
+    X, Y, Z = (int(d) for d in grid.shape)
+    mask_ptr = None
+    if needed is not None:
+        blocks = tuple((d + 7) // 8 for d in (X, Y, Z))
+        if tuple(needed.shape) != blocks:
+            raise ValueError(f"edt pass: needed must have shape {blocks}, "
+                             f"got {tuple(needed.shape)}")
+        needed = needed.to(grid.device, torch.uint8).contiguous()
+        mask_ptr = needed.data_ptr()
     out = torch.empty_like(grid)
-    shape = grid.shape
-    A = int(np.prod(shape[:axis], dtype=np.int64))
-    S = int(shape[axis])
-    B = int(np.prod(shape[axis + 1:], dtype=np.int64))
     name = "edt_pass1" if first else "edt_pass"
     err = kernels.library("edt").edt_pass_launch(
-        grid.data_ptr(), out.data_ptr(), A, S, B, int(band), int(first),
-        kernels.stream_handle(grid))
+        grid.data_ptr(), out.data_ptr(), mask_ptr, X, Y, Z, int(axis),
+        int(band), int(first), kernels.stream_handle(grid))
     kernels.LAUNCHES[name] += 1
     kernels.check("edt", err, f"{name} launch")
     return out
 
 
-def edt_pass1(grid, axis: int, band: int) -> torch.Tensor:
-    """First EDT pass along `axis` of a dense f32[X, Y, Z] seed grid."""
+def edt_pass1(grid, axis: int, band: int, needed=None) -> torch.Tensor:
+    """First EDT pass along `axis` of a dense f32[X, Y, Z] grid of
+    non-negative values (kernels edt_sweep_*). `needed`: optional block
+    mask, bool/u8[ceil(X/8), ceil(Y/8), ceil(Z/8)]; the output is INF in
+    the blocks it marks 0."""
     if grid.device.type == "cpu":
-        return edt_pass1_plain(grid, axis, band)
-    return _launch(grid, axis, band, first=True)
+        return edt_pass1_plain(grid, axis, band, needed)
+    return _launch(grid, axis, band, True, needed)
 
 
-def edt_pass(grid, axis: int, band: int) -> torch.Tensor:
-    """Banded min-plus EDT pass along `axis` of a dense f32[X, Y, Z] grid."""
+def edt_pass(grid, axis: int, band: int, needed=None) -> torch.Tensor:
+    """Banded min-plus EDT pass along `axis` of a dense f32[X, Y, Z] grid
+    of non-negative values (kernel edt_minplus_kernel); `needed` as in
+    edt_pass1."""
     if grid.device.type == "cpu":
-        return edt_pass_plain(grid, axis, band)
-    return _launch(grid, axis, band, first=False)
+        return edt_pass_plain(grid, axis, band, needed)
+    return _launch(grid, axis, band, False, needed)
 
 
 # ---------------------------------------------------------------------------
@@ -141,14 +176,47 @@ def seed_grid(is_site, in_region, row, dims_b) -> torch.Tensor:
             .reshape(Nx * 8, Ny * 8, Nz * 8))
 
 
-def solve_region(grid, band: int) -> torch.Tensor:
-    """The three passes over a seeded dense grid. Passes commute; they run
-    shortest axis first (the reference's order, free here)."""
-    order = [int(a) for a in np.argsort(grid.shape, kind="stable")]
-    first, mid, last = order
-    grid = edt_pass1(grid, first, band)
-    grid = edt_pass(grid, mid, band)
-    return edt_pass(grid, last, band)
+def pass_order(dims) -> Tuple[int, int, int]:
+    """(first, mid, last) pass axes: shortest axis first (the reference's
+    order; passes commute)."""
+    return tuple(int(a) for a in np.argsort(dims, kind="stable"))
+
+
+def dilate_blocks(mask, axis: int, hb: int) -> torch.Tensor:
+    """bool block mask dilated by `hb` blocks both ways along `axis`."""
+    out = mask.clone()
+    n = mask.shape[axis]
+    for s in range(1, min(hb, n - 1) + 1):
+        out.narrow(axis, s, n - s).logical_or_(mask.narrow(axis, 0, n - s))
+        out.narrow(axis, 0, n - s).logical_or_(mask.narrow(axis, s, n - s))
+    return out
+
+
+def needed_masks(row, dims_b, band: int):
+    """The reference's output pruning chain (esdf_from_sites_dense): block
+    masks bool[Nx, Ny, Nz] (need_first, need_mid, need_last). The last pass
+    needs the allocated blocks; each earlier pass what the next one reads,
+    the next pass's mask dilated by Hb = ceil(band/8) blocks along the next
+    pass's axis."""
+    Nx, Ny, Nz = dims_b
+    alloc = torch.zeros(Nx * Ny * Nz, dtype=torch.bool, device=row.device)
+    set_rows_drop(alloc, row, True)             # row is -1 off the region
+    need_last = alloc.view(Nx, Ny, Nz)
+    _, mid, last = pass_order(dims_b)
+    hb = (band + 7) // 8
+    need_mid = dilate_blocks(need_last, last, hb)
+    return dilate_blocks(need_mid, mid, hb), need_mid, need_last
+
+
+def solve_region(grid, band: int, needed) -> torch.Tensor:
+    """The three passes over a seeded dense grid, shortest axis first, each
+    with its block mask of `needed` = (need_first, need_mid, need_last)
+    (`needed_masks`): exact in the last mask's blocks, INF outside them."""
+    first, mid, last = pass_order(grid.shape)
+    nf, nm, nl = needed
+    grid = edt_pass1(grid, first, band, nf)
+    grid = edt_pass(grid, mid, band, nm)
+    return edt_pass(grid, last, band, nl)
 
 
 @torch.no_grad()
@@ -171,7 +239,8 @@ def esdf_from_sites_dense(is_site, block_index_of_slot, alloc_count,
     dims_b = tuple(int(d) for d in dims_b)
     in_region, row = region_rows(block_index_of_slot, alloc_count, origin_b,
                                  dims_b)
-    dense = solve_region(seed_grid(is_site, in_region, row, dims_b), band)
+    dense = solve_region(seed_grid(is_site, in_region, row, dims_b), band,
+                         needed_masks(row, dims_b, band))
     return gather_slots(dense, in_region, row, band)
 
 

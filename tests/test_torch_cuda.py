@@ -232,23 +232,83 @@ def test_marching_cubes_matches_plain(dev, with_color):
             assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
+def _block_mask(shape, kind, g):
+    blocks = tuple((d + 7) // 8 for d in shape)
+    if kind == "none":
+        return None
+    if kind == "random":
+        return torch.rand(blocks, generator=g) < 0.5
+    return torch.full(blocks, kind == "all", dtype=torch.bool)
+
+
+def _check_edt_pair(dev, seeds, pass_in, axis, band, needed):
+    """edt_pass1 on `seeds` and edt_pass on `pass_in` along `axis`: one
+    launch each, bit for bit equal to the plain versions."""
+    before = dict(kernels.LAUNCHES)
+    p1 = ed.edt_pass1(seeds, axis, band, needed)
+    p = ed.edt_pass(pass_in, axis, band, needed)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["edt_pass1"] == before["edt_pass1"] + 1
+    assert kernels.LAUNCHES["edt_pass"] == before["edt_pass"] + 1
+    assert torch.equal(p1, ed.edt_pass1_plain(seeds, axis, band, needed))
+    assert torch.equal(p, ed.edt_pass_plain(pass_in, axis, band, needed))
+    return p1, p
+
+
+@pytest.mark.parametrize("mask", ["none", "all", "empty", "random"])
 @pytest.mark.parametrize("shape", [(24, 16, 40), (8, 400, 16), (500, 8, 8),
-                                   (16, 24, 1)])
+                                   (16, 24, 1), (1, 9, 33), (13, 1, 7),
+                                   (3, 130, 5), (37, 1, 1)])
 @pytest.mark.parametrize("band", [5, 17, 40])
-def test_edt_passes_match_plain(dev, shape, band):
+def test_edt_passes_match_plain(dev, shape, band, mask):
+    """Random seeds and the first pass's output through the next pass, on
+    every axis (B == 1 along Z, and along X or Y where the later axes have
+    size 1; B > 1 otherwise; S = 1, S < band, S not a multiple of 8), band
+    40 (the kernel's fixed-band instance) beside two others, with no mask,
+    all, none or random blocks needed."""
     g = torch.Generator(device="cpu").manual_seed(band + shape[0])
     seeds = torch.where(torch.rand(shape, generator=g) < 0.01,
                         torch.zeros(()), torch.full((), float(ed.INF)))
     seeds = seeds.to(dev)
+    needed = _block_mask(shape, mask, g)
+    needed = None if needed is None else needed.to(dev)
     for axis in range(3):
-        before = dict(kernels.LAUNCHES)
-        p1 = ed.edt_pass1(seeds, axis, band)
-        p = ed.edt_pass(p1, (axis + 1) % 3, band)
-        torch.cuda.synchronize()
-        assert kernels.LAUNCHES["edt_pass1"] == before["edt_pass1"] + 1
-        assert kernels.LAUNCHES["edt_pass"] == before["edt_pass"] + 1
-        assert torch.equal(p1, ed.edt_pass1_plain(seeds, axis, band))
-        assert torch.equal(p, ed.edt_pass_plain(p1, (axis + 1) % 3, band))
+        p1 = ed.edt_pass1_plain(seeds, axis, band)
+        _check_edt_pair(dev, seeds, p1, (axis + 1) % 3, band, needed)
+        if mask == "empty":
+            p1k = ed.edt_pass1(seeds, axis, band, needed)
+            assert bool((p1k == float(ed.INF)).all())
+
+
+@pytest.mark.parametrize("band", [5, 17, 40])
+def test_edt_passes_edge_values(dev, band):
+    """All-INF grids, single-site lines, values at and just above band^2,
+    and non-binary non-negative input to the first pass."""
+    shape = (40, 24, 96)
+    g = torch.Generator(device="cpu").manual_seed(band)
+    inf = torch.full(shape, float(ed.INF))
+    single = inf.clone()
+    single[::3, ::5, 37] = 0.0           # one site on every Z line
+    single[7, 11, :] = float(ed.INF)
+    bb = band * band
+    near = torch.where(torch.rand(shape, generator=g) < 0.05,
+                       torch.randint(bb - 1, bb + 3, shape,
+                                     generator=g).float(), inf)
+    ints = torch.where(torch.rand(shape, generator=g) < 0.1,
+                       torch.randint(0, 3 * band + 2, shape,
+                                     generator=g).float(), inf)
+    needed = _block_mask(shape, "random", g).to(dev)
+    for grid in (inf, single, near, ints):
+        grid = grid.to(dev)
+        for axis in range(3):
+            for nd in (None, needed):
+                _check_edt_pair(dev, grid, grid, axis, band, nd)
+    p1, p = _check_edt_pair(dev, inf.to(dev), inf.to(dev), 2, band, None)
+    assert bool((p1 == float(ed.INF)).all() and (p == float(ed.INF)).all())
+    p1, _ = _check_edt_pair(dev, single.to(dev), inf.to(dev), 2, band, None)
+    assert float(p1[0, 0, 37]) == 0.0
+    assert float(p1[0, 0, 37 + band]) == float(band ** 2)
+    assert float(p1[0, 0, 36 - band]) == float(ed.INF)
 
 
 def test_esdf_dense_cuda_matches_reference(dev):

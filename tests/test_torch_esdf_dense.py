@@ -159,3 +159,36 @@ def test_sites_from_tsdf_identical():
                                       voxel_size_m=jnp.float32(0.05), **kw)
     for g, r in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+def _sweep_lines(lines, band):
+    """The first pass as the kernel computes it (numpy): the unbanded L1
+    transform as min(forward, backward), forward[i] = min_{j<=i} in[j] - j
+    + i and backward[i] = min_{j>=i} in[j] + j - i, then d*d where
+    d <= band, else INF."""
+    S = lines.shape[1]
+    i = np.arange(S, dtype=np.float32)
+    fwd = np.minimum.accumulate(lines - i, axis=1) + i
+    bwd = np.minimum.accumulate((lines + i)[:, ::-1], axis=1)[:, ::-1] - i
+    d = np.minimum(fwd, bwd)
+    return np.where(d <= band, d * d, ted.INF).astype(np.float32)
+
+
+@pytest.mark.parametrize("band", [0, 3, 9, 40])
+def test_pass1_non_binary_input(band):
+    """For any non-negative integer input the banded first pass equals the
+    brute force, and equals the two unbanded sweeps of its kernel."""
+    rng = np.random.default_rng(band)
+    shape = (7, 13, 90)
+    vals = np.where(rng.random(shape) < 0.15,
+                    rng.integers(0, 3 * band + 3, shape),
+                    ted.INF).astype(np.float32)
+    for axis in range(3):
+        p1 = ted.edt_pass1_plain(torch.from_numpy(vals), axis, band).numpy()
+        lines = np.moveaxis(vals, axis, -1).reshape(-1, shape[axis])
+        got = np.moveaxis(p1, axis, -1).reshape(-1, shape[axis])
+        brute = _brute_lines(np.where(lines >= ted.INF, np.inf,
+                                      lines.astype(np.float64)),
+                             band, first=True)
+        np.testing.assert_array_equal(got, brute)
+        np.testing.assert_array_equal(_sweep_lines(lines, band), brute)
