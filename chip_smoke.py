@@ -39,8 +39,9 @@ PyTorch version on the path's own inputs, times both, and scores the maps
 against the scenes' analytic SDFs.
 
 Output, one JSON object per line: the card, each path's figures, one line
-per kernel check, the `kernels` summary, then the card's name and power
-limit as nvidia-smi gives them, and last
+per kernel check (printed once every path has run, each with the kernel's
+launches on every path, `launches_by_path`), the `kernels` summary, then
+the card's name and power limit as nvidia-smi gives them, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits non-zero at once.
@@ -104,13 +105,33 @@ DYN_HC_TOL, DYN_DETECTED_TOL, DYN_TPR_TOL, DYN_OCCUPIED_TOL = (
     0.001, 0.005, 0.005, 0.01)
 
 
+# Launch counts of each path's run (set to 0 just before it, read just
+# after), by path name.
+PATH_LAUNCHES = {}
+# The kernel_check lines, printed once every path has run, each with its
+# kernel's launches on every path (`launches_by_path`).
+CHECKS = []
+
+
 def fail(msg: str) -> None:
+    flush_checks()
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def flush_checks() -> None:
+    """Print the kernel_check lines held so far, each with its kernel's
+    launch counts on the paths that have run."""
+    for row in CHECKS:
+        row["launches_by_path"] = {
+            path: counts[row["name"]] for path, counts in PATH_LAUNCHES.items()
+            if counts.get(row["name"], 0) > 0}
+        emit(row)
+    CHECKS.clear()
 
 
 def nvidia_smi_line() -> str:
@@ -158,12 +179,14 @@ def trace(fn, reps: int):
 
 def kernel_ms(fn, match: str, reps: int = 21):
     """Device time of one launch of the kernel whose name holds `match`:
-    the median over `reps` calls from the profiler's trace, or, where the
-    trace holds none, the event-timed call (which then includes the
+    the median over `reps` calls from the profiler's trace, or, where
+    three traces hold none (a trace now and then loses the kernel records
+    of a short run), the event-timed call (which then includes the
     wrapper's host time). Returns (ms, how)."""
-    durs = [us for name, us in trace(fn, reps)[0] if match in name]
-    if durs:
-        return float(np.median(durs)) / 1e3, "profiler"
+    for _ in range(3):
+        durs = [us for name, us in trace(fn, reps)[0] if match in name]
+        if durs:
+            return float(np.median(durs)) / 1e3, "profiler"
     return cuda_ms(fn, reps), "events"
 
 
@@ -212,6 +235,22 @@ def in_view_voxels(slots, bidx, T_L_C, camera, voxel, cap) -> int:
     return int((ok & real[:, None]).sum())
 
 
+def tsdf_reads_writes(uv, z, ok, image, params, voxel) -> tuple:
+    """(voxels read, voxels written) of one TSDF fusion batch, given each
+    voxel's pixel `uv`, depth or range `z` and view mask `ok` (already
+    limited to the batch's real entries): the in-view voxels, whose pool
+    rows the kernel reads, and those that ops/tsdf.py's `update` lets it
+    write. A write at capped weight may leave the bits as they were, so a
+    change of the pool undercounts the writes."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch.models.camera import sample_image_nearest
+    measured = sample_image_nearest(image, uv)
+    update = (ok & (measured > 0.0) & torch.isfinite(measured)
+              & (z <= params.max_integration_distance_m)
+              & (measured - z >= -params.truncation_m(voxel)))
+    return int(ok.sum()), int(update.sum())
+
+
 def changed(new, old):
     """bool[cap, 512]: voxels where any of the channels changed (an update
     at capped weight still moves the running averages)."""
@@ -219,6 +258,17 @@ def changed(new, old):
     for a, b in zip(new[1:], old[1:]):
         out = out | (a != b)
     return out
+
+
+def rows_untouched(new, old, rows) -> bool:
+    """Whether every pool row outside `rows` (i64 or i32 slot indices) is
+    the same in each of the channels `new` as in `old`."""
+    import torch
+    outside = torch.ones(new[0].shape[0], dtype=torch.bool,
+                         device=new[0].device)
+    outside[rows.long()] = False
+    return all(bool(torch.equal(a[outside], b[outside]))
+               for a, b in zip(new, old))
 
 
 def bucket_of(worst: int) -> int:
@@ -389,7 +439,7 @@ def edt_check(state, is_site, esdf_sq, origin_t, dims_b, band: int,
                  "plain_device_ms": plain_device_ms(
                      lambda: fp(inp, axis, band, need)),
                  "bound_ms": b_ms, "bound_by": b_by}
-        emit(row_i)
+        CHECKS.append(row_i)
         if not exact:
             fail(f"{name} along axis {axis} is not bit-exact on the {path} "
                  f"region")
@@ -459,6 +509,7 @@ def occupancy_phase(dev, smi, camera, scene, depths_r, poses_np, voxel,
 
     run()                                   # warm-up
     m, launches, times = timed_run(run, n_steps)
+    PATH_LAUNCHES["occupancy_frames"] = launches
     for name in ("occupancy_fuse", "edt_pass1", "edt_pass"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the occupancy path")
@@ -562,7 +613,7 @@ def occupancy_phase(dev, smi, camera, scene, depths_r, poses_np, voxel,
              "plain_ms": plain, "plain_device_ms": plain_dev,
              "bound_ms": b_ms, "bound_by": b_by,
              "launches": n_occ}
-    emit(check)
+    CHECKS.append(check)
     if not exact or n_upd == 0:
         fail(f"occupancy_fuse differs from its plain version: {check}")
     del m, st, got, want, base
@@ -630,6 +681,7 @@ def lidar_phase(dev, smi, voxel, world):
 
     run()                                   # warm-up
     m, launches, times = timed_run(run, n_steps)
+    PATH_LAUNCHES["lidar_scans"] = launches
     for name in ("tsdf_lidar_fuse", "edt_pass1", "edt_pass"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the lidar path")
@@ -724,41 +776,54 @@ def lidar_phase(dev, smi, voxel, world):
     max_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
     cap = m.capacity
     real = (slots >= 0) & (slots < cap)
+    untouched = rows_untouched(got, base, slots[real])
     p_S = Transform.apply(Transform.inverse(poses_t[0]),
                           voxel_centers_for_blocks(bidx0, voxel))
-    uv, _, ok = lidar.project(p_S)
+    uv, r_vox, ok = lidar.project(p_S)
     ok = ok & real[:, None]
-    n_view = int(ok.sum())
+    n_view, n_upd = tsdf_reads_writes(uv, r_vox, ok, images[0], proj, voxel)
     A = lidar.num_azimuth_divisions
     # In-view voxels within 8 columns (1.6 degrees) on either side of the
     # +-pi seam.
     seam = int((ok & ((uv[..., 0] < 8.0) | (uv[..., 0] > A - 8.0))).sum())
-    n_upd = int(changed(want, base).sum())
+    n_changed = int(changed(want, base).sum())
     if not exact:
         # Name the voxels that differ, for the record.
         diff = changed(got, want)
         emit({"phase": "kernel_check_detail", "name": "tsdf_lidar_fuse",
               "differing_voxels": int(diff.sum())})
-    ms, how = kernel_ms(lambda: integrate_tsdf_lidar_cuda(*got, *args, **kw),
-                        "tsdf_lidar_fuse_kernel")
+    def run_k(sel=slice(None)):
+        integrate_tsdf_lidar_cuda(*got, slots[sel], bidx0[sel], *args[2:],
+                                  **kw)
+
+    ms, how = kernel_ms(run_k, "tsdf_lidar_fuse_kernel")
+    # The batch's real entries alone, and its first real entry alone.
+    real_idx = torch.nonzero(real).squeeze(1)
+    ms_real, _ = kernel_ms(lambda: run_k(real_idx), "tsdf_lidar_fuse_kernel")
+    ms_one, _ = kernel_ms(lambda: run_k(real_idx[:1]),
+                          "tsdf_lidar_fuse_kernel")
     plain = cuda_ms(lambda: integrate_tsdf_lidar(*want, *args, **kw))
     plain_dev = plain_device_ms(lambda: integrate_tsdf_lidar(*want, *args,
                                                              **kw))
     E = lidar.num_elevation_divisions
     # Each in-view voxel reads its distance and weight (8 B), an updated
-    # one writes them back; the range image (f32) is read once. Two atan2
-    # and two roots per in-view voxel: ~150 operations.
+    # one writes them back; the range image (f32) is read once, the
+    # batch's slots and block indices and the pose once. Two atan2 and two
+    # roots per in-view voxel: ~150 operations.
     b_ms, b_by = bound_ms(n_view * 8 + n_upd * 8 + E * A * 4
-                          + slots.numel() * 16, n_view * 150)
+                          + slots.numel() * 16 + 64, n_view * 150)
     check = {"phase": "kernel_check", "name": "tsdf_lidar_fuse",
              "batch_blocks": int(real.sum()), "in_view_voxels": n_view,
              "seam_voxels": seam, "updated_voxels": n_upd,
-             "bit_exact": exact, "max_abs_err": max_err, "ms": ms,
-             "ms_timing": how, "plain_ms": plain,
+             "changed_voxels": n_changed,
+             "bit_exact": exact, "rows_untouched": untouched,
+             "max_abs_err": max_err, "ms": ms, "ms_timing": how,
+             "ms_real_entries": ms_real, "ms_one_entry": ms_one,
+             "plain_ms": plain,
              "plain_device_ms": plain_dev, "bound_ms": b_ms,
              "bound_by": b_by, "launches": n_lidar}
-    emit(check)
-    if not exact or n_upd == 0 or seam == 0:
+    CHECKS.append(check)
+    if not exact or not untouched or n_changed == 0 or seam == 0:
         fail(f"tsdf_lidar_fuse differs from its plain version: {check}")
     del m, st, got, want, base, points
     torch.cuda.empty_cache()
@@ -875,6 +940,7 @@ def dynamics_phase(dev, smi, camera, depths_r, poses_r, max_blocks: int,
     kernels.reset_launch_counts()
     t_first = timed(fast)
     launches = dict(kernels.LAUNCHES)
+    PATH_LAUNCHES["dynamic_frames"] = launches
     t_plain, t_dyn = [], []
     for _ in range(3):
         t_plain.append(timed(lambda: plain.replay_frames(depths_r, poses_r,
@@ -977,7 +1043,7 @@ def dynamics_phase(dev, smi, camera, depths_r, poses_r, max_blocks: int,
                          "[1, 1, 8Cx, 8Cy, 8Cz], permutes not timed",
               "bound_ms": b9, "bound_by": b9_by,
               "launches": launches["dilate_dense"]}
-    emit(check9)
+    CHECKS.append(check9)
     if not (exact9 and lib_equal and int(want.sum()) > int(dense.sum()) > 0
             and all(s["bit_exact"] and s["equals_max_pool3d"]
                     for s in shapes)):
@@ -1091,7 +1157,7 @@ def dynamics_phase(dev, smi, camera, depths_r, poses_r, max_blocks: int,
                "library": "none: no torch call back-projects and looks up "
                           "the voxel",
                "launches": launches["detect_dynamic"]}
-    emit(check10)
+    CHECKS.append(check10)
     if not exact10:
         fail(f"detect_dynamic differs from its plain version: {check10}")
     if overflow2 != [0, 0]:
@@ -1128,7 +1194,8 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
 
     from isaac_ros_nvblox_tpu_torch import kernels
-    from isaac_ros_nvblox_tpu_torch.core.types import voxel_centers_for_blocks
+    from isaac_ros_nvblox_tpu_torch.core.types import (
+        Transform, voxel_centers_for_blocks)
     from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
     from isaac_ros_nvblox_tpu_torch.mapper.device_mapper import (
         DeviceMapper, _esdf_solve)
@@ -1231,6 +1298,7 @@ def main() -> None:
         t_tsdf.append(t_replay())
         t_both.append(t_replay(esdf_region=region, **esdf_kw))
     launches = dict(kernels.LAUNCHES)
+    PATH_LAUNCHES["main_path"] = launches
     mapper.check_slot_bucket()
     tsdf_ms = float(np.median(t_tsdf)) / n_steps * 1e3
     for name in ("tsdf_fuse", "edt_pass1", "edt_pass"):
@@ -1346,6 +1414,9 @@ def main() -> None:
     rows = slots[slots < mapper.capacity].long()
     dk, dp, wk, wp = d_k[rows], d_p[rows], w_k[rows], w_p[rows]
     same = float(((dk == dp) & (wk == wp)).float().mean())
+    exact = bool(torch.equal(d_k, d_p) and torch.equal(w_k, w_p))
+    untouched = rows_untouched((d_k, w_k), (ch["tsdf_distance"],
+                                            ch["tsdf_weight"]), rows)
     obs_agree = float(((wk > 0) == (wp > 0)).float().mean())
     both = (wk > 0) & (wp > 0)
     err = (dk - dp).abs()[both]
@@ -1354,34 +1425,52 @@ def main() -> None:
     med = float(err.median()) if err.numel() else 0.0
     p99 = float(torch.quantile(err[:1_000_000], 0.99)) if err.numel() else 0.0
     n_valid = int(rows.numel())
-    n_updated = int((wp != ch["tsdf_weight"][rows]).sum())
+    n_changed = int((wp != ch["tsdf_weight"][rows]).sum())
+    real = (slots >= 0) & (slots < mapper.capacity)
+    p_C = Transform.apply(Transform.inverse(poses[0]),
+                          voxel_centers_for_blocks(bidx0, voxel))
+    uv, ok = camera.project(p_C)
+    n_view, n_updated = tsdf_reads_writes(uv, p_C[..., 2], ok & real[:, None],
+                                          depths[0], params.projective, voxel)
 
-    def run_k():
-        integrate_tsdf_cuda(d_k, w_k, slots, bidx0, depths[0], poses[0], **kw)
+    def run_k(sel=slice(None)):
+        integrate_tsdf_cuda(d_k, w_k, slots[sel], bidx0[sel], depths[0],
+                            poses[0], **kw)
 
     def run_p():
         integrate_tsdf(d_p, w_p, slots, bidx0, depths[0], poses[0], **kw)
 
     ms, how = kernel_ms(run_k, "tsdf_fuse_kernel")
+    # The batch's real entries alone (what its padding costs), and its
+    # first real entry alone (a launch and one block's chain of loads).
+    real_idx = torch.nonzero(real).squeeze(1)
+    ms_real, _ = kernel_ms(lambda: run_k(real_idx), "tsdf_fuse_kernel")
+    ms_one, _ = kernel_ms(lambda: run_k(real_idx[:1]), "tsdf_fuse_kernel")
     ms_call = cuda_ms(run_k)
     plain_ms = cuda_ms(run_p)
     plain_dev = plain_device_ms(run_p)
     H, W = depths.shape[1:]
+    # Each in-view voxel reads its distance and weight (8 B), an updated
+    # one writes them back; the depth image (f32) is read once, the
+    # batch's slots and block indices and the pose once.
     b_ms, b_by = bound_ms(
-        n_valid * 512 * 4 * 4 + H * W * 4 + slots.numel() * 16 + 64,
+        n_view * 8 + n_updated * 8 + H * W * 4 + slots.numel() * 16 + 64,
         n_valid * 512 * 30 + n_updated * 15)
     tsdf_check = {"phase": "kernel_check", "name": "tsdf_fuse",
                   "batch_blocks": n_valid, "max_blocks": max_blocks,
-                  "updated_voxels": n_updated, "identical_fraction": same,
+                  "in_view_voxels": n_view, "updated_voxels": n_updated,
+                  "changed_voxels": n_changed, "identical_fraction": same,
+                  "bit_exact": exact, "rows_untouched": untouched,
                   "observed_agreement": obs_agree, "median_err": med,
                   "p99_err": p99, "max_abs_err": max_err, "ms": ms,
-                  "ms_timing": how, "ms_call": ms_call, "plain_ms": plain_ms,
+                  "ms_timing": how, "ms_real_entries": ms_real,
+                  "ms_one_entry": ms_one, "ms_call": ms_call,
+                  "plain_ms": plain_ms,
                   "plain_device_ms": plain_dev, "bound_ms": b_ms,
-                  "bound_by": b_by}
-    emit(tsdf_check)
-    if not (same >= 0.9999 and obs_agree > 0.999 and med < 0.01
-            and p99 < 0.05):
-        fail(f"tsdf_fuse disagrees with its plain version: {tsdf_check}")
+                  "bound_by": b_by, "launches": launches["tsdf_fuse"]}
+    CHECKS.append(tsdf_check)
+    if not (exact and untouched and n_changed > 0):
+        fail(f"tsdf_fuse differs from its plain version: {tsdf_check}")
     results.append({"name": "tsdf_fuse", "route": "cuda",
                     "source": "isaac_ros_nvblox_tpu_torch/csrc/tsdf_fuse.cu",
                     "replaces": "isaac_ros_nvblox_tpu/ops/tsdf_pallas.py:100",
@@ -1463,6 +1552,7 @@ def main() -> None:
     kernels.reset_launch_counts()
     t_pipe = [p_replay(**pipe_kw) for _ in range(3)]
     launches_pipe = dict(kernels.LAUNCHES)
+    PATH_LAUNCHES["pipeline"] = launches_pipe
     for name in ("tsdf_fuse", "tsdf_color_fuse", "edt_pass1", "edt_pass",
                  "marching_cubes"):
         if launches_pipe[name] <= 0:
@@ -1539,6 +1629,7 @@ def main() -> None:
     torch.cuda.synchronize()
     t_cpass = time.perf_counter() - t0
     launches_color = dict(kernels.LAUNCHES)
+    PATH_LAUNCHES["color_frames"] = launches_color
     if launches_color["color_fuse"] <= 0:
         fail("kernel color_fuse was not launched by integrate_color")
     cpass_dev_ms, _ = device_ms(color_pass)
@@ -1594,7 +1685,7 @@ def main() -> None:
             "ms_timing": how5, "plain_ms": plain5,
             "plain_device_ms": plain5_dev, "bound_ms": b5, "bound_by": b5_by,
             "launches": launches_pipe["tsdf_color_fuse"]}
-    emit(row5)
+    CHECKS.append(row5)
     if not exact or n_col7 == 0:
         fail(f"tsdf_color_fuse differs from its plain version: {row5}")
     results.append({"name": "tsdf_color_fuse", "route": "cuda",
@@ -1645,7 +1736,7 @@ def main() -> None:
             "plain_ms": plain6, "plain_device_ms": plain6_dev,
             "bound_ms": b6, "bound_by": b6_by,
             "launches": launches_color["color_fuse"]}
-    emit(row6)
+    CHECKS.append(row6)
     if not exact or n_col_c == 0:
         fail(f"color_fuse differs from its plain version: {row6}")
     results.append({"name": "color_fuse", "route": "cuda",
@@ -1694,7 +1785,7 @@ def main() -> None:
             "plain_ms": plain4, "plain_device_ms": plain4_dev,
             "bound_ms": b4, "bound_by": b4_by,
             "launches": launches_pipe["marching_cubes"]}
-    emit(row4)
+    CHECKS.append(row4)
     if not exact or n_tris == 0:
         fail(f"marching_cubes differs from its plain version: {row4}")
     results.append({"name": "marching_cubes", "route": "cuda",
@@ -1751,6 +1842,7 @@ def main() -> None:
     results.extend(dynamics_phase(dev, smi, camera, depths_r, poses_r,
                                   max_blocks, voxel, world))
 
+    flush_checks()
     emit({"kernels": results})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

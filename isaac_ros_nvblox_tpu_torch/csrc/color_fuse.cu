@@ -47,7 +47,9 @@ color_fuse_kernel(float* __restrict__ cr, float* __restrict__ cg,
   const int slot = slots[b];
   if (slot < 0 || slot >= p.cap) return;
   const int v = threadIdx.x;
-  const proj::Pixel px = proj::project_voxel(block_indices, b, v, T_L_C, p);
+  const proj::Pixel px = proj::project_voxel(
+      proj::load_pose(T_L_C), block_indices[3 * b], block_indices[3 * b + 1],
+      block_indices[3 * b + 2], v, p);
   if (!px.in_view) return;
   const size_t off = (size_t)slot * 512 + v;
   const bool occl = *has_depth != 0;

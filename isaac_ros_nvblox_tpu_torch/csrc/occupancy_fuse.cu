@@ -47,7 +47,9 @@ occupancy_fuse_kernel(float* __restrict__ log_odds,
   const int slot = slots[b];
   if (slot < 0 || slot >= p.cap) return;
   const int v = threadIdx.x;
-  const proj::Pixel px = proj::project_voxel(block_indices, b, v, T_L_C, p);
+  const proj::Pixel px = proj::project_voxel(
+      proj::load_pose(T_L_C), block_indices[3 * b], block_indices[3 * b + 1],
+      block_indices[3 * b + 2], v, p);
   if (!px.in_view) return;
   const float measured = __ldg(depth + (size_t)proj::nearest(px.v, p.H) * p.W
                                + proj::nearest(px.u, p.W));

@@ -1,21 +1,27 @@
 // Projection (pinhole and spherical), nearest sampling, weighting and the
 // TSDF and color updates shared by the projective kernels (tsdf_fuse.cu,
 // color_fuse.cu, tsdf_color_fuse.cu, occupancy_fuse.cu,
-// tsdf_lidar_fuse.cu).
+// tsdf_lidar_fuse.cu), and the batch walk of the persistent ones.
 //
-// Each kernel runs one CTA per batch entry (a 512-voxel block) and one
-// thread per voxel, lane v = lx*64 + ly*8 + lz. The arithmetic repeats the
-// plain PyTorch versions step for step (ops/tsdf.py, ops/color.py,
-// ops/occupancy.py, models/lidar.py), whose
-// float32 roundings follow the reference's XLA path (core/types.py): every
-// source that includes this header is built with -fmad=false, and the one
-// contraction the plain versions perform, fma_emul, is spelled out here in
-// the same float64 form, so kernels and plain versions agree bit for bit.
+// Blocks are 512 voxels, lane v = lx*64 + ly*8 + lz. The arithmetic repeats
+// the plain PyTorch versions step for step (ops/tsdf.py, ops/color.py,
+// ops/occupancy.py, models/lidar.py), whose float32 roundings follow the
+// reference's XLA path (core/types.py): every source that includes this
+// header is built with -fmad=false, and the one contraction the plain
+// versions perform, fma_emul, is spelled out here in the same float64
+// form, so kernels and plain versions agree bit for bit. On sm_90 a
+// conversion to or from float64 issues at 16 per clock per SM, an eighth
+// of the float32 rate, so the sensor pose (Pose: the rotation in float32
+// and float64, the translation of the inverse) is computed once, per CTA
+// (stage_pose) or per thread (load_pose), and a voxel converts only its own
+// coordinates and the roundings the plain version makes.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace proj {
 
@@ -62,9 +68,15 @@ inline Params make_params(const float* s, int H, int W, int cap) {
   return p;
 }
 
-// a*b + c with one rounding to float32 (the product is exact in float64).
+// a*b + c with one rounding to float32 (the product is exact in float64,
+// so the float64 fma rounds only the sum, as the plain version's float64
+// product-sum does).
+__device__ __forceinline__ float fma_d(double a, double b, float c) {
+  return (float)__fma_rn(a, b, (double)c);
+}
+
 __device__ __forceinline__ float fma_emul(float a, float b, float c) {
-  return (float)((double)a * (double)b + (double)c);
+  return fma_d((double)a, (double)b, c);
 }
 
 __device__ __forceinline__ float clamp01(float x) {
@@ -94,45 +106,88 @@ struct Pixel {
   bool in_view;   // z > 0 and the pixel center inside the image
 };
 
-// Voxel `lane` of block `b` (block index bidx[3b..3b+2]) in the frame of
-// the sensor at T_L_S (f32[4, 4], row-major): T_S_L = inverse(T_L_S) as
-// R^T and -R^T t, then p_S = R^T x + t', each accumulated as the plain
-// version (core/types.py Transform) does.
-__device__ __forceinline__ void voxel_in_sensor(const int* __restrict__ bidx,
-                                                int b, int lane,
-                                                const float* __restrict__ T_L_S,
-                                                float voxel, float pc[3]) {
-  const int lx = lane >> 6, ly = (lane >> 3) & 7, lz = lane & 7;
-  const float x = ((float)(bidx[3 * b + 0] * 8 + lx) + 0.5f) * voxel;
-  const float y = ((float)(bidx[3 * b + 1] * 8 + ly) + 0.5f) * voxel;
-  const float z = ((float)(bidx[3 * b + 2] * 8 + lz) + 0.5f) * voxel;
-  float R[9], t[3];
+// The pose of a sensor at T_L_S (f32[4, 4], row-major) as the plain
+// version inverts it (core/types.py Transform.inverse): T_S_L has rotation
+// R^T and translation t' = -R^T t, accumulated by mat3_rows.
+struct Pose {
+  double Rd[9];   // R, row-major, in float64 (exact)
+  float R[9];     // R in float32
+  float t[3];     // t' = -R^T t
+};
+
+// Row r of t' = -R^T t, accumulated as mat3_rows does; r1, r2: R[1][r] and
+// R[2][r] in float64 (shared with the voxels' rows where the caller holds
+// them, so that each is converted once).
+__device__ __forceinline__ float pose_t(const float* __restrict__ T_L_S,
+                                        int r, double r1, double r2) {
+  float ti = __ldg(T_L_S + 3) * -__ldg(T_L_S + r);
+  ti = fma_d(__ldg(T_L_S + 7), -r1, ti);
+  return fma_d(__ldg(T_L_S + 11), -r2, ti);
+}
+
+// The pose of T_L_S in the registers of one thread (kernels that run one
+// CTA per batch entry and return early on padding).
+__device__ __forceinline__ Pose load_pose(const float* __restrict__ T_L_S) {
+  Pose P;
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) R[3 * i + j] = __ldg(T_L_S + 4 * i + j);
-    t[i] = __ldg(T_L_S + 4 * i + 3);
+  for (int i = 0; i < 9; ++i) {
+    P.R[i] = __ldg(T_L_S + 4 * (i / 3) + i % 3);
+    P.Rd[i] = (double)P.R[i];
   }
 #pragma unroll
+  for (int r = 0; r < 3; ++r)
+    P.t[r] = pose_t(T_L_S, r, P.Rd[3 + r], P.Rd[6 + r]);
+  return P;
+}
+
+// Stage the pose of T_L_S in shared memory `sp`, once per CTA: threads 0-8
+// load R, threads 9-11 accumulate a row of t' each. Every thread of the CTA
+// must call it (it ends with a barrier); the CTA needs 12 threads or more.
+__device__ __forceinline__ void stage_pose(const float* __restrict__ T_L_S,
+                                           Pose& sp) {
+  const int i = threadIdx.x;
+  if (i < 9) {
+    const float r = __ldg(T_L_S + 4 * (i / 3) + i % 3);
+    sp.R[i] = r;
+    sp.Rd[i] = (double)r;
+  } else if (i < 12) {
+    const int r = i - 9;
+    sp.t[r] = pose_t(T_L_S, r, __ldg(T_L_S + 4 + r), __ldg(T_L_S + 8 + r));
+  }
+  __syncthreads();
+}
+
+// Voxel center coordinate along one axis: block index bi, voxel l.
+__device__ __forceinline__ float voxel_coord(int bi, int l, float voxel) {
+  return ((float)(bi * 8 + l) + 0.5f) * voxel;
+}
+
+// The center (x, y, z) of voxel `lane` of block (bx, by, bz) in the frame
+// of the sensor at pose P, p_S = R^T x + t', each row accumulated as
+// mat3_rows does: x*R, then fused multiply-adds of y and z (converted to
+// float64 once for the three rows), then t'.
+__device__ __forceinline__ void voxel_in_sensor(const Pose& P, int bx, int by,
+                                                int bz, int lane, float voxel,
+                                                float pc[3]) {
+  const float x = voxel_coord(bx, lane >> 6, voxel);
+  const double yd = voxel_coord(by, (lane >> 3) & 7, voxel);
+  const double zd = voxel_coord(bz, lane & 7, voxel);
+#pragma unroll
   for (int r = 0; r < 3; ++r) {
-    float ti = t[0] * -R[r];
-    ti = fma_emul(t[1], -R[3 + r], ti);
-    ti = fma_emul(t[2], -R[6 + r], ti);
-    float s = x * R[r];
-    s = fma_emul(y, R[3 + r], s);
-    s = fma_emul(z, R[6 + r], s);
-    pc[r] = s + ti;
+    float s = x * P.R[r];
+    s = fma_d(yd, P.Rd[3 + r], s);
+    s = fma_d(zd, P.Rd[6 + r], s);
+    pc[r] = s + P.t[r];
   }
 }
 
-// Voxel `lane` of block `b` seen from the camera at T_L_C: the voxel in
-// the camera frame, then the pinhole projection.
-__device__ __forceinline__ Pixel project_voxel(const int* __restrict__ bidx,
-                                               int b, int lane,
-                                               const float* __restrict__ T_L_C,
+// Voxel `lane` of block (bx, by, bz) seen from the camera at pose P: the
+// voxel in the camera frame, then the pinhole projection.
+__device__ __forceinline__ Pixel project_voxel(const Pose& P, int bx, int by,
+                                               int bz, int lane,
                                                const Params& p) {
   float pc[3];
-  voxel_in_sensor(bidx, b, lane, T_L_C, p.voxel, pc);
+  voxel_in_sensor(P, bx, by, bz, lane, p.voxel, pc);
   Pixel px;
   px.z = pc[2];
   const bool zpos = px.z > 1e-6f;
@@ -142,6 +197,63 @@ __device__ __forceinline__ Pixel project_voxel(const int* __restrict__ bidx,
   px.in_view = zpos && px.u >= 0.0f && px.u <= p.u_max && px.v >= 0.0f &&
                px.v <= p.v_max;
   return px;
+}
+
+// Walks the batch entries of this CTA, b = blockIdx.x + k * gridDim.x for
+// k = 0, 1, ..., and calls body(slot, bx, by, bz) for each real one (slot
+// in [0, cap); block index bidx[3b..3b+2]). Each warp loads the slots and
+// block indices of 32 entries at once, a lane each, and votes, so that a
+// padding or dropped entry costs a lane's load and no pass of the CTA.
+// Every warp walks the same entries in the same order, so the body may use
+// the whole CTA.
+template <typename Body>
+__device__ __forceinline__ void for_each_entry(const int* __restrict__ slots,
+                                               const int* __restrict__ bidx,
+                                               int n, int cap, Body&& body) {
+  const int lane = threadIdx.x & 31;
+  const int G = gridDim.x;
+  for (int b0 = blockIdx.x; b0 < n; b0 += 32 * G) {
+    const int b = b0 + lane * G;
+    int slot = -1, bx = 0, by = 0, bz = 0;
+    if (b < n) {
+      slot = __ldg(slots + b);
+      bx = __ldg(bidx + 3 * b);
+      by = __ldg(bidx + 3 * b + 1);
+      bz = __ldg(bidx + 3 * b + 2);
+    }
+    unsigned live = __ballot_sync(0xffffffffu, slot >= 0 && slot < cap);
+    while (live) {
+      const int j = __ffs(live) - 1;
+      live &= live - 1;
+      body(__shfl_sync(0xffffffffu, slot, j),
+           __shfl_sync(0xffffffffu, bx, j), __shfl_sync(0xffffffffu, by, j),
+           __shfl_sync(0xffffffffu, bz, j));
+    }
+  }
+}
+
+// The persistent grid of a kernel that walks a batch of n entries with
+// for_each_entry: as many CTAs of `threads` as the card holds at once (SM
+// count times resident CTAs per SM, asked once per kernel instantiation
+// and device, kept in an atomic so that launches from several host threads
+// may race on it), and no more than n. Host calls only: nothing waits on
+// the card.
+template <auto Kernel>
+inline int persistent_grid(int threads, int n) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> grid[kMaxDevices];  // 0: not asked yet
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int g = dev < kMaxDevices ? grid[dev].load(std::memory_order_relaxed) : 0;
+  if (g == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, threads,
+                                                  0);
+    g = sms * per_sm > 0 ? sms * per_sm : 1;
+    if (dev < kMaxDevices) grid[dev].store(g, std::memory_order_relaxed);
+  }
+  return n < g ? n : g;
 }
 
 // The float32 constants of models/lidar.py::Lidar.scalars, in that order.
@@ -169,18 +281,21 @@ inline LidarParams make_lidar_params(const float* s) {
   return l;
 }
 
-// Voxel `lane` of block `b` seen from the lidar at T_L_S: the spherical
-// projection of models/lidar.py::Lidar.project. The Pixel's z is the
-// range r = sqrt(x^2 + y^2 + z^2) (accumulated as fma(z, z, fma(x, x,
+// Voxel `lane` of block (bx, by, bz) seen from the lidar at pose P: the
+// spherical projection of models/lidar.py::Lidar.project. The Pixel's z is
+// the range r = sqrt(x^2 + y^2 + z^2) (accumulated as fma(z, z, fma(x, x,
 // y*y)), correctly rounded); u = (atan2(y, x) + pi) * A/(2 pi); the
 // elevation is arcsin(clip(z / max(r, 1e-9), -1, 1)) in XLA's expansion
 // 2 atan2(q, 1 + sqrt((1 - q)(1 + q))); v = (max_el - el) / rad per row;
-// in_view is the lidar's range and elevation test.
-__device__ __forceinline__ Pixel project_voxel_lidar(
-    const int* __restrict__ bidx, int b, int lane,
-    const float* __restrict__ T_L_S, const Params& p, const LidarParams& l) {
+// in_view is the lidar's range and elevation test. (Computing the azimuth
+// only in view saved nothing measurable on the card: nearly every voxel of
+// a lidar batch is in view.)
+__device__ __forceinline__ Pixel project_voxel_lidar(const Pose& P, int bx,
+                                                     int by, int bz, int lane,
+                                                     const Params& p,
+                                                     const LidarParams& l) {
   float pc[3];
-  voxel_in_sensor(bidx, b, lane, T_L_S, p.voxel, pc);
+  voxel_in_sensor(P, bx, by, bz, lane, p.voxel, pc);
   const float r = sqrtf(fma_emul(pc[2], pc[2],
                                  fma_emul(pc[0], pc[0], pc[1] * pc[1])));
   const float az = atan2f(pc[1], pc[0]);

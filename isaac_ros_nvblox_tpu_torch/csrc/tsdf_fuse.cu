@@ -11,13 +11,26 @@
 //   sample -> sdf = measured - z -> weight (one of six modes) -> running
 //   average of min(sdf, truncation), weight capped at max_weight.
 //
-// Layout: one CTA per batch entry (a 512-voxel block), one thread per voxel
-// (projective.cuh). The pool rows distance/weight f32[cap, 512] are updated
-// in place; entries with slot outside [0, cap) are padding and skip.
+// Layout: a persistent grid (as many 512-thread CTAs as the card holds at
+// once) walks the batch (projective.cuh::for_each_entry): a warp loads 32
+// entries' slots and block indices at a time and votes, so that padding
+// and dropped entries (slot outside [0, cap)) cost a lane's load each and
+// no CTA. A CTA fuses one real block at a time, a voxel a thread, with the
+// sensor pose staged once per CTA (projective.cuh::stage_pose), so that a
+// voxel converts to float64 only what the plain version's single-rounding
+// multiply-adds need (16 conversions, against 44 with the pose per voxel).
+// For an in-view voxel the depth sample and the pool rows distance/weight
+// f32[cap, 512] are loaded together, before either is used; an updated
+// voxel is written back in place. (Two or four voxels a thread, and pool
+// loads issued before the projection, measured no faster on the card.)
 //
-// Bound: device memory. Each updated voxel reads and writes 8 bytes of pool
-// rows; the depth image (1.2 MB at VGA) stays in L2 and is read with __ldg.
-// The arithmetic (~50 flops per voxel) is far below the byte bound.
+// Bound: instructions issued (PERF.md section 6, H100). At the main path's
+// batch (~730 real entries in a bucket of 1024) a launch takes ~2.2 us
+// with one block, plus ~4.7 ns a block: the plain version's own operations
+// (two IEEE divisions in the projection, two in the fuse), of which the
+// float64 conversions, at an eighth of the float32 rate on sm_90, hold
+// ~0.9 us. The bytes (8 read per in-view voxel, 8 written per updated one;
+// the depth image from L2) come well below that.
 //
 // Rounding: built with -fmad=false; see projective.cuh.
 
@@ -33,22 +46,24 @@ tsdf_fuse_kernel(float* __restrict__ distance, float* __restrict__ weight,
                  const int* __restrict__ slots,
                  const int* __restrict__ block_indices,
                  const float* __restrict__ depth,
-                 const float* __restrict__ T_L_C, Params p) {
-  const int b = blockIdx.x;
-  const int slot = slots[b];
-  if (slot < 0 || slot >= p.cap) return;
+                 const float* __restrict__ T_L_C, int n, Params p) {
+  __shared__ proj::Pose pose;
+  proj::stage_pose(T_L_C, pose);
   const int v = threadIdx.x;
-  const proj::Pixel px = proj::project_voxel(block_indices, b, v, T_L_C, p);
-  if (!px.in_view) return;
-  const float measured = __ldg(depth + (size_t)proj::nearest(px.v, p.H) * p.W
-                               + proj::nearest(px.u, p.W));
-  float sdf;
-  if (!proj::tsdf_updates(measured, px.z, p, &sdf)) return;
-  const size_t off = (size_t)slot * 512 + v;
-  float d = distance[off], w = weight[off];
-  proj::tsdf_fuse_voxel<MODE>(px.z, sdf, d, w, p);
-  distance[off] = d;
-  weight[off] = w;
+  proj::for_each_entry(slots, block_indices, n, p.cap,
+                       [&](int slot, int bx, int by, int bz) {
+    const proj::Pixel px = proj::project_voxel(pose, bx, by, bz, v, p);
+    if (!px.in_view) return;
+    const size_t off = (size_t)slot * 512 + v;
+    const float measured = __ldg(depth + proj::nearest(px.v, p.H) * p.W +
+                                 proj::nearest(px.u, p.W));
+    float d = distance[off], w = weight[off];
+    float sdf;
+    if (!proj::tsdf_updates(measured, px.z, p, &sdf)) return;
+    proj::tsdf_fuse_voxel<MODE>(px.z, sdf, d, w, p);
+    distance[off] = d;
+    weight[off] = w;
+  });
 }
 
 }  // namespace
@@ -61,10 +76,11 @@ extern "C" int tsdf_fuse(void* distance, void* weight, const void* slots,
   if (n <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   PROJ_DISPATCH_MODE(mode, M,
-      tsdf_fuse_kernel<M><<<n, 512, 0, s>>>(
+      tsdf_fuse_kernel<M><<<
+          proj::persistent_grid<tsdf_fuse_kernel<M>>(512, n), 512, 0, s>>>(
           (float*)distance, (float*)weight, (const int*)slots,
           (const int*)block_indices, (const float*)depth,
-          (const float*)T_L_C, p));
+          (const float*)T_L_C, n, p));
   return (int)cudaGetLastError();
 }
 

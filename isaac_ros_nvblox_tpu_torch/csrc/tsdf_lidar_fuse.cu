@@ -15,16 +15,20 @@
 //   -> sdf = measured - r -> weight (one of six modes, with r in place of
 //   z) -> running average of min(sdf, truncation), weight capped.
 //
-// Layout: one CTA per batch entry (a 512-voxel block), one thread per voxel
-// (projective.cuh). The pool rows distance/weight f32[cap, 512] are updated
-// in place; entries with slot outside [0, cap) are padding and skip. A
-// source of its own (not a mode of tsdf_fuse.cu) so that its launches are
-// counted apart.
+// Layout: as tsdf_fuse.cu: a persistent grid of 512-thread CTAs walks the
+// batch (projective.cuh::for_each_entry), a CTA fuses one real block at a
+// time, a voxel a thread, with the sensor pose staged once per CTA; the
+// range sample and the pool rows distance/weight f32[cap, 512] of an
+// in-view voxel are loaded together. A source of its own (not a mode of
+// tsdf_fuse.cu) so that its launches are counted apart.
 //
-// Bound: device memory. Each in-view voxel reads 8 bytes of pool rows and
-// each updated one writes them back; the range image (115 KB at 1800 x 16)
-// stays in L2. Two atan2 and two square roots per voxel (~150 flops) stay
-// below the byte bound.
+// Bound: instructions issued (PERF.md section 6, H100). Per voxel about 22
+// float64 conversions (the plain version's single-rounding multiply-adds
+// of the pose and the range, at an eighth of the float32 rate on sm_90:
+// ~6 us of the lidar batch's ~29 us), three IEEE divisions, three square
+// roots and two atan2. The bytes (8 read per in-view voxel, 8 written per
+// updated one; the range image, 115 KB at 1800 x 16, from L2) come well
+// below that.
 //
 // Rounding: built with -fmad=false; see projective.cuh.
 
@@ -42,25 +46,27 @@ tsdf_lidar_fuse_kernel(float* __restrict__ distance,
                        const int* __restrict__ slots,
                        const int* __restrict__ block_indices,
                        const float* __restrict__ range_image,
-                       const float* __restrict__ T_L_S, Params p,
+                       const float* __restrict__ T_L_S, int n, Params p,
                        LidarParams l) {
-  const int b = blockIdx.x;
-  const int slot = slots[b];
-  if (slot < 0 || slot >= p.cap) return;
+  __shared__ proj::Pose pose;
+  proj::stage_pose(T_L_S, pose);
   const int v = threadIdx.x;
-  const proj::Pixel px =
-      proj::project_voxel_lidar(block_indices, b, v, T_L_S, p, l);
-  if (!px.in_view) return;
-  const float measured =
-      __ldg(range_image + (size_t)proj::nearest(px.v, p.H) * p.W
-            + proj::nearest(px.u, p.W));
-  float sdf;
-  if (!proj::tsdf_updates(measured, px.z, p, &sdf)) return;
-  const size_t off = (size_t)slot * 512 + v;
-  float d = distance[off], w = weight[off];
-  proj::tsdf_fuse_voxel<MODE>(px.z, sdf, d, w, p);
-  distance[off] = d;
-  weight[off] = w;
+  proj::for_each_entry(slots, block_indices, n, p.cap,
+                       [&](int slot, int bx, int by, int bz) {
+    const proj::Pixel px =
+        proj::project_voxel_lidar(pose, bx, by, bz, v, p, l);
+    if (!px.in_view) return;
+    const size_t off = (size_t)slot * 512 + v;
+    const float measured = __ldg(range_image +
+                                 proj::nearest(px.v, p.H) * p.W +
+                                 proj::nearest(px.u, p.W));
+    float d = distance[off], w = weight[off];
+    float sdf;
+    if (!proj::tsdf_updates(measured, px.z, p, &sdf)) return;
+    proj::tsdf_fuse_voxel<MODE>(px.z, sdf, d, w, p);
+    distance[off] = d;
+    weight[off] = w;
+  });
 }
 
 }  // namespace
@@ -75,10 +81,12 @@ extern "C" int tsdf_lidar_fuse(void* distance, void* weight,
   if (n <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   PROJ_DISPATCH_MODE(mode, M,
-      tsdf_lidar_fuse_kernel<M><<<n, 512, 0, s>>>(
+      tsdf_lidar_fuse_kernel<M><<<
+          proj::persistent_grid<tsdf_lidar_fuse_kernel<M>>(512, n), 512, 0,
+          s>>>(
           (float*)distance, (float*)weight, (const int*)slots,
           (const int*)block_indices, (const float*)range_image,
-          (const float*)T_L_S, p, l));
+          (const float*)T_L_S, n, p, l));
   return (int)cudaGetLastError();
 }
 

@@ -127,6 +127,89 @@ def test_tsdf_fuse_padding_rows_untouched(dev):
     assert bool((d_k[100] == 7.0).all())
 
 
+# Batch layouts of the fusion kernels' persistent walk: (N entries, real
+# entries at the front, dropped entries among them). allocate_and_batch puts
+# the real entries first and fills the rest with slot == cap; a dropped
+# entry (pool full) also carries cap, and -1 marks padding elsewhere.
+LAYOUTS = {
+    "mostly_padding": (4096, 40, False),
+    "dropped_inside": (1024, 600, True),
+    "n1": (1, 1, False),
+    "below_grid": (100, 100, False),
+    "bucket_8192": (8192, 8000, True),
+    "bucket_16384": (16384, 16384, False),
+}
+
+
+def _layout_batch(layout, blocks, hot, rng):
+    """slots i32[N] and block indices i32[N, 3] for LAYOUTS[layout], the
+    real entries drawn from `blocks` (distinct; the `hot` ones, which the
+    frame updates, first) and given distinct slots of a pool of
+    len(blocks) rows; returns (slots, bidx, cap)."""
+    n, n_real, dropped = LAYOUTS[layout]
+    cap = blocks.shape[0]
+    cold = np.setdiff1d(np.arange(cap), hot)
+    pick = np.concatenate([rng.permutation(hot),
+                           rng.permutation(cold)])[:n_real]
+    slots = np.full(n, cap, np.int32)
+    bidx = np.zeros((n, 3), np.int32)
+    slots[:n_real] = rng.permutation(cap)[:n_real]
+    bidx[:n_real] = blocks[pick]
+    if dropped:
+        slots[:n_real:7] = cap
+        slots[3:n_real:11] = -1
+    return slots, bidx, cap
+
+
+def _check_layout(dev, layout, blocks, image, T, fuse, plain, name, seed):
+    """`fuse` (a kernel wrapper) equals `plain` on the layout's batch, bit
+    for bit, with every row outside the batch untouched."""
+    rng = np.random.RandomState(seed)
+    cap = blocks.shape[0]
+    d0 = torch.as_tensor((rng.randn(cap, 512) * 0.05).astype(np.float32),
+                         device=dev)
+    w0 = torch.as_tensor((rng.rand(cap, 512) * 2.0).astype(np.float32),
+                         device=dev)
+    # The blocks the frame updates, from the plain version on all of them.
+    every = torch.arange(cap, dtype=torch.int32, device=dev)
+    w_all = plain(d0.clone(), w0.clone(), every,
+                  torch.as_tensor(blocks, device=dev), image, T)[1]
+    hot = torch.nonzero((w_all != w0).any(1))[:, 0].cpu().numpy()
+    assert hot.size > 0
+    slots, bidx, cap = _layout_batch(layout, blocks, hot, rng)
+    s_t = torch.as_tensor(slots, device=dev)
+    b_t = torch.as_tensor(bidx, device=dev)
+    want = plain(d0.clone(), w0.clone(), s_t, b_t, image, T)
+    before = kernels.LAUNCHES[name]
+    got = fuse(d0.clone(), w0.clone(), s_t, b_t, image, T)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    real = slots[(slots >= 0) & (slots < cap)]
+    assert int((want[1][torch.as_tensor(real, device=dev).long()]
+                != w0[torch.as_tensor(real, device=dev).long()]).sum()) > 0
+    outside = np.ones(cap, bool)
+    outside[real] = False
+    out_t = torch.as_tensor(outside, device=dev)
+    for g, w, base in zip(got, want, (d0, w0)):
+        assert torch.equal(g, w)
+        assert torch.equal(g[out_t], base[out_t])
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_tsdf_fuse_batch_layouts(dev, layout):
+    """Padding, dropped entries and batches from 1 entry to many times the
+    persistent grid: bit-exact, rows outside the batch untouched."""
+    g = np.stack(np.meshgrid(np.arange(-16, 16), np.arange(-16, 16),
+                             np.arange(1, 17), indexing="ij"), -1)
+    blocks = g.reshape(-1, 3).astype(np.int32)
+    _, _, _, _, depth, T = _tsdf_setup(dev)
+    kw = dict(camera=CAM, voxel_size_m=VOXEL,
+              params=TsdfIntegratorParams(max_integration_distance_m=6.0))
+    _check_layout(dev, layout, blocks, depth, T,
+                  lambda *a: integrate_tsdf_cuda(*a, **kw),
+                  lambda *a: integrate_tsdf(*a, **kw), "tsdf_fuse", seed=1)
+
+
 def _color_setup(dev, seed=0, depth_shape=None, color_dtype=torch.uint8):
     d0, w0, slots, bidx, depth, T = _tsdf_setup(dev, seed)
     cap = d0.shape[0]
@@ -550,6 +633,71 @@ def test_tsdf_lidar_fuse_matches_plain(dev, mode, A, E):
     assert bool((u < 0.05 * A).any()) and bool((u > 0.95 * A).any())
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_tsdf_lidar_fuse_batch_layouts(dev, layout):
+    """The lidar kernel on the same batch layouts as tsdf_fuse, with blocks
+    all around the sensor: bit-exact, rows outside the batch untouched."""
+    g = np.stack(np.meshgrid(np.arange(-16, 16), np.arange(-16, 16),
+                             np.arange(-4, 12), indexing="ij"), -1)
+    blocks = g.reshape(-1, 3).astype(np.int32)
+    _, _, _, _, img, T = _lidar_setup(dev, 1800, 16)
+    lidar = Lidar.equal_vertical_fov(1800, 16, float(np.radians(30.0)),
+                                     min_range_m=0.1)
+    kw = dict(lidar=lidar, voxel_size_m=VOXEL,
+              params=TsdfIntegratorParams(max_integration_distance_m=6.0))
+    _check_layout(dev, layout, blocks, img, T,
+                  lambda *a: integrate_tsdf_lidar_cuda(*a, **kw),
+                  lambda *a: integrate_tsdf_lidar(*a, **kw),
+                  "tsdf_lidar_fuse", seed=2)
+
+
+@pytest.mark.parametrize("mode", list(WeightingFunctionType))
+def test_tsdf_lidar_fuse_band_and_range_limits(dev, mode):
+    """Voxels above and below the elevation band and on both sides of the
+    valid range's two limits, on both sides of the +-pi seam: the kernel
+    skips or fuses each as the plain version does, bit for bit."""
+    rng = np.random.RandomState(3)
+    A, E = 512, 16
+    lidar = Lidar.equal_vertical_fov(A, E, float(np.radians(30.0)),
+                                     min_range_m=0.5, max_range_m=2.5)
+    g = np.stack(np.meshgrid(np.arange(-8, 8), np.arange(-8, 8),
+                             np.arange(-4, 4), indexing="ij"), -1)
+    bidx = g.reshape(-1, 3).astype(np.int32)
+    cap = bidx.shape[0]
+    slots = rng.permutation(cap).astype(np.int32)
+    img = (1.2 + 1.4 * rng.rand(E, A)).astype(np.float32)
+    img[rng.rand(E, A) < 0.05] = 0.0
+    T = level_pose(0.013, -0.021, 0.017, 0.3)
+    d0 = (rng.randn(cap, 512) * 0.05).astype(np.float32)
+    w0 = (rng.rand(cap, 512) * 2.0).astype(np.float32)
+    t = [torch.as_tensor(a, device=dev) for a in (d0, w0, slots, bidx, img,
+                                                  T)]
+    # Where the voxels fall (float64 geometry, enough to show coverage).
+    p = Transform.apply(Transform.inverse(t[5]), voxel_centers_for_blocks(
+        t[3], VOXEL)).double().cpu().numpy().reshape(-1, 3)
+    r = np.linalg.norm(p, axis=1)
+    el = np.arcsin(p[:, 2] / r)
+    az = np.arctan2(p[:, 1], p[:, 0])
+    half = np.radians(15.0)
+    band = np.abs(el) <= half
+    for side in (az > np.pi - 0.1, az < -np.pi + 0.1):
+        assert ((np.abs(el) > half + 0.05) & (r > 0.6) & (r < 2.4)
+                & side).any()
+        for lim in (0.5, 2.5):
+            assert (band & side & (r < lim) & (r > lim - VOXEL)).any()
+            assert (band & side & (r > lim) & (r < lim + VOXEL)).any()
+    kw = dict(lidar=lidar, voxel_size_m=VOXEL,
+              params=TsdfIntegratorParams(weighting_mode=mode,
+                                          max_integration_distance_m=6.0))
+    want = integrate_tsdf_lidar(t[0].clone(), t[1].clone(), *t[2:], **kw)
+    got = integrate_tsdf_lidar_cuda(t[0].clone(), t[1].clone(), *t[2:],
+                                    **kw)
+    torch.cuda.synchronize()
+    assert int((want[1] != t[1]).sum()) > 500
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def _occupancy_mapper(d, **kw):
