@@ -40,8 +40,12 @@ against the scenes' analytic SDFs.
 
 Output, one JSON object per line: the card, each path's figures, one line
 per kernel check (printed once every path has run, each with the kernel's
-launches on every path, `launches_by_path`), the `kernels` summary, then
-the card's name and power limit as nvidia-smi gives them, and last
+launches on every path, `launches_by_path`; the marching_cubes line also
+times the same batch with every row padding, `ms_all_padding`, and three
+torch fills of its outputs, `fill_ms`, the dilate_dense line a clone of
+its grid, `copy_ms`, and both give ptxas's registers, shared memory and
+spills with the CTAs per SM they allow, `ptxas`), the `kernels` summary,
+then the card's name and power limit as nvidia-smi gives them, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits non-zero at once.
@@ -58,6 +62,10 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+# CTA sizes of the marching_cubes and dilate_dense kernels (csrc/), for
+# the CTAs-per-SM figure of their ptxas rows.
+MC_THREADS = 256
+DILATE_THREADS = 128
 
 # Accuracy limits against the analytic scene. The TSDF limit is the
 # benchmark's. The TSDF kernel computes what the reference's XLA TSDF path
@@ -201,6 +209,24 @@ def bound_ms(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_rows(lib_name: str, threads: int):
+    """Registers, shared memory and spills of each kernel in
+    `csrc/<lib_name>.cu` as ptxas reports them (`kernels.resources`), with
+    the CTAs of `threads` an H100 SM holds by those figures (65 536
+    registers allotted per warp in units of 256, 2 048 threads, 32 CTAs,
+    228 KB of shared memory with 1 KB reserved per CTA)."""
+    from isaac_ros_nvblox_tpu_torch import kernels
+    rows = []
+    for fn, r in kernels.resources(lib_name).items():
+        warps = -(-threads // 32)
+        per_warp = -(-r["registers"] * 32 // 256) * 256
+        ctas = min(65536 // max(per_warp * warps, 1), 2048 // threads, 32,
+                   233472 // (r["smem"] + 1024))
+        rows.append({"kernel": fn, "threads": threads, **r,
+                     "ctas_per_sm": ctas})
+    return rows
 
 
 def top_kernels(evs, n_frames: int, k: int = 8):
@@ -1027,6 +1053,7 @@ def dynamics_phase(dev, smi, camera, depths_r, poses_r, max_blocks: int,
     plain9_dev = plain_device_ms(lambda: halo.dilate_dense_grid_plain(dense))
     lib9 = plain_device_ms(lambda: F.max_pool3d(vol, 3, stride=1, padding=1))
     lib9_call = cuda_ms(lambda: F.max_pool3d(vol, 3, stride=1, padding=1))
+    copy9 = plain_device_ms(lambda: dense.clone())
     nvox = dense.numel()
     # The dense grid is read once and written once (f32); 26 comparisons
     # a voxel.
@@ -1041,7 +1068,8 @@ def dynamics_phase(dev, smi, camera, depths_r, poses_r, max_blocks: int,
               "library_ms": lib9, "library_ms_call": lib9_call,
               "library": "F.max_pool3d(kernel 3, stride 1, padding 1) on "
                          "[1, 1, 8Cx, 8Cy, 8Cz], permutes not timed",
-              "bound_ms": b9, "bound_by": b9_by,
+              "bound_ms": b9, "bound_by": b9_by, "copy_ms": copy9,
+              "ptxas": ptxas_rows("dilate", DILATE_THREADS),
               "launches": launches["dilate_dense"]}
     CHECKS.append(check9)
     if not (exact9 and lib_equal and int(want.sum()) > int(dense.sum()) > 0
@@ -1770,6 +1798,19 @@ def main() -> None:
     plain4 = cuda_ms(lambda: mc.marching_cubes_plain(*mc_args, **mc_kw))
     plain4_dev = plain_device_ms(lambda: mc.marching_cubes_plain(*mc_args,
                                                                  **mc_kw))
+    # The store floor: the same batch with every row padding (only the
+    # sentinel fill runs), and one torch fill call per output tensor.
+    dead = torch.zeros_like(valid)
+    ms4_pad, _ = kernel_ms(lambda: mc.marching_cubes_fused(
+        *mc_args[:4], dead, **mc_kw), "marching_cubes_kernel")
+    outs = [torch.empty_like(x) for x in got]
+
+    def fill_outputs():
+        outs[0].fill_(-1.0)
+        outs[1].zero_()
+        outs[2].zero_()
+
+    fill4 = plain_device_ms(fill_outputs)
     # Outputs: bf16 verts and colors [N, 3, 16, 512] and table
     # [N, 16, 512] (112 KB per batch row); inputs: the distinct halo rows
     # of the surface blocks, five f32 channels of 2 KB each.
@@ -1783,7 +1824,11 @@ def main() -> None:
             "halo_rows": n_rows, "triangles": n_tris, "bit_exact": exact,
             "max_abs_err": err4, "ms": ms4, "ms_timing": how4,
             "plain_ms": plain4, "plain_device_ms": plain4_dev,
-            "bound_ms": b4, "bound_by": b4_by,
+            "bound_ms": b4, "bound_by": b4_by, "ms_all_padding": ms4_pad,
+            "fill_ms": fill4,
+            "fill": "verts.fill_(-1), colors.zero_(), table.zero_(): "
+                    "write-only yardstick, device time",
+            "ptxas": ptxas_rows("marching_cubes", MC_THREADS),
             "launches": launches_pipe["marching_cubes"]}
     CHECKS.append(row4)
     if not exact or n_tris == 0:

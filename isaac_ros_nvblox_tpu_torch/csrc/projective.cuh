@@ -1,7 +1,8 @@
 // Projection (pinhole and spherical), nearest sampling, weighting and the
 // TSDF and color updates shared by the projective kernels (tsdf_fuse.cu,
 // color_fuse.cu, tsdf_color_fuse.cu, occupancy_fuse.cu,
-// tsdf_lidar_fuse.cu), and the batch walk of the persistent ones.
+// tsdf_lidar_fuse.cu), and the batch walk of the persistent ones (whose
+// grid, persistent_grid, marching_cubes.cu shares with fma_emul).
 //
 // Blocks are 512 voxels, lane v = lx*64 + ly*8 + lz. The arithmetic repeats
 // the plain PyTorch versions step for step (ops/tsdf.py, ops/color.py,
@@ -232,12 +233,12 @@ __device__ __forceinline__ void for_each_entry(const int* __restrict__ slots,
   }
 }
 
-// The persistent grid of a kernel that walks a batch of n entries with
-// for_each_entry: as many CTAs of `threads` as the card holds at once (SM
-// count times resident CTAs per SM, asked once per kernel instantiation
-// and device, kept in an atomic so that launches from several host threads
-// may race on it), and no more than n. Host calls only: nothing waits on
-// the card.
+// The persistent grid of a kernel that walks a batch of n entries (b =
+// blockIdx.x + k * gridDim.x, as for_each_entry does): as many CTAs of
+// `threads` as the card holds at once (SM count times resident CTAs per
+// SM, asked once per kernel instantiation and device, kept in an atomic so
+// that launches from several host threads may race on it), and no more
+// than n. Host calls only: nothing waits on the card.
 template <auto Kernel>
 inline int persistent_grid(int threads, int n) {
   constexpr int kMaxDevices = 64;

@@ -4,7 +4,9 @@ Each `csrc/<name>.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into a
 shared library with a plain C interface, `build/torch_kernels/lib<name>-
 <hash>.so` under the repository root, on first use, and loaded with
 `ctypes`. The hash covers the source and the flags, so an edited source is
-rebuilt. Sources are compiled in parallel, one `nvcc` each.
+rebuilt. Sources are compiled in parallel, one `nvcc` each; ptxas's
+resource report (`-Xptxas -v`) is kept beside each library as
+`lib<name>-<hash>.log` and read by `resources`.
 
 Pointer and stream arguments are `c_void_p` (tensor.data_ptr(), the
 current stream's handle). Every C entry returns `cudaGetLastError()` after
@@ -20,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -31,7 +34,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # Per-source extra flags. These kernels repeat their plain versions'
 # float32 roundings, so nvcc must not contract a*b+c on its own.
 PROJECTIVE = ("tsdf_fuse", "color_fuse", "tsdf_color_fuse", "occupancy_fuse",
@@ -39,7 +42,8 @@ PROJECTIVE = ("tsdf_fuse", "color_fuse", "tsdf_color_fuse", "occupancy_fuse",
 EXTRA_FLAGS = {name: ["-fmad=false"]
                for name in PROJECTIVE + ("marching_cubes",)}
 # Headers a source includes (part of its build hash).
-HEADERS = {name: ["projective.cuh"] for name in PROJECTIVE}
+HEADERS = {name: ["projective.cuh"]
+           for name in PROJECTIVE + ("marching_cubes",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -156,10 +160,43 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             errors.append(f"nvcc failed for {n}.cu:\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
     return seconds
+
+
+def parse_ptxas(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel (mangled name) of a `-Xptxas -v` log: registers a thread,
+    static shared memory, stack frame and spill bytes."""
+    out: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {"registers": 0, "smem": 0})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def resources(name: str) -> Dict[str, Dict[str, int]]:
+    """`parse_ptxas` of the build log of `csrc/<name>.cu` (built first if
+    needed)."""
+    library(name)
+    return parse_ptxas(library_path(name).with_suffix(".log").read_text())
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -195,6 +232,15 @@ def check_tensors(what: str, device, specs) -> None:
                              f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def check_aligned(what: str, specs, alignment: int = 16) -> None:
+    """Raise unless every (name, tensor)'s data starts on an `alignment`
+    byte boundary (kernels that move 16 bytes a load or store)."""
+    for name, t in specs:
+        if t.data_ptr() % alignment:
+            raise ValueError(f"{what}: {name} must start on a "
+                             f"{alignment}-byte boundary")
 
 
 def pointer_array(tensors):

@@ -147,6 +147,7 @@ def dilate_dense_grid(dense, fill: float = 0.0) -> torch.Tensor:
         raise ValueError(f"{what}: dense must be f32[Cx, Cy, Cz, 512], got "
                          f"{tuple(dense.shape)}")
     kernels.check_tensors(what, dense.device, [("dense", dense, _F32)])
+    kernels.check_aligned(what, [("dense", dense)])
     out = torch.empty_like(dense)
     Cx, Cy, Cz = dense.shape[:3]
     lib = kernels.library("dilate")

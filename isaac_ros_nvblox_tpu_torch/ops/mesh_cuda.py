@@ -53,10 +53,13 @@ def table_rows() -> np.ndarray:
 @functools.lru_cache(maxsize=1)
 def kernel_lut() -> np.ndarray:
     """The kernel's int8 table: per config the 16 entries of
-    `table_rows()`, then the 12 edges' first corners, then their second."""
+    `table_rows()`, then the 12 edges' first corners, then their second,
+    zero padded to whole 16-byte words (the kernel stages it with 16-byte
+    loads)."""
     ea = [e[0] for e in EDGES]
     eb = [e[1] for e in EDGES]
-    return np.concatenate([table_rows().T.reshape(-1), ea, eb]).astype(np.int8)
+    lut = np.concatenate([table_rows().T.reshape(-1), ea, eb])
+    return np.pad(lut, (0, -lut.size % 16)).astype(np.int8)
 
 
 @functools.lru_cache(maxsize=1)
@@ -201,6 +204,10 @@ def marching_cubes_fused(tsdf_rows, weight_rows, color_rows, nbr8, valid, *,
                     ("weight_rows", weight_rows, F32), ("nbr8", nbr8, I32),
                     ("valid", valid, I32)]
         + [(f"color plane {i}", p, F32) for i, p in enumerate(planes)])
+    kernels.check_aligned(what, [("tsdf_rows", tsdf_rows),
+                                 ("weight_rows", weight_rows)]
+                          + [(f"color plane {i}", p)
+                             for i, p in enumerate(planes)])
     verts = torch.empty((N, 3, K_PAD, V), dtype=torch.bfloat16, device=dev)
     colors = (torch.empty_like(verts) if with_color else None)
     table = torch.empty((N, K_PAD, V), dtype=torch.bfloat16, device=dev)

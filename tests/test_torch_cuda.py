@@ -315,6 +315,103 @@ def test_marching_cubes_matches_plain(dev, with_color):
             assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
+def _sphere_pool(side, g, extra=4):
+    """Pool rows of a side^3 cube of blocks holding a clipped sphere SDF,
+    weights with 5% below the 1e-4 mesh threshold, random colors, and the
+    blocks' nbr8 rows (-1 where the neighbour lies outside the cube)."""
+    r = torch.arange(side)
+    cells = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1).reshape(
+        -1, 3)
+    n = cells.shape[0]
+    cap = n + extra
+    lane = torch.arange(512)
+    local = torch.stack([lane // 64, (lane // 8) % 8, lane % 8], -1)
+    p = ((cells[:, None] * 8 + local[None]).float() + 0.5) * VOXEL
+    c = side * 8 * VOXEL / 2
+    sdf = torch.linalg.norm(p - c, dim=-1) - 0.7 * c
+    d = torch.zeros(cap, 512)
+    d[:n] = sdf.clamp(-0.2, 0.2)
+    w = torch.zeros(cap, 512)
+    w[:n] = torch.where(torch.rand(n, 512, generator=g) < 0.05, 1e-5, 1.0)
+    cols = [torch.rand(cap, 512, generator=g) * 255 for _ in range(3)]
+    slot_of = {tuple(q): i for i, q in enumerate(cells.tolist())}
+    nbr8 = torch.tensor([[slot_of.get((q[0] + o[0], q[1] + o[1], q[2] + o[2]),
+                                      -1) for o in wg.OCTANT_OFFSETS.tolist()]
+                         for q in cells.tolist()], dtype=torch.int32)
+    return d, w, cols, nbr8
+
+
+def _mc_batch(layout, g):
+    """(tsdf, weight, colors, nbr8, valid) of one batch layout."""
+    d, w, cols, nbr8 = _sphere_pool(8, g)
+    live = (mc.surface_crossing(d, w, nbr8, min_weight=1e-4)).nonzero()[:, 0]
+    # The crossing block with the most triangles.
+    table = mc.marching_cubes_plain(
+        d, w, None, nbr8[live], torch.ones(live.numel(), dtype=torch.int32),
+        min_weight=1e-4, with_color=False)[2]
+    best = int(live[table[:, 0].float().sum(1).argmax()])
+    if layout == "pipeline":
+        # The mesh step's surface batch: crossing rows first, padding after.
+        rows = live[:448]
+        nbr = torch.full((512, 8), -1, dtype=torch.int32)
+        nbr[:rows.numel()] = nbr8[rows]
+        valid = (torch.arange(512) < rows.numel()).to(torch.int32)
+    elif layout == "all_padding":
+        nbr = torch.full((512, 8), -1, dtype=torch.int32)
+        nbr[:64] = nbr8[live[:64]]
+        valid = torch.zeros(512, dtype=torch.int32)
+    elif layout == "one_row":
+        nbr = nbr8[best:best + 1]
+        valid = torch.ones(1, dtype=torch.int32)
+    elif layout == "absent_neighbours":
+        # Row 0 holds the surface; every octant column is absent in some
+        # rows, whose corners then read row 0's TSDF and colors at weight 0.
+        src = best
+        for t in (d, w, *cols):
+            t[[0, src]] = t[[src, 0]]
+        relabel = torch.arange(d.shape[0], dtype=torch.int32)
+        relabel[0], relabel[src] = src, 0
+        nbr8 = torch.where(nbr8 >= 0, relabel[nbr8.clamp_min(0).long()], -1)
+        rows = live
+        nbr = nbr8[rows].clone()
+        for c in range(8):
+            nbr[c::8, c] = -1
+        nbr[-16:, 1:] = -1
+        valid = torch.ones(nbr.shape[0], dtype=torch.int32)
+    else:  # longer_than_grid: more rows than 4 x the persistent grid
+        rows = torch.cat([live, torch.arange(512)]).repeat(4)[:2600]
+        nbr = nbr8[rows]
+        valid = (torch.arange(2600) % 13 != 0).to(torch.int32)
+    return d, w, cols, nbr, valid
+
+
+@pytest.mark.parametrize("with_color", [True, False])
+@pytest.mark.parametrize("layout", ["pipeline", "all_padding", "one_row",
+                                    "absent_neighbours", "longer_than_grid"])
+def test_marching_cubes_batch_layouts(dev, layout, with_color):
+    """The kernel's batch walk and halo tile on the mesh step's layouts:
+    one launch, all three bf16 outputs bit for bit."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    d, w, cols, nbr8, valid = _mc_batch(layout, g)
+    args = [t.to(dev) for t in (d, w)]
+    crows = tuple(c.to(dev) for c in cols) if with_color else None
+    kw = dict(min_weight=1e-4, with_color=with_color)
+    want = mc.marching_cubes_plain(*args, crows, nbr8.to(dev), valid.to(dev),
+                                   **kw)
+    before = kernels.LAUNCHES["marching_cubes"]
+    got = mc.marching_cubes_fused(*args, crows, nbr8.to(dev), valid.to(dev),
+                                  **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["marching_cubes"] == before + 1
+    n_tris = float(want[2][:, 0].float().sum())
+    assert (n_tris == 0) == (layout == "all_padding")
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+        else:
+            assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
 def _block_mask(shape, kind, g):
     blocks = tuple((d + 7) // 8 for d in shape)
     if kind == "none":
@@ -882,7 +979,8 @@ def test_slice3_entry_points_make_no_host_sync(dev):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dims", [(20, 16, 9), (1, 5, 3), (4, 3, 1),
-                                  (1, 1, 1), (3, 7, 5)])
+                                  (1, 1, 1), (3, 7, 5), (1, 1, 40),
+                                  (40, 1, 1), (2, 33, 3), (48, 40, 24)])
 @pytest.mark.parametrize("kind", ["binary", "positive"])
 def test_dilate_dense_matches_plain(dev, dims, kind):
     g = torch.Generator(device="cpu").manual_seed(sum(dims))

@@ -104,6 +104,22 @@ def _assert_mc_equal(j, t, live):
     assert (t[2].to(torch.float32).numpy()[~live] == 0.0).all()
 
 
+def test_kernel_lut_layout():
+    """The marching_cubes kernel's table: per config the count and 15 edge
+    ids of the reference's tables, the edges' corner pairs, zero padding
+    to whole 16-byte words."""
+    lut = tmc.kernel_lut()
+    tri_table, tri_counts, _, _ = jtab.build_tables()
+    assert lut.dtype == np.int8 and lut.size % 16 == 0
+    per_config = lut[:256 * 16].reshape(256, 16)
+    np.testing.assert_array_equal(per_config[:, 0], tri_counts)
+    np.testing.assert_array_equal(per_config[:, 1:], tri_table)
+    edges = np.asarray(jtab.EDGES)
+    np.testing.assert_array_equal(lut[4096:4108], edges[:, 0])
+    np.testing.assert_array_equal(lut[4108:4120], edges[:, 1])
+    assert not lut[4120:].any()
+
+
 @pytest.mark.parametrize("with_color", [True, False])
 def test_mc_plain_matches_pallas(with_color):
     idx, d, w, colors, nbrs = _sphere_pool()
