@@ -43,7 +43,12 @@ per kernel check (printed once every path has run, each with the kernel's
 launches on every path, `launches_by_path`; the marching_cubes line also
 times the same batch with every row padding, `ms_all_padding`, and three
 torch fills of its outputs, `fill_ms`, the dilate_dense line a clone of
-its grid, `copy_ms`, and both give ptxas's registers, shared memory and
+its grid, `copy_ms`; the fusion kernels' lines time the batch's real
+entries alone and its first real entry alone, `ms_real_entries` and
+`ms_one_entry`, the occupancy_fuse line also the batch that the dynamic
+path's frame builds, `ms_dynamic_batch`; the detect_dynamic line times an
+all-zero depth image, `ms_zero_depth`, and subsample 2, `ms_subsample2`;
+the lines of those four kernels give ptxas's registers, shared memory and
 spills with the CTAs per SM they allow, `ptxas`), the `kernels` summary,
 then the card's name and power limit as nvidia-smi gives them, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -62,10 +67,13 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-# CTA sizes of the marching_cubes and dilate_dense kernels (csrc/), for
-# the CTAs-per-SM figure of their ptxas rows.
+# CTA sizes of the marching_cubes, dilate_dense, occupancy_fuse and
+# detect_dynamic kernels (csrc/), for the CTAs-per-SM figure of their ptxas
+# rows.
 MC_THREADS = 256
 DILATE_THREADS = 128
+OCC_THREADS = 512
+DETECT_THREADS = 256
 
 # Accuracy limits against the analytic scene. The TSDF limit is the
 # benchmark's. The TSDF kernel computes what the reference's XLA TSDF path
@@ -622,8 +630,17 @@ def occupancy_phase(dev, smi, camera, scene, depths_r, poses_np, voxel,
     n_valid = int((slots < cap).sum())
     n_view = in_view_voxels(slots, bidx0, T0, camera, voxel, cap)
     n_upd = int(changed(want, base).sum())
-    ms, how = kernel_ms(lambda: integrate_occupancy_cuda(*got, *args, **kw),
-                        "occupancy_fuse_kernel")
+
+    def run_k(sel=slice(None)):
+        integrate_occupancy_cuda(*got, slots[sel], bidx0[sel], *args[2:], **kw)
+
+    ms, how = kernel_ms(run_k, "occupancy_fuse_kernel")
+    # The batch's real entries alone (what its padding costs), and its
+    # first real entry alone (a launch and one block's chain of loads).
+    real_idx = torch.nonzero((slots >= 0) & (slots < cap)).squeeze(1)
+    ms_real, _ = kernel_ms(lambda: run_k(real_idx), "occupancy_fuse_kernel")
+    ms_one, _ = kernel_ms(lambda: run_k(real_idx[:1]),
+                          "occupancy_fuse_kernel")
     plain = cuda_ms(lambda: integrate_occupancy(*want, *args, **kw))
     plain_dev = plain_device_ms(lambda: integrate_occupancy(*want, *args,
                                                             **kw))
@@ -636,8 +653,10 @@ def occupancy_phase(dev, smi, camera, scene, depths_r, poses_np, voxel,
              "batch_blocks": n_valid, "in_view_voxels": n_view,
              "updated_voxels": n_upd, "bit_exact": exact,
              "max_abs_err": max_err, "ms": ms, "ms_timing": how,
+             "ms_real_entries": ms_real, "ms_one_entry": ms_one,
              "plain_ms": plain, "plain_device_ms": plain_dev,
              "bound_ms": b_ms, "bound_by": b_by,
+             "ptxas": ptxas_rows("occupancy_fuse", OCC_THREADS),
              "launches": n_occ}
     CHECKS.append(check)
     if not exact or n_upd == 0:
@@ -900,11 +919,15 @@ def dynamics_phase(dev, smi, camera, depths_r, poses_r, max_blocks: int,
     the same frames. (b) Scored, tools/dynamics_quality.py's scene: the
     map built from the room and box, then 8 intruder frames detected and
     integrated. Holds dilate_dense and detect_dynamic against their plain
-    versions. Returns their kernels rows."""
+    versions, and occupancy_fuse on the batch the dynamic path's frame
+    builds (fields added to its kernel_check line). Returns the kernels
+    rows of dilate_dense and detect_dynamic."""
     import dataclasses
     import torch
     import torch.nn.functional as F
     from isaac_ros_nvblox_tpu_torch import kernels
+    from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
+    from isaac_ros_nvblox_tpu_torch.mapper import device_mapper as dm
     from isaac_ros_nvblox_tpu_torch.mapper.device_mapper import DeviceMapper
     from isaac_ros_nvblox_tpu_torch.mapper.multi_mapper import MultiMapper
     from isaac_ros_nvblox_tpu_torch.mapper.params import (MapperParams,
@@ -914,8 +937,12 @@ def dynamics_phase(dev, smi, camera, depths_r, poses_r, max_blocks: int,
                                                          Sphere, orbit_pose,
                                                          render_depth)
     from isaac_ros_nvblox_tpu_torch.ops import halo
+    from isaac_ros_nvblox_tpu_torch.ops import view as view_ops
     from isaac_ros_nvblox_tpu_torch.ops.detect import detect_dynamic_plain
     from isaac_ros_nvblox_tpu_torch.ops.detect_cuda import detect_dynamic
+    from isaac_ros_nvblox_tpu_torch.ops.occupancy import integrate_occupancy
+    from isaac_ros_nvblox_tpu_torch.ops.occupancy_cuda import (
+        integrate_occupancy_cuda)
     from isaac_ros_nvblox_tpu_torch.ops.tsdf import TsdfIntegratorParams
 
     params = MapperParams(
@@ -1007,6 +1034,50 @@ def dynamics_phase(dev, smi, camera, depths_r, poses_r, max_blocks: int,
                  f"replay of {n_steps} frames")
     if overflow != [0, 0]:
         fail(f"dynamic_frames overflow_count {overflow} != 0")
+
+    # occupancy_fuse on the batch that frame 0 of the replay builds on the
+    # built map: the dynamic mapper's view batch of the foreground-masked
+    # depth (mask_mode 2), dynamic_max_blocks_per_frame entries.
+    dmap = mm.dynamic_mapper
+    docc = dmap.params.occupancy
+    mask0 = detect_dynamic(
+        sm.state, sm.channels["freespace_high_confidence"], depths_r[0],
+        poses_r[0], camera=camera, voxel_size_m=voxel, max_depth_m=max_depth,
+        subsample=int(mm.params.dynamic_detection_subsample))
+    fg = dm._masked_depth(depths_r[0], mask0, 2)
+    dst = wg.WorldGridState(**{k: v.clone()
+                               for k, v in vars(dmap.state).items()})
+    _, dslots, dbidx = dm._allocate_view(
+        dst, view_ops.touched_block_grid(
+            fg, poses_r[0], camera=camera, voxel_size_m=voxel,
+            max_distance_m=float(docc.max_integration_distance_m),
+            truncation_m=float(docc.occupied_region_half_width_m)),
+        voxel_size_m=voxel, max_blocks=dmap.max_blocks_per_frame)
+    dkw = dict(camera=camera, voxel_size_m=voxel, params=docc)
+    dargs = (dslots, dbidx, fg, poses_r[0])
+    dbase = (dmap.channels["occupancy_log_odds"].clone(),
+             dmap.channels["occupancy_observed"].clone())
+    dgot = [b.clone() for b in dbase]
+    dwant = [b.clone() for b in dbase]
+    integrate_occupancy_cuda(*dgot, *dargs, **dkw)
+    integrate_occupancy(*dwant, *dargs, **dkw)
+    torch.cuda.synchronize()
+    dexact = all(torch.equal(a, b) for a, b in zip(dgot, dwant))
+    ms_dyn, _ = kernel_ms(lambda: integrate_occupancy_cuda(*dgot, *dargs,
+                                                           **dkw),
+                          "occupancy_fuse_kernel")
+    occ_check = next(c for c in CHECKS if c["name"] == "occupancy_fuse")
+    occ_check.update({
+        "ms_dynamic_batch": ms_dyn,
+        "dynamic_batch_entries": int(dslots.numel()),
+        "dynamic_batch_real_entries": int(
+            ((dslots >= 0) & (dslots < dmap.capacity)).sum()),
+        "dynamic_batch_dynamic_pixels": int((mask0 > 0).sum()),
+        "dynamic_batch_bit_exact": dexact})
+    if not dexact:
+        fail(f"occupancy_fuse differs from its plain version on the dynamic "
+             f"path's batch: {occ_check}")
+    del dst, dbase, dgot, dwant
 
     # dilate_dense on the replay's own region: the occupancy indicator of
     # the built map over the freespace region, as the path assembles it.
@@ -1139,6 +1210,18 @@ def dynamics_phase(dev, smi, camera, depths_r, poses_r, max_blocks: int,
     ms10, how10 = kernel_ms(lambda: detect_dynamic(s2.state, hc, d_big, T_big,
                                                    **det_kw),
                             "detect_dynamic_kernel")
+    # The floor (every pixel fails the depth test) and subsample 2.
+    d_zero = torch.zeros_like(d_big)
+    got0 = detect_dynamic(s2.state, hc, d_zero, T_big, **det_kw)
+    want0 = detect_dynamic_plain(s2.state, hc, d_zero, T_big, **det_kw)[0]
+    torch.cuda.synchronize()
+    exact10 &= bool(torch.equal(got0, want0.to(torch.uint8)))
+    ms10_zero, _ = kernel_ms(lambda: detect_dynamic(s2.state, hc, d_zero,
+                                                    T_big, **det_kw),
+                             "detect_dynamic_kernel")
+    ms10_s2, _ = kernel_ms(lambda: detect_dynamic(s2.state, hc, d_big, T_big,
+                                                  subsample=2, **det_kw),
+                           "detect_dynamic_kernel")
     plain10 = cuda_ms(lambda: detect_dynamic_plain(s2.state, hc, d_big, T_big,
                                                    **det_kw))
     plain10_dev = plain_device_ms(lambda: detect_dynamic_plain(
@@ -1179,7 +1262,10 @@ def dynamics_phase(dev, smi, camera, depths_r, poses_r, max_blocks: int,
                "bit_exact": exact10, "max_abs_err": err10,
                "timed_frame": big, "image": [H, W],
                "slot_cells_read": n_cells, "high_confidence_bytes_read":
-               n_bytes, "ms": ms10, "ms_timing": how10, "plain_ms": plain10,
+               n_bytes, "ms": ms10, "ms_timing": how10,
+               "ms_zero_depth": ms10_zero, "ms_subsample2": ms10_s2,
+               "ptxas": ptxas_rows("detect_dynamic", DETECT_THREADS),
+               "plain_ms": plain10,
                "plain_device_ms": plain10_dev, "bound_ms": b10,
                "bound_by": b10_by, "library_ms": None,
                "library": "none: no torch call back-projects and looks up "

@@ -2,7 +2,8 @@
 // TSDF and color updates shared by the projective kernels (tsdf_fuse.cu,
 // color_fuse.cu, tsdf_color_fuse.cu, occupancy_fuse.cu,
 // tsdf_lidar_fuse.cu), and the batch walk of the persistent ones (whose
-// grid, persistent_grid, marching_cubes.cu shares with fma_emul).
+// grid, persistent_grid, marching_cubes.cu shares with fma_emul;
+// detect_dynamic.cu takes fma_d).
 //
 // Blocks are 512 voxels, lane v = lx*64 + ly*8 + lz. The arithmetic repeats
 // the plain PyTorch versions step for step (ops/tsdf.py, ops/color.py,
@@ -13,9 +14,12 @@
 // form, so kernels and plain versions agree bit for bit. On sm_90 a
 // conversion to or from float64 issues at 16 per clock per SM, an eighth
 // of the float32 rate, so the sensor pose (Pose: the rotation in float32
-// and float64, the translation of the inverse) is computed once, per CTA
-// (stage_pose) or per thread (load_pose), and a voxel converts only its own
-// coordinates and the roundings the plain version makes.
+// and float64, the translation of the inverse) is computed once, and a
+// voxel converts only its own coordinates and the roundings the plain
+// version makes. The persistent kernels (tsdf_fuse, tsdf_lidar_fuse,
+// occupancy_fuse) stage it once per CTA (stage_pose) and walk the batch
+// with for_each_entry; color_fuse and tsdf_color_fuse, one CTA per batch
+// entry, build it per thread (load_pose).
 
 #pragma once
 
@@ -116,14 +120,15 @@ struct Pose {
   float t[3];     // t' = -R^T t
 };
 
-// Row r of t' = -R^T t, accumulated as mat3_rows does; r1, r2: R[1][r] and
-// R[2][r] in float64 (shared with the voxels' rows where the caller holds
-// them, so that each is converted once).
-__device__ __forceinline__ float pose_t(const float* __restrict__ T_L_S,
-                                        int r, double r1, double r2) {
-  float ti = __ldg(T_L_S + 3) * -__ldg(T_L_S + r);
-  ti = fma_d(__ldg(T_L_S + 7), -r1, ti);
-  return fma_d(__ldg(T_L_S + 11), -r2, ti);
+// Row r of t' = -R^T t, accumulated as mat3_rows does, from t = (t0, t1,
+// t2) and column r of R: r0 = R[0][r], and r1, r2 = R[1][r], R[2][r] in
+// float64 (shared with the voxels' rows where the caller holds them, so
+// that each is converted once).
+__device__ __forceinline__ float pose_t(float t0, float t1, float t2,
+                                        float r0, double r1, double r2) {
+  float ti = t0 * -r0;
+  ti = fma_d(t1, -r1, ti);
+  return fma_d(t2, -r2, ti);
 }
 
 // The pose of T_L_S in the registers of one thread (kernels that run one
@@ -137,25 +142,58 @@ __device__ __forceinline__ Pose load_pose(const float* __restrict__ T_L_S) {
   }
 #pragma unroll
   for (int r = 0; r < 3; ++r)
-    P.t[r] = pose_t(T_L_S, r, P.Rd[3 + r], P.Rd[6 + r]);
+    P.t[r] = pose_t(__ldg(T_L_S + 3), __ldg(T_L_S + 7), __ldg(T_L_S + 11),
+                    P.R[r], P.Rd[3 + r], P.Rd[6 + r]);
   return P;
 }
 
-// Stage the pose of T_L_S in shared memory `sp`, once per CTA: threads 0-8
-// load R, threads 9-11 accumulate a row of t' each. Every thread of the CTA
-// must call it (it ends with a barrier); the CTA needs 12 threads or more.
-__device__ __forceinline__ void stage_pose(const float* __restrict__ T_L_S,
-                                           Pose& sp) {
+// The values of T_L_S that thread threadIdx.x contributes to the staged
+// pose: threads 0-8 an entry of R, threads 9-11 the six that a row of t'
+// accumulates (pose_t's arguments). Loaded apart from stage_pose_share, so
+// that a kernel can issue these loads beside its own first loads.
+struct PoseShare {
+  float v[6];
+};
+
+__device__ __forceinline__ PoseShare load_pose_share(
+    const float* __restrict__ T_L_S) {
+  PoseShare s;
   const int i = threadIdx.x;
   if (i < 9) {
-    const float r = __ldg(T_L_S + 4 * (i / 3) + i % 3);
-    sp.R[i] = r;
-    sp.Rd[i] = (double)r;
+    s.v[0] = __ldg(T_L_S + 4 * (i / 3) + i % 3);
   } else if (i < 12) {
     const int r = i - 9;
-    sp.t[r] = pose_t(T_L_S, r, __ldg(T_L_S + 4 + r), __ldg(T_L_S + 8 + r));
+    s.v[0] = __ldg(T_L_S + 3);
+    s.v[1] = __ldg(T_L_S + 7);
+    s.v[2] = __ldg(T_L_S + 11);
+    s.v[3] = __ldg(T_L_S + r);
+    s.v[4] = __ldg(T_L_S + 4 + r);
+    s.v[5] = __ldg(T_L_S + 8 + r);
+  }
+  return s;
+}
+
+// Stage the pose in shared memory `sp` from the threads' shares: threads
+// 0-8 store an entry of R, threads 9-11 accumulate a row of t'. Every
+// thread of the CTA must call it (it ends with a barrier); the CTA needs 12
+// threads or more.
+__device__ __forceinline__ void stage_pose_share(const PoseShare& s,
+                                                 Pose& sp) {
+  const int i = threadIdx.x;
+  if (i < 9) {
+    sp.R[i] = s.v[0];
+    sp.Rd[i] = (double)s.v[0];
+  } else if (i < 12) {
+    sp.t[i - 9] = pose_t(s.v[0], s.v[1], s.v[2], s.v[3], s.v[4], s.v[5]);
   }
   __syncthreads();
+}
+
+// Stage the pose of T_L_S in shared memory `sp`, once per CTA (see
+// stage_pose_share).
+__device__ __forceinline__ void stage_pose(const float* __restrict__ T_L_S,
+                                           Pose& sp) {
+  stage_pose_share(load_pose_share(T_L_S), sp);
 }
 
 // Voxel center coordinate along one axis: block index bi, voxel l.
@@ -182,13 +220,8 @@ __device__ __forceinline__ void voxel_in_sensor(const Pose& P, int bx, int by,
   }
 }
 
-// Voxel `lane` of block (bx, by, bz) seen from the camera at pose P: the
-// voxel in the camera frame, then the pinhole projection.
-__device__ __forceinline__ Pixel project_voxel(const Pose& P, int bx, int by,
-                                               int bz, int lane,
-                                               const Params& p) {
-  float pc[3];
-  voxel_in_sensor(P, bx, by, bz, lane, p.voxel, pc);
+// The pinhole projection of pc, a point in the camera frame.
+__device__ __forceinline__ Pixel pinhole(const float pc[3], const Params& p) {
   Pixel px;
   px.z = pc[2];
   const bool zpos = px.z > 1e-6f;
@@ -198,6 +231,16 @@ __device__ __forceinline__ Pixel project_voxel(const Pose& P, int bx, int by,
   px.in_view = zpos && px.u >= 0.0f && px.u <= p.u_max && px.v >= 0.0f &&
                px.v <= p.v_max;
   return px;
+}
+
+// Voxel `lane` of block (bx, by, bz) seen from the camera at pose P: the
+// voxel in the camera frame, then the pinhole projection.
+__device__ __forceinline__ Pixel project_voxel(const Pose& P, int bx, int by,
+                                               int bz, int lane,
+                                               const Params& p) {
+  float pc[3];
+  voxel_in_sensor(P, bx, by, bz, lane, p.voxel, pc);
+  return pinhole(pc, p);
 }
 
 // Walks the batch entries of this CTA, b = blockIdx.x + k * gridDim.x for

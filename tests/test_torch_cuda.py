@@ -161,38 +161,44 @@ def _layout_batch(layout, blocks, hot, rng):
     return slots, bidx, cap
 
 
-def _check_layout(dev, layout, blocks, image, T, fuse, plain, name, seed):
+def _tsdf_rows(rng, cap, dev):
+    """Random TSDF pool rows (distance, weight) f32[cap, 512]."""
+    d0 = (rng.randn(cap, 512) * 0.05).astype(np.float32)
+    w0 = (rng.rand(cap, 512) * 2.0).astype(np.float32)
+    return torch.as_tensor(d0, device=dev), torch.as_tensor(w0, device=dev)
+
+
+def _check_layout(dev, layout, blocks, image, T, fuse, plain, name, seed,
+                  make_rows=_tsdf_rows, marker=1):
     """`fuse` (a kernel wrapper) equals `plain` on the layout's batch, bit
-    for bit, with every row outside the batch untouched."""
+    for bit, with every row outside the batch untouched. The pool rows come
+    from `make_rows`; row `marker` of them shows which blocks an update
+    reached (the weight by default)."""
     rng = np.random.RandomState(seed)
     cap = blocks.shape[0]
-    d0 = torch.as_tensor((rng.randn(cap, 512) * 0.05).astype(np.float32),
-                         device=dev)
-    w0 = torch.as_tensor((rng.rand(cap, 512) * 2.0).astype(np.float32),
-                         device=dev)
+    rows = make_rows(rng, cap, dev)
     # The blocks the frame updates, from the plain version on all of them.
     every = torch.arange(cap, dtype=torch.int32, device=dev)
-    w_all = plain(d0.clone(), w0.clone(), every,
-                  torch.as_tensor(blocks, device=dev), image, T)[1]
-    hot = torch.nonzero((w_all != w0).any(1))[:, 0].cpu().numpy()
+    m_all = plain(*[r.clone() for r in rows], every,
+                  torch.as_tensor(blocks, device=dev), image, T)[marker]
+    hot = torch.nonzero((m_all != rows[marker]).any(1))[:, 0].cpu().numpy()
     assert hot.size > 0
     slots, bidx, cap = _layout_batch(layout, blocks, hot, rng)
     s_t = torch.as_tensor(slots, device=dev)
     b_t = torch.as_tensor(bidx, device=dev)
-    want = plain(d0.clone(), w0.clone(), s_t, b_t, image, T)
+    want = plain(*[r.clone() for r in rows], s_t, b_t, image, T)
     before = kernels.LAUNCHES[name]
-    got = fuse(d0.clone(), w0.clone(), s_t, b_t, image, T)
+    got = fuse(*[r.clone() for r in rows], s_t, b_t, image, T)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] == before + 1
-    real = slots[(slots >= 0) & (slots < cap)]
-    assert int((want[1][torch.as_tensor(real, device=dev).long()]
-                != w0[torch.as_tensor(real, device=dev).long()]).sum()) > 0
-    outside = np.ones(cap, bool)
+    real = torch.as_tensor(slots[(slots >= 0) & (slots < cap)],
+                           device=dev).long()
+    assert int((want[marker][real] != rows[marker][real]).sum()) > 0
+    outside = torch.ones(cap, dtype=torch.bool, device=dev)
     outside[real] = False
-    out_t = torch.as_tensor(outside, device=dev)
-    for g, w, base in zip(got, want, (d0, w0)):
+    for g, w, base in zip(got, want, rows):
         assert torch.equal(g, w)
-        assert torch.equal(g[out_t], base[out_t])
+        assert torch.equal(g[outside], base[outside])
 
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))
@@ -670,6 +676,31 @@ def test_occupancy_fuse_matches_plain(dev, corner):
         assert torch.equal(g, w)
 
 
+def _occupancy_rows(rng, cap, dev):
+    """Random occupancy pool rows: log-odds f32[cap, 512] inside the
+    default clamps, observed u8[cap, 512]."""
+    lo0 = np.clip(rng.randn(cap, 512) * 3.0, -10.0, 10.0).astype(np.float32)
+    ob0 = (rng.rand(cap, 512) < 0.3).astype(np.uint8)
+    return torch.as_tensor(lo0, device=dev), torch.as_tensor(ob0, device=dev)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_occupancy_fuse_batch_layouts(dev, layout):
+    """The occupancy kernel on the fusion kernels' batch layouts (padding,
+    dropped entries, 1 entry, below and far above the persistent grid):
+    bit-exact, rows outside the batch untouched."""
+    g = np.stack(np.meshgrid(np.arange(-16, 16), np.arange(-16, 16),
+                             np.arange(1, 17), indexing="ij"), -1)
+    blocks = g.reshape(-1, 3).astype(np.int32)
+    _, _, _, _, depth, T = _tsdf_setup(dev)
+    kw = dict(camera=CAM, voxel_size_m=VOXEL,
+              params=OccupancyIntegratorParams(max_integration_distance_m=6.0))
+    _check_layout(dev, layout, blocks, depth, T,
+                  lambda *a: integrate_occupancy_cuda(*a, **kw),
+                  lambda *a: integrate_occupancy(*a, **kw), "occupancy_fuse",
+                  seed=4, make_rows=_occupancy_rows, marker=0)
+
+
 def level_pose(x, y, z, yaw, tilt=0.0):
     c, s_ = np.cos(yaw), np.sin(yaw)
     R = np.array([[c, -s_, 0.0], [s_, c, 0.0], [0.0, 0.0, 1.0]])
@@ -998,10 +1029,10 @@ def test_dilate_dense_matches_plain(dev, dims, kind):
     assert int((want > grid).sum()) > 0
 
 
-def _detect_setup(dev, seed=0):
+def _detect_setup(dev, seed=0, shape=(CAM.height, CAM.width)):
     """A world grid with a block of allocated cells, random high-confidence
-    bytes, and a depth image with zero, negative, too-far, inf and NaN
-    pixels."""
+    bytes, and a depth image of `shape` with zero, negative, too-far, inf
+    and NaN pixels."""
     rng = np.random.default_rng(seed)
     cfg = wg.WorldGridConfig(dims=(16, 16, 8), capacity=512,
                              origin_block=(-8, -8, -2))
@@ -1012,7 +1043,7 @@ def _detect_setup(dev, seed=0):
     sg[cells] = rng.permutation(n).astype(np.int32)
     st.slot_grid.copy_(torch.as_tensor(sg))
     hc = torch.as_tensor(rng.random((512, 512)) < 0.5, device=dev)
-    depth = rng.uniform(0.2, 6.0, (CAM.height, CAM.width)).astype(np.float32)
+    depth = rng.uniform(0.2, 6.0, shape).astype(np.float32)
     bad = rng.random(depth.shape)
     depth[bad < 0.03] = 0.0
     depth[(bad >= 0.03) & (bad < 0.05)] = -1.0
@@ -1041,6 +1072,48 @@ def test_detect_dynamic_matches_plain(dev, subsample, pose):
     assert got.dtype == torch.uint8
     assert torch.equal(got, want.to(torch.uint8))
     if pose != "outside":
+        assert int(got.sum()) > 100
+
+
+# Image shapes (H, W) off the kernel's vector path, or at its edges.
+DETECT_SHAPES = {
+    "157x119": (119, 157),          # W odd, W % s != 0 for s = 2-4
+    "1x1": (1, 1),
+    "3x5": (3, 5),
+    "zero_depth": (CAM.height, CAM.width),
+    "misaligned_view": (CAM.height, CAM.width),
+}
+
+
+@pytest.mark.parametrize("subsample", [1, 2, 3, 4])
+@pytest.mark.parametrize("case", list(DETECT_SHAPES))
+def test_detect_dynamic_shapes(dev, case, subsample):
+    """An odd width, tiny images, an all-zero image and a depth view that
+    starts 4 bytes past an 8-byte boundary (the vector path's load): equal
+    to the plain version."""
+    H, W = DETECT_SHAPES[case]
+    st, hc, depth = _detect_setup(dev, 10 + subsample, shape=(H, W))
+    if case == "zero_depth":
+        depth = torch.zeros_like(depth)
+    if case == "misaligned_view":
+        buf = torch.empty(H * W + 1, device=dev)
+        buf[1:] = depth.reshape(-1)
+        depth = buf[1:].view(H, W)
+        assert depth.is_contiguous() and depth.data_ptr() % 8 != 0
+    cam = Camera(fx=160.0, fy=160.0, cx=(W - 1) / 2.0, cy=(H - 1) / 2.0,
+                 width=W, height=H)
+    T = torch.as_tensor(level_pose(0.1, -0.2, 0.5, 0.3, tilt=-1.2),
+                        device=dev)
+    kw = dict(camera=cam, voxel_size_m=VOXEL, max_depth_m=5.0,
+              subsample=subsample)
+    want, _ = detect_dynamic_plain(st, hc, depth, T, **kw)
+    before = kernels.LAUNCHES["detect_dynamic"]
+    got = detect_dynamic(st, hc, depth, T, **kw)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["detect_dynamic"] == before + 1
+    assert got.shape == (H, W) and got.dtype == torch.uint8
+    assert torch.equal(got, want.to(torch.uint8))
+    if case in ("157x119", "misaligned_view"):
         assert int(got.sum()) > 100
 
 

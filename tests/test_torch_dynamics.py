@@ -143,6 +143,33 @@ def test_detect_plain_matches_reference(built, subsample):
     assert kernels.LAUNCHES["detect_dynamic"] == 0
 
 
+def test_detect_plain_matches_reference_on_odd_camera(built):
+    """An image whose width is odd and no multiple of the subsample (157
+    x 119 at subsample 3): the shapes on which the card kernel takes its
+    scalar path and writes partial tiles at the right and bottom edges.
+    Endpoints exact, the mask within the bound of the test above."""
+    jm, tm, T, _, _ = built
+    args = dict(fx=160.0, fy=160.0, cx=78.0, cy=59.0, width=157, height=119)
+    dyn = js.Scene(primitives=ROOM + (js.Sphere(center=(0.5, 0.3, 1.0),
+                                                radius=0.35),))
+    depth = np.array(js.render_depth(dyn, jc.Camera(**args), jnp.asarray(T)))
+    sm, t = jm.static_mapper, tm.static_mapper
+    want, p_want = jmm._detect_dynamic_fused(
+        sm.state, sm.channels["freespace_high_confidence"], jnp.asarray(depth),
+        jnp.asarray(T), camera=jc.Camera(**args), voxel_size_m=0.05,
+        max_depth_m=5.0, subsample=3)
+    got, p_got = detect_dynamic_plain(
+        t.state, t.channels["freespace_high_confidence"],
+        torch.from_numpy(depth), torch.from_numpy(T),
+        camera=tc.Camera(**args), voxel_size_m=0.05, max_depth_m=5.0,
+        subsample=3)
+    want = np.asarray(want)
+    assert got.shape == want.shape == (119, 157)
+    assert want.sum() > 500
+    np.testing.assert_array_equal(p_got.numpy(), np.asarray(p_want))
+    assert (got.numpy() == want).mean() >= 0.999, (got.numpy() != want).sum()
+
+
 def test_detect_meets_the_pallas_tests_bounds(built):
     """The bounds tests/test_detect_pallas.py:77-124 holds the Pallas
     kernel to, against the exact detector: recall > 0.9, precision > 0.85,

@@ -1,11 +1,19 @@
 """The kernel build helpers of the port (isaac_ros_nvblox_tpu_torch/
-kernels.py) that need no card: ptxas's resource report and the alignment
-check of the wrappers that move 16 bytes a load or store."""
+kernels.py) that need no card: ptxas's resource report, the alignment
+check of the wrappers that move 16 bytes a load or store, and the
+wrappers' refusal of devices that are neither the CPU nor a card."""
 
 import pytest
 import torch
 
 from isaac_ros_nvblox_tpu_torch import kernels
+from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
+from isaac_ros_nvblox_tpu_torch.models.camera import Camera
+from isaac_ros_nvblox_tpu_torch.ops.detect_cuda import detect_dynamic
+from isaac_ros_nvblox_tpu_torch.ops.occupancy import (
+    OccupancyIntegratorParams)
+from isaac_ros_nvblox_tpu_torch.ops.occupancy_cuda import (
+    integrate_occupancy_cuda)
 
 LOG = """\
 ptxas info    : 0 bytes gmem
@@ -47,3 +55,36 @@ def test_check_aligned():
     with pytest.raises(ValueError, match="t1 must start on a 16-byte"):
         kernels.check_aligned("f", [("t", t), ("t1", t[1:])])
     kernels.check_aligned("f", [("t2", t[2:])], alignment=8)
+
+
+CAM = Camera(fx=10.0, fy=10.0, cx=3.5, cy=2.5, width=8, height=6)
+
+
+def _occupancy_on(dev):
+    integrate_occupancy_cuda(
+        torch.zeros(4, 512, device=dev),
+        torch.zeros(4, 512, dtype=torch.uint8, device=dev),
+        torch.zeros(2, dtype=torch.int32, device=dev),
+        torch.zeros(2, 3, dtype=torch.int32, device=dev),
+        torch.zeros(6, 8, device=dev), torch.eye(4, device=dev), camera=CAM,
+        voxel_size_m=0.05, params=OccupancyIntegratorParams())
+
+
+def _detect_on(dev):
+    st = wg.create_world_grid(wg.WorldGridConfig(
+        dims=(4, 4, 4), capacity=4, origin_block=(0, 0, 0)), dev)
+    detect_dynamic(st, torch.zeros(4, 512, dtype=torch.bool, device=dev),
+                   torch.zeros(6, 8, device=dev), torch.eye(4, device=dev),
+                   camera=CAM, voxel_size_m=0.05, max_depth_m=5.0)
+
+
+@pytest.mark.parametrize("call", [_occupancy_on, _detect_on],
+                         ids=["occupancy_fuse", "detect_dynamic"])
+def test_wrappers_refuse_other_devices(call):
+    """A wrapper takes the plain version for CPU tensors only and raises on
+    any device that is neither the CPU nor a card: nothing falls back."""
+    call("cpu")
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        call("meta")
+    assert kernels.LAUNCHES == before

@@ -109,6 +109,63 @@ def test_integrate_occupancy_matches_reference(orbit_batches, corner):
     assert not (bad & ~_ties(orbit_batches)).any()
 
 
+@pytest.mark.parametrize("layout", ["padded", "one_entry"])
+def test_integrate_occupancy_batch_layouts_match_reference(orbit_batches,
+                                                           layout):
+    """The plain version, which the card kernel equals bit for bit, against
+    the reference on batches the kernel's persistent walk treats specially:
+    real entries turned into padding with slot -1 and slot == cap, and a
+    batch of one entry; rows outside the batch untouched on both sides,
+    from random start rows. The reference's `.at[]` reads slot -1 as row
+    cap - 1 (Python indexing) where the port reads it as padding; its own
+    allocator pads with cap, so the reference is given cap there."""
+    depth, T, slots, bidx = orbit_batches[0]
+    rng = np.random.RandomState(7)
+    lo0 = np.clip(rng.randn(CAP, 512) * 3.0, -10.0, 10.0).astype(np.float32)
+    ob0 = (rng.rand(CAP, 512) < 0.3).astype(np.uint8)
+    kw = dict(max_integration_distance_m=3.0)
+    p_j = jocc.OccupancyIntegratorParams(**kw)
+    p_t = tocc.OccupancyIntegratorParams(**kw)
+
+    def port(s, b):
+        return [a.numpy() for a in tocc.integrate_occupancy(
+            torch.from_numpy(lo0.copy()), torch.from_numpy(ob0.copy()),
+            torch.from_numpy(s), torch.from_numpy(b),
+            torch.from_numpy(depth), torch.from_numpy(T), camera=TCAM,
+            voxel_size_m=VOXEL, params=p_t)]
+
+    real = np.nonzero(slots < CAP)[0]
+    if layout == "one_entry":
+        # The real entry with the most updated voxels.
+        lo_all = port(slots, bidx)[0]
+        k = real[np.argmax((lo_all != lo0)[slots[real]].sum(1))]
+        s, b = slots[k:k + 1].copy(), bidx[k:k + 1].copy()
+    else:
+        s, b = slots.copy(), bidx.copy()
+        s[real[::5]] = -1
+        s[real[2::7]] = CAP
+    lo_t, ob_t = port(s, b)
+    lo_j, ob_j = [np.asarray(a) for a in jocc.integrate_occupancy(
+        jnp.asarray(lo0), jnp.asarray(ob0),
+        jnp.asarray(np.where(s < 0, CAP, s).astype(np.int32)),
+        jnp.asarray(b), jnp.asarray(depth), jnp.asarray(T), camera=JCAM,
+        voxel_size_m=VOXEL, params=p_j)]
+    inside = np.zeros(CAP, bool)
+    inside[s[(s >= 0) & (s < CAP)]] = True
+    assert inside.sum() == (1 if layout == "one_entry" else
+                            len(real) - len(real[::5]) - len(
+                                np.setdiff1d(real[2::7], real[::5])))
+    for got, want, start in ((lo_t, lo_j, lo0), (ob_t, ob_j, ob0)):
+        np.testing.assert_array_equal(got[~inside], start[~inside])
+        np.testing.assert_array_equal(want[~inside], start[~inside])
+    assert (lo_t[inside] != lo0[inside]).sum() > (
+        100 if layout == "one_entry" else 20000)
+    # Equal on >= 99.9% of the voxels; the rest only at pixel-rounding ties.
+    bad = (lo_t != lo_j) | (ob_t != ob_j)
+    assert bad.mean() <= 1e-3, bad.sum()
+    assert not (bad & ~_ties(orbit_batches)).any()
+
+
 def _pallas_pair(depth, seed=0):
     slots, bidx, T = _pallas_setup(seed)
     p = jocc.OccupancyIntegratorParams()
