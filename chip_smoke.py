@@ -43,14 +43,21 @@ per kernel check (printed once every path has run, each with the kernel's
 launches on every path, `launches_by_path`; the marching_cubes line also
 times the same batch with every row padding, `ms_all_padding`, and three
 torch fills of its outputs, `fill_ms`, the dilate_dense line a clone of
-its grid, `copy_ms`; the fusion kernels' lines time the batch's real
-entries alone and its first real entry alone, `ms_real_entries` and
-`ms_one_entry`, the occupancy_fuse line also the batch that the dynamic
-path's frame builds, `ms_dynamic_batch`; the detect_dynamic line times an
-all-zero depth image, `ms_zero_depth`, and subsample 2, `ms_subsample2`;
-the lines of those four kernels give ptxas's registers, shared memory and
-spills with the CTAs per SM they allow, `ptxas`), the `kernels` summary,
-then the card's name and power limit as nvidia-smi gives them, and last
+its grid, `copy_ms`; the lines of the fusion kernels (tsdf_fuse,
+tsdf_lidar_fuse, occupancy_fuse, tsdf_color_fuse, color_fuse) time the
+batch's real entries alone and its first real entry alone,
+`ms_real_entries` and `ms_one_entry`, the occupancy_fuse line also the
+batch that the dynamic path's frame builds, `ms_dynamic_batch`, with its
+bound `bound_ms_dynamic_batch`, the color_fuse line an all-zero occlusion
+depth, `ms_no_occlusion`; the detect_dynamic line times an all-zero depth
+image, `ms_zero_depth`, and subsample 2, `ms_subsample2`; the lines of
+occupancy_fuse, tsdf_color_fuse, color_fuse, detect_dynamic, dilate_dense
+and marching_cubes give ptxas's registers, shared memory and spills with
+the CTAs per SM they allow, `ptxas`; the color_frames line gives the
+busiest device activities of a frame, `top_per_frame`, and the device
+time of the color wrapper's `has_depth` ops, `has_depth_device_ms`), the
+`kernels` summary, then the card's name and power limit as nvidia-smi
+gives them, and last
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
 Any failed check exits non-zero before the last line. Without a CUDA device
 it exits non-zero at once.
@@ -73,6 +80,7 @@ FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 MC_THREADS = 256
 DILATE_THREADS = 128
 OCC_THREADS = 512
+FUSE_THREADS = 512        # tsdf_color_fuse, color_fuse
 DETECT_THREADS = 256
 
 # Accuracy limits against the analytic scene. The TSDF limit is the
@@ -219,15 +227,18 @@ def bound_ms(n_bytes: float, n_ops: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def ptxas_rows(lib_name: str, threads: int):
+def ptxas_rows(lib_name: str, threads: int, match: str = ""):
     """Registers, shared memory and spills of each kernel in
-    `csrc/<lib_name>.cu` as ptxas reports them (`kernels.resources`), with
-    the CTAs of `threads` an H100 SM holds by those figures (65 536
-    registers allotted per warp in units of 256, 2 048 threads, 32 CTAs,
-    228 KB of shared memory with 1 KB reserved per CTA)."""
+    `csrc/<lib_name>.cu` whose mangled name holds `match` (a template
+    instantiation), as ptxas reports them (`kernels.resources`), with the
+    CTAs of `threads` an H100 SM holds by those figures (65 536 registers
+    allotted per warp in units of 256, 2 048 threads, 32 CTAs, 228 KB of
+    shared memory with 1 KB reserved per CTA)."""
     from isaac_ros_nvblox_tpu_torch import kernels
     rows = []
     for fn, r in kernels.resources(lib_name).items():
+        if match not in fn:
+            continue
         warps = -(-threads // 32)
         per_warp = -(-r["registers"] * 32 // 256) * 256
         ctas = min(65536 // max(per_warp * warps, 1), 2048 // threads, 32,
@@ -1063,12 +1074,22 @@ def dynamics_phase(dev, smi, camera, depths_r, poses_r, max_blocks: int,
     integrate_occupancy(*dwant, *dargs, **dkw)
     torch.cuda.synchronize()
     dexact = all(torch.equal(a, b) for a, b in zip(dgot, dwant))
+    # Its bound, counted as the occupancy path's batch counts it.
+    d_view = in_view_voxels(dslots, dbidx, poses_r[0], camera, voxel,
+                            dmap.capacity)
+    d_upd = int(changed(dwant, dbase).sum())
+    b_dyn, b_dyn_by = bound_ms(d_view * 5 + d_upd * 5 + fg.numel() * 4
+                               + dslots.numel() * 16, d_view * 40)
     ms_dyn, _ = kernel_ms(lambda: integrate_occupancy_cuda(*dgot, *dargs,
                                                            **dkw),
                           "occupancy_fuse_kernel")
     occ_check = next(c for c in CHECKS if c["name"] == "occupancy_fuse")
     occ_check.update({
         "ms_dynamic_batch": ms_dyn,
+        "bound_ms_dynamic_batch": b_dyn,
+        "bound_by_dynamic_batch": b_dyn_by,
+        "dynamic_batch_in_view_voxels": d_view,
+        "dynamic_batch_updated_voxels": d_upd,
         "dynamic_batch_entries": int(dslots.numel()),
         "dynamic_batch_real_entries": int(
             ((dslots >= 0) & (dslots < dmap.capacity)).sum()),
@@ -1320,7 +1341,8 @@ def main() -> None:
                                                          render_depth)
     from isaac_ros_nvblox_tpu_torch.ops import esdf as esdf_ops
     from isaac_ros_nvblox_tpu_torch.ops import view as view_ops
-    from isaac_ros_nvblox_tpu_torch.ops.tsdf import (TsdfIntegratorParams,
+    from isaac_ros_nvblox_tpu_torch.ops.tsdf import (MODE_CODE,
+                                                     TsdfIntegratorParams,
                                                      integrate_tsdf)
     from isaac_ros_nvblox_tpu_torch.ops.tsdf_cuda import integrate_tsdf_cuda
 
@@ -1746,12 +1768,22 @@ def main() -> None:
     PATH_LAUNCHES["color_frames"] = launches_color
     if launches_color["color_fuse"] <= 0:
         fail("kernel color_fuse was not launched by integrate_color")
-    cpass_dev_ms, _ = device_ms(color_pass)
+    # Device time and the busiest activities of a color frame.
+    evs, _ = trace(color_pass, 1)
+    cpass_dev_ms = sum(us for _, us in evs) / 1e3
+    # The color wrapper's occlusion switch (ops/color_cuda.py: any depth
+    # > 0, as a device byte) on one frame's depth.
+    has_depth_dev = plain_device_ms(
+        lambda: torch.any(half[7] > 0.0).to(torch.uint8))
     emit({"phase": "color_frames", "frames": len(color_frames),
           "color": list(colors.shape[1:]), "occlusion_depth":
           list(half.shape[1:]), "ms_per_frame": t_cpass * 1e3
           / len(color_frames), "device_ms_per_frame": cpass_dev_ms
-          / len(color_frames), "launches": launches_color})
+          / len(color_frames),
+          "activities_per_frame": len(evs) / len(color_frames),
+          "has_depth_device_ms": has_depth_dev,
+          "top_per_frame": top_kernels(evs, len(color_frames)),
+          "launches": launches_color})
 
     # ---- the new kernels against their plain versions --------------------
     pch = pm.channels
@@ -1760,6 +1792,9 @@ def main() -> None:
     kw = dict(camera=camera, voxel_size_m=voxel, params=params.projective)
     cap = pm.capacity
     H, W = depths.shape[1:]
+    # The two color kernels' instantiation on these inputs (weighting mode,
+    # u8 color) in ptxas's mangled names.
+    inst = f"ILi{MODE_CODE[params.projective.weighting_mode]}Eh"
 
     # tsdf_color_fuse on frame 7's batch (a color-cadence frame).
     st = wg.WorldGridState(**{k: v.clone() for k, v in vars(pm.state).items()})
@@ -1781,8 +1816,17 @@ def main() -> None:
     n_view7 = in_view_voxels(slots7, bidx7, poses_r[7], camera, voxel, cap)
     n_tsdf7 = int(changed(rows_p[:2], base[:2]).sum())
     n_col7 = int(changed(rows_p[2:], base[2:]).sum())
-    ms5, how5 = kernel_ms(lambda: integrate_tsdf_color_cuda(
-        *rows_k, *args7, **kw), "tsdf_color_fuse_kernel")
+
+    def run5(sel=slice(None)):
+        integrate_tsdf_color_cuda(*rows_k, slots7[sel], bidx7[sel],
+                                  *args7[2:], **kw)
+
+    ms5, how5 = kernel_ms(run5, "tsdf_color_fuse_kernel")
+    # The batch's real entries alone (what its padding costs), and its
+    # first real entry alone (a launch and one block's chain of loads).
+    real7 = torch.nonzero((slots7 >= 0) & (slots7 < cap)).squeeze(1)
+    ms5_real, _ = kernel_ms(lambda: run5(real7), "tsdf_color_fuse_kernel")
+    ms5_one, _ = kernel_ms(lambda: run5(real7[:1]), "tsdf_color_fuse_kernel")
     plain5 = cuda_ms(lambda: integrate_tsdf_color(*rows_p, *args7, **kw))
     plain5_dev = plain_device_ms(lambda: integrate_tsdf_color(
         *rows_p, *args7, **kw))
@@ -1796,8 +1840,10 @@ def main() -> None:
             "batch_blocks": n_valid7, "in_view_voxels": n_view7,
             "tsdf_updated_voxels": n_tsdf7, "colored_voxels": n_col7,
             "bit_exact": exact, "max_abs_err": err5, "ms": ms5,
-            "ms_timing": how5, "plain_ms": plain5,
+            "ms_timing": how5, "ms_real_entries": ms5_real,
+            "ms_one_entry": ms5_one, "plain_ms": plain5,
             "plain_device_ms": plain5_dev, "bound_ms": b5, "bound_by": b5_by,
+            "ptxas": ptxas_rows("tsdf_color_fuse", FUSE_THREADS, inst),
             "launches": launches_pipe["tsdf_color_fuse"]}
     CHECKS.append(row5)
     if not exact or n_col7 == 0:
@@ -1831,9 +1877,25 @@ def main() -> None:
     n_view_c = in_view_voxels(slots_c, bidx_c, poses_r[7], camera, voxel,
                               cap)
     n_col_c = int(changed(rows_p, base).sum())
-    ms6, how6 = kernel_ms(lambda: integrate_color_cuda(*rows_k, *args_c,
-                                                       **kw),
-                          "color_fuse_kernel")
+
+    def run6(sel=slice(None), occlusion=half[7]):
+        integrate_color_cuda(*rows_k, *args_c[:2], slots_c[sel], bidx_c[sel],
+                             args_c[4], occlusion, args_c[6], **kw)
+
+    ms6, how6 = kernel_ms(run6, "color_fuse_kernel")
+    real_c = torch.nonzero((slots_c >= 0) & (slots_c < cap)).squeeze(1)
+    ms6_real, _ = kernel_ms(lambda: run6(real_c), "color_fuse_kernel")
+    ms6_one, _ = kernel_ms(lambda: run6(real_c[:1]), "color_fuse_kernel")
+    # An all-zero occlusion depth switches the occlusion test off: held
+    # bit for bit against the plain version too, then timed.
+    zero = torch.zeros_like(half[7])
+    nz_k = [b.clone() for b in base]
+    nz_p = [b.clone() for b in base]
+    integrate_color_cuda(*nz_k, *args_c[:5], zero, args_c[6], **kw)
+    integrate_color_planar(*nz_p, *args_c[:5], zero, args_c[6], **kw)
+    torch.cuda.synchronize()
+    exact_nz = all(torch.equal(a, b) for a, b in zip(nz_k, nz_p))
+    ms6_nz, _ = kernel_ms(lambda: run6(occlusion=zero), "color_fuse_kernel")
     plain6 = cuda_ms(lambda: integrate_color_planar(*rows_p, *args_c, **kw))
     plain6_dev = plain_device_ms(lambda: integrate_color_planar(
         *rows_p, *args_c, **kw))
@@ -1847,11 +1909,14 @@ def main() -> None:
             "batch_blocks": n_valid_c, "in_view_voxels": n_view_c,
             "colored_voxels": n_col_c, "bit_exact": exact,
             "max_abs_err": err6, "ms": ms6, "ms_timing": how6,
+            "ms_real_entries": ms6_real, "ms_one_entry": ms6_one,
+            "ms_no_occlusion": ms6_nz, "no_occlusion_bit_exact": exact_nz,
             "plain_ms": plain6, "plain_device_ms": plain6_dev,
             "bound_ms": b6, "bound_by": b6_by,
+            "ptxas": ptxas_rows("color_fuse", FUSE_THREADS, inst),
             "launches": launches_color["color_fuse"]}
     CHECKS.append(row6)
-    if not exact or n_col_c == 0:
+    if not (exact and exact_nz) or n_col_c == 0:
         fail(f"color_fuse differs from its plain version: {row6}")
     results.append({"name": "color_fuse", "route": "cuda",
                     "source": "isaac_ros_nvblox_tpu_torch/csrc/color_fuse.cu",

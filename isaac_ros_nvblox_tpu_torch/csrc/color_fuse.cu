@@ -13,14 +13,34 @@
 //   uv * Hd/H: measured > 0 and z <= measured + truncation) -> weight =
 //   compute_weight at sdf = 0 -> running average of r, g, b, weight capped.
 //
-// Layout: one CTA per batch entry, one thread per voxel (projective.cuh).
-// Planar channels r/g/b/weight f32[cap, 512] are updated in place; the TSDF
-// rows are read only. Slots outside [0, cap) are padding and skip.
+// Layout: occupancy_fuse.cu's. A persistent grid of 512-thread CTAs walks
+// the batch (projective.cuh::for_each_entry), so that padding and dropped
+// entries (slot outside [0, cap)) cost a lane's load each and no CTA. The
+// pose's values and the `has_depth` byte (one thread's load) are loaded at
+// the kernel's start and published in shared memory, with each block's
+// shared transform rows, by projective.cuh::stage_block (~4.5 float64
+// conversions a voxel, against ~44 with the pose built per thread). A
+// color frame's batch is every allocated block in the color frustum, most
+// of it free space: so the voxel's TSDF rows f32[cap, 512] (read only),
+// which depend on the slot alone, are loaded before the block is staged,
+// and the near-surface test runs before anything is sampled. Only a voxel
+// in view and near the surface loads, together, the occlusion depth, the
+// color pixel and its four planar color rows r, g, b, weight f32[cap, 512],
+// and writes the rows back where it is not occluded. __launch_bounds__
+// holds 40 registers (2 bytes spilled), 3 CTAs an SM: the chain of a
+// colored voxel (its TSDF rows, then its samples and color rows) is
+// latency that more warps hide (7.0-7.2 us at 46 registers, 2 CTAs).
 //
-// Bound: device memory. Per voxel it reads 8 bytes of TSDF rows and, where
-// it updates, reads and writes 16 bytes of color rows; the images stay in
-// L2. `has_depth` (any depth > 0) is a device byte the wrapper computes, so
-// no host sync decides the occlusion test.
+// Bound: that latency and a one-block floor (PERF.md section 6;
+// chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W). At the color
+// path's batch (786 real blocks in 1024 entries, 36% of the in-view
+// voxels colored) the kernel takes 6.4 us against 8.8 with one CTA per
+// entry and the pose per thread, 2.1 us with one block. The bytes (8 read
+// per in-view voxel, 32 per colored voxel; the images from L2) take 2.4
+// us. Testing the TSDF rows before the projection, warp rows
+// (stage_warp_block) and a cap of 32 registers measured no faster.
+// `has_depth` (any depth > 0) is a device byte the wrapper computes, so no
+// host sync decides the occlusion test.
 //
 // Rounding: built with -fmad=false; see projective.cuh.
 
@@ -31,38 +51,47 @@ namespace {
 using proj::Params;
 
 template <int MODE, typename CT>
-__global__ void __launch_bounds__(512)
-color_fuse_kernel(float* __restrict__ cr, float* __restrict__ cg,
-                  float* __restrict__ cb, float* __restrict__ cw,
-                  const float* __restrict__ tsdf_d,
+__global__ void __launch_bounds__(512, 3)
+color_fuse_kernel(proj::ColorRows col, const float* __restrict__ tsdf_d,
                   const float* __restrict__ tsdf_w,
                   const int* __restrict__ slots,
                   const int* __restrict__ block_indices,
                   const CT* __restrict__ color,
                   const float* __restrict__ depth,
                   const float* __restrict__ T_L_C,
-                  const unsigned char* __restrict__ has_depth, Params p,
-                  int Hd, int Wd, float scale) {
-  const int b = blockIdx.x;
-  const int slot = slots[b];
-  if (slot < 0 || slot >= p.cap) return;
+                  const unsigned char* __restrict__ has_depth, int n,
+                  Params p, int Hd, int Wd, float scale) {
+  __shared__ proj::Pose pose;
+  __shared__ proj::BlockRows rows;
+  __shared__ bool occlusion;
+  // The pose and has_depth are staged at the CTA's first real block (a CTA
+  // with none stages nothing); their loads are issued here.
+  const proj::PoseShare share = proj::load_pose_share(T_L_C);
   const int v = threadIdx.x;
-  const proj::Pixel px = proj::project_voxel(
-      proj::load_pose(T_L_C), block_indices[3 * b], block_indices[3 * b + 1],
-      block_indices[3 * b + 2], v, p);
-  if (!px.in_view) return;
-  const size_t off = (size_t)slot * 512 + v;
-  const bool occl = *has_depth != 0;
-  float measured = 0.0f;
-  if (occl) {
-    measured = __ldg(depth + (size_t)proj::nearest(px.v * scale, Hd) * Wd
-                     + proj::nearest(px.u * scale, Wd));
-  }
-  if (!proj::color_updates(tsdf_d[off], tsdf_w[off], px.z, occl, measured, p))
-    return;
-  proj::color_fuse_voxel<MODE>(cr, cg, cb, cw, off, color,
-                               proj::nearest(px.v, p.H),
-                               proj::nearest(px.u, p.W), px.z, p);
+  const bool hd = v == 0 && __ldg(has_depth) != 0;
+  bool staged = false;
+  proj::for_each_entry(slots, block_indices, n, p.cap,
+                       [&](int slot, int bx, int by, int bz) {
+    const size_t off = (size_t)slot * 512 + v;
+    const float d = __ldg(tsdf_d + off), w = __ldg(tsdf_w + off);
+    if (!staged && v == 0) occlusion = hd;
+    proj::stage_block(share, staged, pose, rows, bx, by, bz, p.voxel);
+    const proj::Pixel px = proj::project_block_voxel(pose, rows, v, p);
+    if (!px.in_view || !proj::color_near(d, w, px.z, p)) return;
+    const bool occl = occlusion;
+    float measured = 0.0f;
+    if (occl) {
+      measured = __ldg(depth + (size_t)proj::nearest(px.v * scale, Hd) * Wd
+                       + proj::nearest(px.u * scale, Wd));
+    }
+    float rgb[3], c[4];
+    proj::rgb_load(color, p.W, proj::nearest(px.v, p.H),
+                   proj::nearest(px.u, p.W), rgb);
+    col.load(off, c);
+    if (occl && !proj::color_visible(px.z, measured, p)) return;
+    proj::color_fuse_values<MODE>(c, rgb, px.z, p);
+    col.store(off, c);
+  });
 }
 
 template <typename CT>
@@ -71,12 +100,15 @@ int launch(void* const* ch, const void* tsdf_d, const void* tsdf_w,
            const void* depth, const void* T_L_C, const void* has_depth,
            const Params& p, int n, int Hd, int Wd, float scale, int mode,
            cudaStream_t s) {
+  const proj::ColorRows col = {{(float*)ch[0], (float*)ch[1], (float*)ch[2],
+                                (float*)ch[3]}};
   PROJ_DISPATCH_MODE(mode, M,
-      color_fuse_kernel<M, CT><<<n, 512, 0, s>>>(
-          (float*)ch[0], (float*)ch[1], (float*)ch[2], (float*)ch[3],
-          (const float*)tsdf_d, (const float*)tsdf_w, (const int*)slots,
+      color_fuse_kernel<M, CT><<<
+          proj::persistent_grid<color_fuse_kernel<M, CT>>(512, n), 512, 0,
+          s>>>(
+          col, (const float*)tsdf_d, (const float*)tsdf_w, (const int*)slots,
           (const int*)bidx, (const CT*)color, (const float*)depth,
-          (const float*)T_L_C, (const unsigned char*)has_depth, p, Hd, Wd,
+          (const float*)T_L_C, (const unsigned char*)has_depth, n, p, Hd, Wd,
           scale));
   return (int)cudaGetLastError();
 }

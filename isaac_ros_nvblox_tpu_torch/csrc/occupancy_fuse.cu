@@ -21,16 +21,18 @@
 // at the CTA's first real block (projective.cuh::stage_pose_share), from
 // values loaded at the kernel's start beside the walk's first loads; a CTA
 // with no real block stages nothing. Per block, 200 threads stage the
-// parts of the voxel transform that voxels share (BlockRows: x*R and the
-// multiply-add of y for each of the 64 (lx, ly), the z coordinate of each
-// lz, held in float64), so that a voxel makes only its last multiply-add
-// per row: 3 float64 conversions a voxel and ~780 a block (~4.5 a voxel in
-// all, against 16 with the pose staged alone and ~44 with the pose built
-// per thread; on sm_90 a conversion issues at an eighth of the float32
-// rate). For an in-view voxel the depth sample and the voxel's log-odds
-// f32[cap, 512] are loaded together (loading the log-odds only after the
-// free / occupied test measured the same); an updated voxel writes its
-// log-odds and its observed byte u8[cap, 512] back in place.
+// parts of the voxel transform that voxels share (the shared helper
+// projective.cuh::stage_block / BlockRows: x*R and the multiply-add of y
+// for each of the 64 (lx, ly), the z coordinate of each lz, held in
+// float64), so that a voxel makes only its last multiply-add per row
+// (project_block_voxel): 3 float64 conversions a voxel and ~780 a block
+// (~4.5 a voxel in all, against 16 with the pose staged alone and ~44
+// with the pose built per thread; on sm_90 a conversion issues at an
+// eighth of the float32 rate). For an in-view voxel the depth sample and
+// the voxel's log-odds f32[cap, 512] are loaded together (loading the
+// log-odds only after the free / occupied test measured the same); an
+// updated voxel writes its log-odds and its observed byte u8[cap, 512]
+// back in place.
 //
 // Bound: the launch and the latency of each block's chain (PERF.md section
 // 6, H100, chip_smoke.py). The bytes (5 read per in-view voxel, 5 written
@@ -54,15 +56,6 @@ struct Occ {
   float hw, l_free, l_occ, lo_min, lo_max;
 };
 
-// The parts of a block's voxel transform (projective.cuh voxel_in_sensor)
-// that several voxels share, computed once per block: row r of x*R then
-// the multiply-add of y, for each (lx, ly), and the z coordinate of each
-// lz, both held in float64 for the last multiply-add.
-struct BlockRows {
-  double xy[3][64];   // row r, lx * 8 + ly (a float32 value)
-  double z[8];
-};
-
 __global__ void __launch_bounds__(512)
 occupancy_fuse_kernel(float* __restrict__ log_odds,
                       uint8_t* __restrict__ observed,
@@ -72,7 +65,7 @@ occupancy_fuse_kernel(float* __restrict__ log_odds,
                       const float* __restrict__ T_L_C, int n, Params p,
                       Occ o) {
   __shared__ proj::Pose pose;
-  __shared__ BlockRows rows;
+  __shared__ proj::BlockRows rows;
   // The pose is staged at the CTA's first real block (a CTA with none
   // stages nothing); its loads are issued here, beside the walk's first.
   const proj::PoseShare share = proj::load_pose_share(T_L_C);
@@ -80,28 +73,8 @@ occupancy_fuse_kernel(float* __restrict__ log_odds,
   const int v = threadIdx.x;
   proj::for_each_entry(slots, block_indices, n, p.cap,
                        [&](int slot, int bx, int by, int bz) {
-    // Every warp walks the same entries: `staged` is uniform in the CTA.
-    if (!staged) {
-      proj::stage_pose_share(share, pose);
-      staged = true;
-    } else {
-      __syncthreads();  // the previous block's voxels have read `rows`
-    }
-    if (v < 192) {
-      const int r = v >> 6, i = v & 63;
-      const float x = proj::voxel_coord(bx, i >> 3, p.voxel);
-      const double y = proj::voxel_coord(by, i & 7, p.voxel);
-      rows.xy[r][i] = proj::fma_d(y, pose.Rd[3 + r], x * pose.R[r]);
-    } else if (v < 200) {
-      rows.z[v - 192] = proj::voxel_coord(bz, v - 192, p.voxel);
-    }
-    __syncthreads();
-    float pc[3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-      pc[r] = (float)__fma_rn(rows.z[v & 7], pose.Rd[6 + r],
-                              rows.xy[r][v >> 3]) + pose.t[r];
-    const proj::Pixel px = proj::pinhole(pc, p);
+    proj::stage_block(share, staged, pose, rows, bx, by, bz, p.voxel);
+    const proj::Pixel px = proj::project_block_voxel(pose, rows, v, p);
     if (!px.in_view) return;
     const size_t off = (size_t)slot * 512 + v;
     const float measured = __ldg(depth + proj::nearest(px.v, p.H) * p.W +

@@ -14,12 +14,16 @@
 // form, so kernels and plain versions agree bit for bit. On sm_90 a
 // conversion to or from float64 issues at 16 per clock per SM, an eighth
 // of the float32 rate, so the sensor pose (Pose: the rotation in float32
-// and float64, the translation of the inverse) is computed once, and a
-// voxel converts only its own coordinates and the roundings the plain
-// version makes. The persistent kernels (tsdf_fuse, tsdf_lidar_fuse,
-// occupancy_fuse) stage it once per CTA (stage_pose) and walk the batch
-// with for_each_entry; color_fuse and tsdf_color_fuse, one CTA per batch
-// entry, build it per thread (load_pose).
+// and float64, the translation of the inverse) is computed once per CTA
+// by every fusion kernel, each a persistent grid that walks the batch
+// with for_each_entry. tsdf_fuse and tsdf_lidar_fuse stage it at the
+// kernel's start (stage_pose) and transform each voxel alone (16
+// conversions a voxel). occupancy_fuse, color_fuse and tsdf_color_fuse
+// load it at the start and stage it at the CTA's first real block, with
+// the parts of the transform that a block's voxels share: once per CTA
+// (stage_block, BlockRows; ~4.5 conversions a voxel) or once per warp
+// (stage_warp_block, WarpRows; ~8), so that a voxel converts only its
+// last multiply-add per row.
 
 #pragma once
 
@@ -121,30 +125,12 @@ struct Pose {
 };
 
 // Row r of t' = -R^T t, accumulated as mat3_rows does, from t = (t0, t1,
-// t2) and column r of R: r0 = R[0][r], and r1, r2 = R[1][r], R[2][r] in
-// float64 (shared with the voxels' rows where the caller holds them, so
-// that each is converted once).
+// t2) and column r of R (r0, r1, r2 = R[0][r], R[1][r], R[2][r]).
 __device__ __forceinline__ float pose_t(float t0, float t1, float t2,
-                                        float r0, double r1, double r2) {
+                                        float r0, float r1, float r2) {
   float ti = t0 * -r0;
   ti = fma_d(t1, -r1, ti);
   return fma_d(t2, -r2, ti);
-}
-
-// The pose of T_L_S in the registers of one thread (kernels that run one
-// CTA per batch entry and return early on padding).
-__device__ __forceinline__ Pose load_pose(const float* __restrict__ T_L_S) {
-  Pose P;
-#pragma unroll
-  for (int i = 0; i < 9; ++i) {
-    P.R[i] = __ldg(T_L_S + 4 * (i / 3) + i % 3);
-    P.Rd[i] = (double)P.R[i];
-  }
-#pragma unroll
-  for (int r = 0; r < 3; ++r)
-    P.t[r] = pose_t(__ldg(T_L_S + 3), __ldg(T_L_S + 7), __ldg(T_L_S + 11),
-                    P.R[r], P.Rd[3 + r], P.Rd[6 + r]);
-  return P;
 }
 
 // The values of T_L_S that thread threadIdx.x contributes to the staged
@@ -240,6 +226,113 @@ __device__ __forceinline__ Pixel project_voxel(const Pose& P, int bx, int by,
                                                const Params& p) {
   float pc[3];
   voxel_in_sensor(P, bx, by, bz, lane, p.voxel, pc);
+  return pinhole(pc, p);
+}
+
+// The parts of a block's voxel transform (voxel_in_sensor) that several
+// voxels share, computed once per block: row r of x*R then the
+// multiply-add of y, for each (lx, ly), and the z coordinate of each lz,
+// both held in float64 for the last multiply-add.
+struct BlockRows {
+  double xy[3][64];   // row r, lx * 8 + ly (a float32 value)
+  double z[8];
+};
+
+// Called by every thread of a 512-thread CTA (occupancy_fuse, color_fuse)
+// for each block (bx, by, bz) that for_each_entry hands it: at the CTA's
+// first block (`staged` false) stages the pose `sp` from the threads'
+// shares (stage_pose_share), at a later one waits until every voxel has
+// read the previous block's rows; then 200 threads stage the block's
+// rows, and a barrier publishes them. Shared values a kernel writes
+// before its first call are published with the pose.
+__device__ __forceinline__ void stage_block(const PoseShare& share,
+                                            bool& staged, Pose& sp,
+                                            BlockRows& rows, int bx, int by,
+                                            int bz, float voxel) {
+  // Every warp walks the same entries: `staged` is uniform in the CTA.
+  if (!staged) {
+    stage_pose_share(share, sp);
+    staged = true;
+  } else {
+    __syncthreads();
+  }
+  const int v = threadIdx.x;
+  if (v < 192) {
+    const int r = v >> 6, i = v & 63;
+    const float x = voxel_coord(bx, i >> 3, voxel);
+    const double y = voxel_coord(by, i & 7, voxel);
+    rows.xy[r][i] = fma_d(y, sp.Rd[3 + r], x * sp.R[r]);
+  } else if (v < 200) {
+    rows.z[v - 192] = voxel_coord(bz, v - 192, voxel);
+  }
+  __syncthreads();
+}
+
+// Voxel `lane` of the staged block seen from the camera at pose P: its
+// last multiply-add per row from the block's rows (the same roundings as
+// voxel_in_sensor), then the pinhole projection.
+__device__ __forceinline__ Pixel project_block_voxel(const Pose& P,
+                                                     const BlockRows& rows,
+                                                     int lane,
+                                                     const Params& p) {
+  float pc[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    pc[r] = (float)__fma_rn(rows.z[lane & 7], P.Rd[6 + r],
+                            rows.xy[r][lane >> 3]) + P.t[r];
+  return pinhole(pc, p);
+}
+
+// The rows of BlockRows that one warp's 32 voxels use: voxel v = 32 w + l
+// (warp w, lane l) lies at lx = w >> 1, ly = 4 (w & 1) + (l >> 3),
+// lz = l & 7, so the warp needs 4 (lx, ly) of each row and every z.
+struct WarpRows {
+  double xy[3][4];   // row r, ly & 3
+  double z[8];
+};
+
+// stage_block for one warp (tsdf_color_fuse), called by every thread of a
+// 512-thread CTA for each block (bx, by, bz) that for_each_entry hands it:
+// at the CTA's first block stages the pose `sp` (stage_pose_share, a CTA
+// barrier), then 20 lanes of each warp stage the warp's rows `wr` between
+// two warp barriers, so that the warps of a CTA go on from block to block
+// without waiting for each other. It costs ~5 conversions a voxel where
+// stage_block costs ~1.6: it pays where a voxel's work is long enough for
+// the CTA barriers to idle the SM (tsdf_color_fuse, 8.5 -> 8.0 us on an
+// H100), and not where it is short (occupancy_fuse 4.3 -> 5.0 us,
+// color_fuse; PERF.md section 6).
+__device__ __forceinline__ void stage_warp_block(const PoseShare& share,
+                                                 bool& staged, Pose& sp,
+                                                 WarpRows& wr, int bx, int by,
+                                                 int bz, float voxel) {
+  if (!staged) {
+    stage_pose_share(share, sp);
+    staged = true;
+  }
+  const int v = threadIdx.x, l = v & 31;
+  __syncwarp();   // every lane has read the previous block's rows
+  if (l < 12) {
+    const int r = l >> 2;
+    const float x = voxel_coord(bx, v >> 6, voxel);
+    const double y = voxel_coord(by, ((v >> 3) & 4) | (l & 3), voxel);
+    wr.xy[r][l & 3] = fma_d(y, sp.Rd[3 + r], x * sp.R[r]);
+  } else if (l < 20) {
+    wr.z[l - 12] = voxel_coord(bz, l - 12, voxel);
+  }
+  __syncwarp();
+}
+
+// This thread's voxel of the staged block seen from the camera at pose
+// P, from its warp's rows (project_block_voxel's roundings).
+__device__ __forceinline__ Pixel project_warp_voxel(const Pose& P,
+                                                    const WarpRows& wr,
+                                                    const Params& p) {
+  const int l = threadIdx.x & 31;
+  float pc[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    pc[r] = (float)__fma_rn(wr.z[l & 7], P.Rd[6 + r], wr.xy[r][l >> 3]) +
+            P.t[r];
   return pinhole(pc, p);
 }
 
@@ -360,13 +453,6 @@ __device__ __forceinline__ int nearest(float x, int n) {
   return min(max(__float2int_rn(x), 0), n - 1);
 }
 
-// Pixel (row vi, column ui) of an interleaved H x W x 3 image as float.
-template <typename CT>
-__device__ __forceinline__ float rgb_at(const CT* __restrict__ img, int W,
-                                        int vi, int ui, int ch) {
-  return (float)__ldg(img + ((size_t)vi * W + ui) * 3 + ch);
-}
-
 // Whether a depth sample updates the voxel's TSDF (ops/tsdf.py
 // integrate_tsdf's `update`, given in_view); sets the projective distance.
 __device__ __forceinline__ bool tsdf_updates(float measured, float z,
@@ -388,6 +474,19 @@ __device__ __forceinline__ void tsdf_fuse_voxel(float z, float sdf, float& d,
   w = fminf(w_sum, p.max_weight);
 }
 
+// Whether a voxel is observed near the surface and in range, the first
+// half of color_updates: a test of its TSDF rows and depth alone.
+__device__ __forceinline__ bool color_near(float d, float w, float z,
+                                           const Params& p) {
+  return (w > 1e-6f) && (fabsf(d) <= p.trunc) && (z <= p.max_dist);
+}
+
+// Whether a depth sample leaves the voxel unoccluded, the second half.
+__device__ __forceinline__ bool color_visible(float z, float measured,
+                                              const Params& p) {
+  return (measured > 0.0f) && (z <= measured + p.trunc);
+}
+
 // Whether a voxel takes color (ops/color.py::_fuse_color's `update`, given
 // in_view): observed near the surface, in range, and not occluded by the
 // depth sample when occlusion is checked.
@@ -395,9 +494,8 @@ __device__ __forceinline__ bool color_updates(float d, float w, float z,
                                               bool check_occlusion,
                                               float measured,
                                               const Params& p) {
-  const bool near = (w > 1e-6f) && (fabsf(d) <= p.trunc) && (z <= p.max_dist);
-  return near && (!check_occlusion ||
-                  ((measured > 0.0f) && (z <= measured + p.trunc)));
+  return color_near(d, w, z, p) &&
+         (!check_occlusion || color_visible(z, measured, p));
 }
 
 // Running average of one color channel (ops/color.py::_fuse_color):
@@ -408,27 +506,49 @@ __device__ __forceinline__ float blend(float c_old, float w_old, float rgb,
   return blend_ok ? fma_emul(c_old, w_old, rgb * w_new) * inv : c_old;
 }
 
-// The color update of one voxel at pool offset `off` (ops/color.py::
-// _fuse_color, given that the voxel takes color): weight compute_weight at
-// sdf = 0, running average of r, g, b from pixel (vi, ui) of the H x W x 3
-// image, weight capped at max_weight.
-template <int MODE, typename CT>
-__device__ __forceinline__ void color_fuse_voxel(
-    float* __restrict__ cr, float* __restrict__ cg, float* __restrict__ cb,
-    float* __restrict__ cw, size_t off, const CT* __restrict__ color, int vi,
-    int ui, float z, const Params& p) {
+// The four planar color channels r, g, b, weight f32[cap, 512].
+struct ColorRows {
+  float* __restrict__ c[4];
+
+  // Voxel `off`'s four values.
+  __device__ __forceinline__ void load(size_t off, float out[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) out[i] = c[i][off];
+  }
+
+  __device__ __forceinline__ void store(size_t off, const float in[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i][off] = in[i];
+  }
+};
+
+// The three channels of pixel (row vi, column ui) of an interleaved
+// H x W x 3 image, as float.
+template <typename CT>
+__device__ __forceinline__ void rgb_load(const CT* __restrict__ img, int W,
+                                         int vi, int ui, float rgb[3]) {
+  const CT* px = img + ((size_t)vi * W + ui) * 3;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) rgb[ch] = (float)__ldg(px + ch);
+}
+
+// The color update of one voxel's values c = (r, g, b, weight)
+// (ops/color.py::_fuse_color, given that the voxel takes color): weight
+// compute_weight at sdf = 0, running average of r, g, b with the pixel
+// `rgb`, weight capped at max_weight.
+template <int MODE>
+__device__ __forceinline__ void color_fuse_values(float c[4],
+                                                  const float rgb[3],
+                                                  float z, const Params& p) {
   const float w_new = weight_of<MODE>(z, 0.0f, p);
-  const float w_old = cw[off];
+  const float w_old = c[3];
   const float w_sum = w_old + w_new;
   const float inv = 1.0f / fmaxf(w_sum, 1e-6f);
   const bool ok = w_sum > 1e-6f;
-  cr[off] = blend(cr[off], w_old, rgb_at(color, p.W, vi, ui, 0), w_new, inv,
-                  ok);
-  cg[off] = blend(cg[off], w_old, rgb_at(color, p.W, vi, ui, 1), w_new, inv,
-                  ok);
-  cb[off] = blend(cb[off], w_old, rgb_at(color, p.W, vi, ui, 2), w_new, inv,
-                  ok);
-  cw[off] = fminf(w_sum, p.max_weight);
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch)
+    c[ch] = blend(c[ch], w_old, rgb[ch], w_new, inv, ok);
+  c[3] = fminf(w_sum, p.max_weight);
 }
 
 }  // namespace proj

@@ -175,3 +175,91 @@ def test_fused_plain_matches_reference_sequence(mode):
                                 args[3], args[2], args[4], **kw_t)
     for g, s in zip(got, seq):
         assert torch.equal(g, s)
+
+
+def _slot_ties(slots, bidx, T, scale=None):
+    """_ties of a batch whose real entries sit at arbitrary slots."""
+    tie = near_rounding_tie(bidx, T)
+    if scale is not None:
+        shifted = tc.Camera(fx=160.0 * scale, fy=160.0 * scale,
+                            cx=79.5 * scale, cy=59.5 * scale, width=160,
+                            height=120)
+        tie |= near_rounding_tie(bidx, T, camera=shifted)
+    out = np.zeros((CAP, 512), bool)
+    ok = (slots >= 0) & (slots < CAP)
+    out[slots[ok]] = tie[ok]
+    return out
+
+
+@pytest.mark.parametrize("layout", ["padded", "one_entry"])
+@pytest.mark.parametrize("kernel", ["color", "color_half", "tsdf_color"])
+def test_color_plain_batch_layouts_match_reference(kernel, layout):
+    """The plain versions, which the card kernels equal bit for bit,
+    against the reference on batches the kernels' persistent walk treats
+    specially: real entries turned into padding with slot -1 and slot ==
+    cap, and a batch of one entry; rows outside the batch untouched on
+    both sides. The reference's `.at[]` reads slot -1 as row cap - 1
+    (Python indexing) where the port reads it as padding; its own
+    allocator pads with cap, so the reference is given cap there."""
+    half = kernel == "color_half"
+    pool, slots, bidx, depth, color, T = _setup(
+        3, (60, 80) if half else (120, 160))
+    mode = jts.WeightingFunctionType.INVERSE_SQUARE_TSDF_DISTANCE_PENALTY
+    p_j = jts.TsdfIntegratorParams(weighting_mode=mode,
+                                   max_integration_distance_m=5.0)
+    p_t = tts.TsdfIntegratorParams(
+        weighting_mode=tts.WeightingFunctionType(mode.value),
+        max_integration_distance_m=5.0)
+    kw_j = dict(camera=JCAM, voxel_size_m=VOXEL, params=p_j)
+    kw_t = dict(camera=TCAM, voxel_size_m=VOXEL, params=p_t)
+    first = 0 if kernel == "tsdf_color" else 2
+
+    def port(s, b):
+        t = [torch.from_numpy(a.copy()) for a in pool]
+        s, b = torch.from_numpy(s), torch.from_numpy(b)
+        if kernel == "tsdf_color":
+            out = integrate_tsdf_color_cuda(
+                *t, s, b, torch.from_numpy(depth), torch.from_numpy(color),
+                torch.from_numpy(T), **kw_t)
+        else:
+            out = integrate_color_cuda(
+                *t[2:], t[0], t[1], s, b, torch.from_numpy(color),
+                torch.from_numpy(depth), torch.from_numpy(T), **kw_t)
+        return [a.numpy() for a in out]
+
+    def reference(s, b):
+        j = [jnp.asarray(a) for a in pool]
+        s = jnp.asarray(np.where(s < 0, CAP, s).astype(np.int32))
+        b, T_j = jnp.asarray(b), jnp.asarray(T)
+        d, w = j[0], j[1]
+        if kernel == "tsdf_color":
+            d, w = jts.integrate_tsdf(d, w, s, b, jnp.asarray(depth), T_j,
+                                      **kw_j)
+        rgbw = jcol.integrate_color_planar(
+            *j[2:], d, w, s, b, jnp.asarray(color), jnp.asarray(depth), T_j,
+            **kw_j)
+        return [np.asarray(a) for a in ((d, w) + tuple(rgbw))[first:]]
+
+    real = np.nonzero(slots < CAP)[0]
+    if layout == "one_entry":
+        # The real entry with the most colored voxels.
+        cw = port(slots, bidx)[-1]
+        k = real[np.argmax((cw != pool[5])[slots[real]].sum(1))]
+        s, b = slots[k:k + 1].copy(), bidx[k:k + 1].copy()
+    else:
+        s, b = slots.copy(), bidx.copy()
+        s[real[::5]] = -1
+        s[real[2::7]] = CAP
+    got, want = port(s, b), reference(s, b)
+    inside = np.zeros(CAP, bool)
+    inside[s[(s >= 0) & (s < CAP)]] = True
+    assert inside.sum() == (1 if layout == "one_entry" else
+                            len(real) - len(real[::5]) - len(
+                                np.setdiff1d(real[2::7], real[::5])))
+    for g, w, start in zip(got, want, pool[first:]):
+        np.testing.assert_array_equal(g[~inside], start[~inside])
+        np.testing.assert_array_equal(w[~inside], start[~inside])
+    assert (got[-1][inside] != pool[5][inside]).sum() > (
+        100 if layout == "one_entry" else 1000)
+    _assert_close(got, want, _slot_ties(s, b, T, 0.5 if half else None),
+                  kernel)

@@ -201,13 +201,19 @@ def _check_layout(dev, layout, blocks, image, T, fuse, plain, name, seed,
         assert torch.equal(g[outside], base[outside])
 
 
+def _layout_blocks():
+    """The layout tests' blocks: a 32 x 32 x 16 cube in front of the
+    camera, one pool row each."""
+    g = np.stack(np.meshgrid(np.arange(-16, 16), np.arange(-16, 16),
+                             np.arange(1, 17), indexing="ij"), -1)
+    return g.reshape(-1, 3).astype(np.int32)
+
+
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_tsdf_fuse_batch_layouts(dev, layout):
     """Padding, dropped entries and batches from 1 entry to many times the
     persistent grid: bit-exact, rows outside the batch untouched."""
-    g = np.stack(np.meshgrid(np.arange(-16, 16), np.arange(-16, 16),
-                             np.arange(1, 17), indexing="ij"), -1)
-    blocks = g.reshape(-1, 3).astype(np.int32)
+    blocks = _layout_blocks()
     _, _, _, _, depth, T = _tsdf_setup(dev)
     kw = dict(camera=CAM, voxel_size_m=VOXEL,
               params=TsdfIntegratorParams(max_integration_distance_m=6.0))
@@ -274,6 +280,77 @@ def test_tsdf_color_fuse_matches_plain_and_sequence(dev, mode):
     for g, w, q in zip(got, want, seq):
         assert torch.equal(g, w)
         assert torch.equal(g, q)
+
+
+def _color_rows(rng, cap, dev):
+    """Random color pool rows r, g, b (0-255) and weight f32[cap, 512]."""
+    rows = [rng.rand(cap, 512) * 255 for _ in range(3)] + [rng.rand(cap, 512)]
+    return [torch.as_tensor(a.astype(np.float32), device=dev) for a in rows]
+
+
+def _color_image(dev, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.rand(CAM.height, CAM.width, 3, generator=g) * 255).to(
+        torch.uint8).to(dev)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_tsdf_color_fuse_batch_layouts(dev, layout):
+    """The fused TSDF + color kernel on the fusion kernels' batch layouts:
+    all six channels bit for bit, rows outside the batch untouched."""
+    _, _, _, _, depth, T = _tsdf_setup(dev)
+    color = _color_image(dev, 2)
+    kw = dict(camera=CAM, voxel_size_m=VOXEL,
+              params=TsdfIntegratorParams(max_integration_distance_m=6.0))
+
+    def rows(rng, cap, dev):
+        return list(_tsdf_rows(rng, cap, dev)) + _color_rows(rng, cap, dev)
+
+    def with_color(fn):
+        # (*rows, slots, bidx, depth, T) -> fn(..., depth, color, T)
+        return lambda *a: fn(*a[:-1], color, a[-1], **kw)
+
+    _check_layout(dev, layout, _layout_blocks(), depth, T,
+                  with_color(integrate_tsdf_color_cuda),
+                  with_color(integrate_tsdf_color), "tsdf_color_fuse",
+                  seed=5, make_rows=rows, marker=5)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("depth_kind",
+                         ["aligned", "half", "zero", "mostly_free"])
+def test_color_fuse_batch_layouts(dev, layout, depth_kind):
+    """The color kernel on the fusion kernels' batch layouts, with the
+    TSDF rows read only: aligned, half-resolution and all-zero (no
+    occlusion test) depths, and TSDF rows of which 95% lie beyond the
+    truncation (most voxels fail the near-surface test); the four color
+    rows bit for bit, rows outside the batch untouched."""
+    blocks = _layout_blocks()
+    cap = blocks.shape[0]
+    _, _, _, _, depth, T = _tsdf_setup(dev)
+    depth = torch.nan_to_num(depth)
+    if depth_kind == "half":
+        depth = torch.nn.functional.interpolate(depth[None, None],
+                                                size=(60, 80))[0, 0]
+    elif depth_kind == "zero":
+        depth = torch.zeros_like(depth)
+    rng = np.random.RandomState(6)
+    d0, w0 = _tsdf_rows(rng, cap, dev)
+    if depth_kind == "mostly_free":
+        free = torch.as_tensor(rng.rand(cap, 512) < 0.95, device=dev)
+        d0 = torch.where(free, torch.full_like(d0, 0.5), d0)
+    color = _color_image(dev, 3)
+    kw = dict(camera=CAM, voxel_size_m=VOXEL,
+              params=TsdfIntegratorParams(max_integration_distance_m=6.0))
+
+    def call(fn):
+        # (r, g, b, w, slots, bidx, depth, T) -> fn with the TSDF rows
+        return lambda *a: fn(*a[:4], d0, w0, a[4], a[5], color, a[6], a[7],
+                             **kw)
+
+    _check_layout(dev, layout, blocks, depth.contiguous(), T,
+                  call(integrate_color_cuda), call(integrate_color_planar),
+                  "color_fuse", seed=7, make_rows=_color_rows, marker=3)
 
 
 @pytest.mark.parametrize("with_color", [True, False])
@@ -689,9 +766,7 @@ def test_occupancy_fuse_batch_layouts(dev, layout):
     """The occupancy kernel on the fusion kernels' batch layouts (padding,
     dropped entries, 1 entry, below and far above the persistent grid):
     bit-exact, rows outside the batch untouched."""
-    g = np.stack(np.meshgrid(np.arange(-16, 16), np.arange(-16, 16),
-                             np.arange(1, 17), indexing="ij"), -1)
-    blocks = g.reshape(-1, 3).astype(np.int32)
+    blocks = _layout_blocks()
     _, _, _, _, depth, T = _tsdf_setup(dev)
     kw = dict(camera=CAM, voxel_size_m=VOXEL,
               params=OccupancyIntegratorParams(max_integration_distance_m=6.0))

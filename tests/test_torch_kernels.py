@@ -9,11 +9,15 @@ import torch
 from isaac_ros_nvblox_tpu_torch import kernels
 from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
 from isaac_ros_nvblox_tpu_torch.models.camera import Camera
+from isaac_ros_nvblox_tpu_torch.ops.color_cuda import integrate_color_cuda
 from isaac_ros_nvblox_tpu_torch.ops.detect_cuda import detect_dynamic
 from isaac_ros_nvblox_tpu_torch.ops.occupancy import (
     OccupancyIntegratorParams)
 from isaac_ros_nvblox_tpu_torch.ops.occupancy_cuda import (
     integrate_occupancy_cuda)
+from isaac_ros_nvblox_tpu_torch.ops.tsdf import TsdfIntegratorParams
+from isaac_ros_nvblox_tpu_torch.ops.tsdf_color_cuda import (
+    integrate_tsdf_color_cuda)
 
 LOG = """\
 ptxas info    : 0 bytes gmem
@@ -78,8 +82,31 @@ def _detect_on(dev):
                    camera=CAM, voxel_size_m=0.05, max_depth_m=5.0)
 
 
-@pytest.mark.parametrize("call", [_occupancy_on, _detect_on],
-                         ids=["occupancy_fuse", "detect_dynamic"])
+def _color_on(dev):
+    integrate_color_cuda(
+        *[torch.zeros(4, 512, device=dev) for _ in range(6)],
+        torch.zeros(2, dtype=torch.int32, device=dev),
+        torch.zeros(2, 3, dtype=torch.int32, device=dev),
+        torch.zeros(6, 8, 3, dtype=torch.uint8, device=dev),
+        torch.ones(3, 4, device=dev), torch.eye(4, device=dev), camera=CAM,
+        voxel_size_m=0.05, params=TsdfIntegratorParams())
+
+
+def _tsdf_color_on(dev):
+    integrate_tsdf_color_cuda(
+        *[torch.zeros(4, 512, device=dev) for _ in range(6)],
+        torch.zeros(2, dtype=torch.int32, device=dev),
+        torch.zeros(2, 3, dtype=torch.int32, device=dev),
+        torch.ones(6, 8, device=dev),
+        torch.zeros(6, 8, 3, dtype=torch.uint8, device=dev),
+        torch.eye(4, device=dev), camera=CAM, voxel_size_m=0.05,
+        params=TsdfIntegratorParams())
+
+
+@pytest.mark.parametrize(
+    "call", [_occupancy_on, _detect_on, _color_on, _tsdf_color_on],
+    ids=["occupancy_fuse", "detect_dynamic", "color_fuse",
+         "tsdf_color_fuse"])
 def test_wrappers_refuse_other_devices(call):
     """A wrapper takes the plain version for CPU tensors only and raises on
     any device that is neither the CPU nor a card: nothing falls back."""
