@@ -31,6 +31,18 @@ voxels, a 64x64x32-block world with 16384 pool slots.
     tsdf_fuse, occupancy_fuse, dilate_dense). Scored: the scene of
     tools/dynamics_quality.py, an intruder sphere crossing confident
     freespace, detected (`detect_dynamic`) and integrated (`integrate_depth`).
+  * publish_frames: the node's default `MultiMapper` (static TSDF,
+    EsdfMode.K2D) at the node's cadences over the main path's frames with
+    host poses: depth every frame, the fused 2-D ESDF tick
+    (`integrate_depth_with_esdf2d`, kernels tsdf_fuse, edt_pass1, edt_pass)
+    and the slice publish every 4th, `update_mesh` (kernel marching_cubes,
+    the native host mesh helpers) every 8th; the 2-D field held against
+    scipy's EDT on every cell, the passes on its grid (path esdf_2d), the
+    3-D ESDF service on a 2 m box, save -> load into a second mapper, the
+    PLY writers; then the dynamic scene's MultiMapper in K2D (kernels
+    detect_dynamic, tsdf_fuse, occupancy_fuse, dilate_dense, edt_pass1,
+    edt_pass), its two slices combined. Its launch counts (`publish` in
+    `launches_by_path`) add the two parts.
 
 It builds every CUDA kernel from `isaac_ros_nvblox_tpu_torch/csrc/`, checks
 that each path went through its kernels (launch counts set to 0 just before
@@ -127,6 +139,16 @@ DYN_REF_MEAN_TPR = 1.0
 DYN_REF_OCCUPIED = 1382
 DYN_HC_TOL, DYN_DETECTED_TOL, DYN_TPR_TOL, DYN_OCCUPIED_TOL = (
     0.001, 0.005, 0.005, 0.01)
+# The publish path: the node's cadences on its 40 Hz depth stream
+# (runtime/node.py:58-66): the fused 2-D ESDF tick and the slice publish at
+# 10 Hz, the mesh at 5 Hz; the slice's occupancy grid at the node's free
+# threshold and unknown value (runtime/node.py:89-92). The dynamic part's
+# height band holds the intruder (its centre at 1.0 m, radius 0.25 m).
+PUBLISH_ESDF_EVERY = 4
+PUBLISH_MESH_EVERY = 8
+FREE_THRESHOLD_M = 0.2
+UNKNOWN_VALUE = 1000.0
+DYN_BAND_M = (0.75, 1.25)
 
 
 # Launch counts of each path's run (set to 0 just before it, read just
@@ -931,8 +953,9 @@ def dynamics_phase(dev, smi, camera, depths_r, poses_r, max_blocks: int,
     map built from the room and box, then 8 intruder frames detected and
     integrated. Holds dilate_dense and detect_dynamic against their plain
     versions, and occupancy_fuse on the batch the dynamic path's frame
-    builds (fields added to its kernel_check line). Returns the kernels
-    rows of dilate_dense and detect_dynamic."""
+    builds (fields added to its kernel_check line). Returns the scored
+    MultiMapper with its intruder frames [(depth, pose tensor, pose)],
+    and the kernels rows of dilate_dense and detect_dynamic."""
     import dataclasses
     import torch
     import torch.nn.functional as F
@@ -1307,9 +1330,9 @@ def dynamics_phase(dev, smi, camera, depths_r, poses_r, max_blocks: int,
     if abs(n_occ - DYN_REF_OCCUPIED) > DYN_OCCUPIED_TOL * DYN_REF_OCCUPIED:
         fail(f"dynamic occupied voxels {n_occ}, reference "
              f"{DYN_REF_OCCUPIED}")
-    del sc, hc
+    del hc
     torch.cuda.empty_cache()
-    return [{"name": "dilate_dense", "route": "cuda",
+    return (sc, intr), [{"name": "dilate_dense", "route": "cuda",
              "source": "isaac_ros_nvblox_tpu_torch/csrc/dilate.cu",
              "replaces": "isaac_ros_nvblox_tpu/ops/halo.py:201",
              "launches": launches["dilate_dense"], "max_abs_err": err9,
@@ -1323,12 +1346,451 @@ def dynamics_phase(dev, smi, camera, depths_r, poses_r, max_blocks: int,
              "bound_by": b10_by, "library_ms": None}]
 
 
+def site_columns_2d(m, band_m):
+    """bool[X, Y]: the site columns of the mapper's 2-D frame, computed on
+    the host from its TSDF channels with numpy alone (float32 as the
+    reference computes it): a voxel is a site where its weight >=
+    min_weight and |d| <= max_site_distance_vox * voxel, and counts where
+    its centre's z, (bz*8 + lz + 0.5) * voxel, lies in the band; a column
+    is a site where any of its voxels is."""
+    ep = m.params.esdf
+    (ox, oy), sq2d = m.esdf_2d[0], m.esdf_2d[1]
+    X, Y = sq2d.shape
+    n = int(m.state.alloc_count)
+    bidx = m.state.block_index_of_slot[:n].cpu().numpy()
+    d = m.channels["tsdf_distance"][:n].cpu().numpy()
+    w = m.channels["tsdf_weight"][:n].cpu().numpy()
+    vs = np.float32(m.voxel_size_m)
+    site = ((w >= np.float32(ep.min_weight))
+            & (np.abs(d) <= np.float32(ep.max_site_distance_vox) * vs))
+    lz = (np.arange(512) % 8).astype(np.float32)
+    z = (bidx[:, 2:3].astype(np.float32) * 8 + lz + np.float32(0.5)) * vs
+    site &= (z >= np.float32(band_m[0])) & (z <= np.float32(band_m[1]))
+    col = site.reshape(n, 8, 8, 8).any(-1)
+    cx, cy = bidx[:, 0] - ox, bidx[:, 1] - oy
+    ok = (cx >= 0) & (cx < X // 8) & (cy >= 0) & (cy < Y // 8)
+    seeds = np.zeros((X // 8, Y // 8, 8, 8), bool)
+    np.logical_or.at(seeds, (cx[ok], cy[ok]), col[ok])
+    return seeds.transpose(0, 2, 1, 3).reshape(X, Y)
+
+
+def sq2d_scipy(seeds, band: int) -> np.ndarray:
+    """Squared distance to the nearest site column: scipy's exact EDT with
+    its nearest-site indices, squared in integers; INF (1e12) beyond
+    band^2."""
+    from scipy import ndimage
+    _, idx = ndimage.distance_transform_edt(~seeds, return_indices=True)
+    d2 = ((idx - np.indices(seeds.shape)) ** 2).sum(0)
+    return np.where(d2 <= band * band, d2.astype(np.float32),
+                    np.float32(1e12))
+
+
+def edt2d_check(site, band: int):
+    """edt_pass1 (along x) and edt_pass (along y) against their plain
+    versions on the 2-D solve's own grid, f32[X, Y, 1] seeded from the
+    collapsed site columns `site` (bool[X, Y] on the card), each pass fed
+    the plain chain's previous output and held bit for bit. Emits one
+    kernel_check line per pass (path esdf_2d); returns the plain chain's
+    output. The passes commute, so each line also times its kernel along
+    the other axis (`ms_other_axis`: edt_pass1 along y, contiguous lines;
+    edt_pass along x), and the edt_pass line says whether that order's
+    chain gives the same field (`other_order_bit_exact`)."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch.ops import esdf_dense as ed
+    inp = torch.where(site, 0.0, float(ed.INF))[..., None].contiguous()
+    seeds = inp
+    other = ed.edt_pass1(seeds, 1, band)
+    nvox = inp.numel()
+    n_sites = int(site.sum())
+    for axis, name, match in ((0, "edt_pass1", "edt_sweep"),
+                              (1, "edt_pass", "edt_minplus")):
+        fk = getattr(ed, name)
+        fp = getattr(ed, name + "_plain")
+        got = fk(inp, axis, band)
+        ref = fp(inp, axis, band)
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(got, ref))
+        max_err = float((got - ref).abs().max())
+        ms, how = kernel_ms(lambda: fk(inp, axis, band), match)
+        # Least work: the grid read once and written once; per voxel the
+        # two sweeps (pass 1), or 3 operations for each offset k with k^2
+        # below the output (the banded pass).
+        if axis == 0:
+            n_ops = 5.0 * nvox
+        else:
+            fin = ref < float(ed.INF)
+            n_ops = 3.0 * float((torch.ceil(torch.sqrt(ref[fin])) - 1).clamp(
+                0, band).sum())
+        b_ms, b_by = bound_ms(2 * nvox * 4, n_ops)
+        o_in = seeds if axis == 0 else other
+        ms_other, _ = kernel_ms(lambda: fk(o_in, 1 - axis, band), match)
+        row = {
+            "phase": "kernel_check", "name": name, "path": "esdf_2d",
+            "axis": axis, "grid": list(inp.shape), "sites": n_sites,
+            "band": band, "pruned_share": 0.0, "bit_exact": exact,
+            "max_abs_err": max_err, "ms": ms, "ms_timing": how,
+            "ms_call": cuda_ms(lambda: fk(inp, axis, band)),
+            "ms_other_axis": ms_other,
+            "plain_ms": cuda_ms(lambda: fp(inp, axis, band)),
+            "plain_device_ms": plain_device_ms(lambda: fp(inp, axis, band)),
+            "bound_ms": b_ms, "bound_by": b_by}
+        if axis == 1:
+            row["other_order_bit_exact"] = bool(torch.equal(
+                ed.edt_pass(other, 0, band), ref))
+        CHECKS.append(row)
+        if not exact:
+            fail(f"{name} along axis {axis} is not bit-exact on the 2-D "
+                 f"region")
+        if how != "profiler":
+            fail(f"the profiler's trace holds no {match} kernel for {name} "
+                 f"on the 2-D region")
+        inp = ref
+    return inp[..., 0]
+
+
+def align_slice(img, spec, ref_spec, unknown: float):
+    """A 2-D slice image moved into another slice's frame (same voxel
+    size): the overlap copied, the rest unknown."""
+    out = np.full((ref_spec.height, ref_spec.width), unknown, np.float32)
+    vs = ref_spec.voxel_size_m
+    dx = int(round((spec.origin_x_m - ref_spec.origin_x_m) / vs))
+    dy = int(round((spec.origin_y_m - ref_spec.origin_y_m) / vs))
+    x0, y0 = max(dx, 0), max(dy, 0)
+    x1 = min(dx + spec.width, ref_spec.width)
+    y1 = min(dy + spec.height, ref_spec.height)
+    if x1 > x0 and y1 > y0:
+        out[y0:y1, x0:x1] = img[y0 - dy:y1 - dy, x0 - dx:x1 - dx]
+    return out
+
+
+def same_blocks(a, b) -> bool:
+    """Whether two mappers hold the same live blocks with equal rows in
+    every channel, compared by block key (slot orders differ)."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
+
+    def sorted_slots(m):
+        slots = torch.nonzero(wg.live_slot_mask(m.state)).squeeze(1)
+        keys = m.state.block_index_of_slot[slots].cpu().numpy()
+        order = np.lexsort(keys.T[::-1])
+        return slots[torch.as_tensor(order, device=slots.device)], \
+            keys[order]
+
+    sa, ka = sorted_slots(a)
+    sb, kb = sorted_slots(b)
+    if ka.shape != kb.shape or not (ka == kb).all():
+        return False
+    return a.channels.keys() == b.channels.keys() and all(
+        torch.equal(a.channels[k][sa], b.channels[k][sb])
+        for k in a.channels)
+
+
+def publish_phase(dev, smi, camera, poses_np, depths_r, voxel, world,
+                  scored):
+    """The publish path: the node's default MultiMapper (static TSDF,
+    EsdfMode.K2D) at its cadences over the main path's 64 frames with host
+    poses: depth every frame; every 4th frame the fused tick
+    (`integrate_depth_with_esdf2d`, kernels tsdf_fuse, edt_pass1,
+    edt_pass), `update_esdf` and the slice publish (`slice_esdf_2d_device`
+    + `occupancy_grid_from_slice`); every 8th `update_mesh` (kernel
+    marching_cubes). Then the map's services: the 2-D field against scipy,
+    the passes on its grid, the backlog drained, a 3-D `update_esdf` and
+    `esdf_and_gradients_device` on a 2 m box, save -> load into a second
+    mapper, the three PLY writers. Last the dynamic part on `scored`
+    (dynamics_phase's MultiMapper and intruder frames): frames through the
+    dynamic tick, `update_esdf` (both layers' 2-D fields), the two slices
+    combined."""
+    import tempfile
+    from pathlib import Path
+    import torch
+    from isaac_ros_nvblox_tpu_torch import kernels
+    from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
+    from isaac_ros_nvblox_tpu_torch.io.ply import (
+        write_mesh_ply, write_pointcloud_ply, write_voxel_layer_ply_device)
+    from isaac_ros_nvblox_tpu_torch.mapper import device_io
+    from isaac_ros_nvblox_tpu_torch.mapper import device_mapper as dm
+    from isaac_ros_nvblox_tpu_torch.mapper.multi_mapper import MultiMapper
+    from isaac_ros_nvblox_tpu_torch.mapper.params import (
+        EsdfMode, EsdfSliceParams, MappingType, MultiMapperParams)
+    from isaac_ros_nvblox_tpu_torch.ops import esdf_dense as ed
+    from isaac_ros_nvblox_tpu_torch.ops.esdf_slicer import (
+        combine_distance_images, occupancy_grid_from_slice)
+
+    params = MultiMapperParams()
+    if (params.mapping_type, params.esdf_mode, params.voxel_size_m,
+            params.block_capacity) != (MappingType.STATIC_TSDF, EsdfMode.K2D,
+                                       voxel, world.capacity):
+        fail(f"the default MultiMapperParams changed: {params}")
+    n_steps = depths_r.shape[0]
+    n_orbit = len(poses_np)
+    slice_kw = dict(max_distance_m=float(
+        params.static_mapper.esdf.max_esdf_distance_m),
+        unknown_value=UNKNOWN_VALUE)
+
+    def publish_slice(m):
+        spec, img = device_io.slice_esdf_2d_device(m, **slice_kw)
+        return spec, img, occupancy_grid_from_slice(img, FREE_THRESHOLD_M,
+                                                    UNKNOWN_VALUE)
+
+    def run():
+        mm = MultiMapper(params, world=world, device=dev)
+        for k in range(n_steps):
+            T = poses_np[k % n_orbit]
+            if (k + 1) % PUBLISH_ESDF_EVERY == 0:
+                if not mm.integrate_depth_with_esdf2d(
+                        depths_r[k], T, camera, *mm.esdf_2d_band()):
+                    fail("the fused 2-D tick declined a host pose")
+                mm.update_esdf()      # the node's call: nothing left to do
+                publish_slice(mm.static_mapper)
+            else:
+                mm.integrate_depth(depths_r[k], T, camera)
+            if (k + 1) % PUBLISH_MESH_EVERY == 0:
+                mm.update_mesh()
+        return mm
+
+    run()                                   # warm-up
+    mm, launches, times = timed_run(run, n_steps)
+    sm = mm.static_mapper
+    want = {"tsdf_fuse": n_steps,
+            "edt_pass1": n_steps // PUBLISH_ESDF_EVERY,
+            "edt_pass": n_steps // PUBLISH_ESDF_EVERY,
+            "marching_cubes": n_steps // PUBLISH_MESH_EVERY}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"{name} launched {launches[name]} times on the publish "
+                 f"path, {n} expected")
+    band_m = mm.esdf_2d_band()
+    band = sm.esdf_band_vox
+    frame = sm._esdf2d_frame
+    sq2d = sm.esdf_2d[1]
+    X, Y = sq2d.shape
+
+    # The 2-D field against scipy on every cell of the region, the site
+    # columns collapsed on the host.
+    seeds = site_columns_2d(sm, band_m)
+    if not seeds.any():
+        fail("the 2-D region holds no site column")
+    brute = sq2d_scipy(seeds, band)
+    got = sq2d.cpu().numpy()
+    n_diff = int((got != brute).sum())
+    # The passes against their plain versions on the field's own grid,
+    # seeded by the port's collapse (which must equal the host's).
+    is_site, _, _ = dm._esdf_sites(*sm._esdf_layers(), voxel_size_m=voxel,
+                                   esdf_params=sm.params.esdf,
+                                   sites_from="tsdf")
+    site = ed.collapse_2d_mask(
+        is_site, dm._voxel_z_band_mask(sm.state, *band_m, voxel_size_m=voxel),
+        sm.state.block_index_of_slot, sm.state.alloc_count,
+        torch.as_tensor(frame[:2], dtype=torch.int32, device=dev),
+        dims_b=frame[2])
+    del is_site
+    collapse_equal = bool((site.cpu().numpy() == seeds).all())
+    chain = edt2d_check(site, band)
+    chain_equal = bool(torch.equal(torch.where(
+        chain <= float(band * band), chain, float(ed.INF)), sq2d))
+
+    # Device time of one 2-D solve and of one fused tick (frame 0 again,
+    # after every check of the run's map).
+    def solve():
+        sm.update_esdf_2d(*band_m, full=True)
+
+    solve_dev = plain_device_ms(solve, 5)
+    solve_ms = cuda_ms(solve, 5)
+    solve_top = top_kernels(trace(solve, 5)[0], 5, 8)
+
+    # The slice publish: wall per call (ending in its host copy) and the
+    # bytes it copies.
+    spec, img, grid = publish_slice(sm)
+    slice_ms = cuda_ms(lambda: publish_slice(sm))
+    slice_known = float((img != UNKNOWN_VALUE).mean())
+    occ_counts = {str(v): int((grid == v).sum()) for v in (-1, 0, 100)}
+
+    # The mesh backlog drained by further publishes, then one publish of
+    # every live block (the first publish of a loaded map), timed.
+    drains = 0
+    while bool(sm.mesh_pending.any() or sm.dirty.any()) and drains < 16:
+        mm.update_mesh()
+        drains += 1
+    pending = int(sm.mesh_pending.sum())
+    v, c, tri = sm.mesh_layer.as_arrays()
+    n_tris, n_mesh_blocks = int(tri.shape[0]), len(sm.mesh_layer.blocks)
+    mesh_ms, mesh_bytes = [], []
+
+    def mesh_all():
+        sm.dirty.copy_(wg.live_slot_mask(sm.state))
+        mm.update_mesh()
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh_all()
+        mesh_ms.append((time.perf_counter() - t0) * 1e3)
+        mesh_bytes.append(sm.last_mesh_host_bytes)
+    mesh_top = top_kernels(trace(mesh_all, 1)[0], 1, 6)
+    overflow = int(sm.state.overflow_count)
+
+    # The services: a 3-D ESDF, the dense grid and its gradients on a 2 m
+    # box, save -> load, PLY.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sm.update_esdf()
+    torch.cuda.synchronize()
+    esdf3d_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    dense, grads, d_origin = device_io.esdf_and_gradients_device(
+        sm, (-1.0, -1.0, 0.2), (1.0, 1.0, 2.2))
+    dense_ms = (time.perf_counter() - t0) * 1e3
+    dense_ok = (dense.shape == (40, 40, 40) and grads.shape == (40, 40, 40, 3)
+                and bool(np.isfinite(dense).all())
+                and bool(np.isfinite(grads).all()))
+    dense_known = float((dense != UNKNOWN_VALUE).mean())
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tmp = Path(tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        device_io.save_map_device(sm, tmp / "map.nvblx")
+        save_ms = (time.perf_counter() - t0) * 1e3
+        map_mib = (tmp / "map.nvblx").stat().st_size / 2 ** 20
+        second = MultiMapper(params, world=world, device=dev).static_mapper
+        t0 = time.perf_counter()
+        n_loaded = device_io.load_map_device(second, tmp / "map.nvblx")
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        round_trip = same_blocks(sm, second) and n_loaded == sm.block_count()
+        del second
+        ply = {}
+        t0 = time.perf_counter()
+        write_mesh_ply(tmp / "mesh.ply", v, tri, c)
+        ply["mesh_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        write_pointcloud_ply(tmp / "vertices.ply", v)
+        ply["pointcloud_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ply["tsdf_points"] = write_voxel_layer_ply_device(tmp / "tsdf.ply",
+                                                          sm, "tsdf")
+        ply["esdf_points"] = write_voxel_layer_ply_device(tmp / "esdf.ply",
+                                                          sm, "esdf")
+        ply["voxel_layers_ms"] = (time.perf_counter() - t0) * 1e3
+        ply["mib"] = {f.name: f.stat().st_size / 2 ** 20
+                      for f in sorted(tmp.glob("*.ply"))}
+    ply_ok = (ply["tsdf_points"] > 0 and ply["esdf_points"] > 0
+              and all(s > 0 for s in ply["mib"].values()))
+
+    # The fused tick's device time, last: it integrates frame 0 once more.
+    tick = lambda: mm.integrate_depth_with_esdf2d(  # noqa: E731
+        depths_r[0], poses_np[0], camera, *band_m)
+    tick_ms = cuda_ms(tick, 5)
+    tick_dev = plain_device_ms(tick, 5)
+
+    emit({"phase": "publish_frames", "frames": n_steps,
+          "config": "MultiMapperParams() (static_tsdf, esdf_mode 2d, "
+                    "0.05 m, 16384 slots); bench world and room",
+          "esdf_2d_every": PUBLISH_ESDF_EVERY,
+          "mesh_every": PUBLISH_MESH_EVERY, "band_m": list(band_m),
+          "band_vox": band, **times, "launches": launches,
+          "region_2d_origin_blocks": list(frame[:2]),
+          "region_2d_dims_blocks": list(frame[2]), "region_2d_cells": [X, Y],
+          "site_columns": int(seeds.sum()),
+          "cells_differing_from_scipy": n_diff,
+          "collapse_equals_host": collapse_equal,
+          "plain_chain_equals_field": chain_equal,
+          "solve_2d_device_ms": solve_dev, "solve_2d_ms": solve_ms,
+          "solve_2d_top": solve_top,
+          "fused_tick_device_ms": tick_dev, "fused_tick_ms": tick_ms,
+          "slice_publish_ms": slice_ms, "slice_bytes_to_host": img.nbytes,
+          "slice_shape": [spec.height, spec.width],
+          "slice_known_share": slice_known, "occupancy_grid": occ_counts,
+          "mesh_drain_publishes": drains, "mesh_pending": pending,
+          "mesh_blocks": n_mesh_blocks, "mesh_triangles": n_tris,
+          "update_mesh_all_blocks_ms": mesh_ms,
+          "update_mesh_bytes_to_host": mesh_bytes,
+          "update_mesh_all_blocks_top": mesh_top,
+          "esdf3d_update_ms": esdf3d_ms, "esdf_and_gradients_ms": dense_ms,
+          "dense_grid_known_share": dense_known, "save_ms": save_ms,
+          "load_ms": load_ms, "map_mib": map_mib, "blocks_loaded": n_loaded,
+          "round_trip_exact": round_trip, "ply": ply,
+          "allocated_blocks": sm.block_count(), "overflow_count": overflow,
+          "nvidia_smi": smi})
+    if n_diff:
+        fail(f"the 2-D field differs from scipy's EDT on {n_diff} cells")
+    if not (collapse_equal and chain_equal):
+        fail("the 2-D collapse or the plain chain disagrees with the field")
+    if overflow != 0:
+        fail(f"publish overflow_count {overflow} != 0")
+    if pending != 0 or n_tris <= 1000:
+        fail(f"mesh layer: {n_tris} triangles, mesh_pending {pending}")
+    if not (dense_ok and dense_known > 0.05):
+        fail("esdf_and_gradients_device gave a wrong or empty grid")
+    if not round_trip:
+        fail("the save -> load round trip changed the map")
+    if not ply_ok:
+        fail(f"a PLY writer wrote nothing: {ply}")
+    if not slice_known > 0.05:
+        fail(f"the 2-D slice is mostly unknown ({slice_known})")
+    del mm, sm
+    torch.cuda.empty_cache()
+
+    # ---- the dynamic part: the scored intruder scene in K2D --------------
+    sc, intr = scored
+    s2, d2 = sc.static_mapper, sc.dynamic_mapper
+    if sc.params.esdf_mode != EsdfMode.K2D:
+        fail("the dynamic MultiMapper is not in EsdfMode.K2D")
+    sc.params.static_mapper.esdf_slice = EsdfSliceParams(
+        esdf_slice_min_height=DYN_BAND_M[0],
+        esdf_slice_max_height=DYN_BAND_M[1])
+    # Known region: the freespace step takes its full-pool form.
+    s2._refresh_region_from_device()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for k, (d_intr, _, T) in enumerate(intr[:4]):
+        sc.integrate_depth(d_intr, T, camera, time_ms=300.0 * (72 + k))
+    sc.update_esdf()
+    torch.cuda.synchronize()
+    dyn_ms = (time.perf_counter() - t0) * 1e3
+    dyn_launches = dict(kernels.LAUNCHES)
+    PATH_LAUNCHES["publish"] = {k: launches[k] + dyn_launches[k]
+                                for k in launches}
+    s_spec, s_img = device_io.slice_esdf_2d_device(s2, **slice_kw)
+    d_spec, d_img = device_io.slice_esdf_2d_device(d2, **slice_kw)
+    combined = combine_distance_images(
+        [s_img, align_slice(d_img, d_spec, s_spec, UNKNOWN_VALUE)],
+        UNKNOWN_VALUE)
+    dgrid = occupancy_grid_from_slice(combined, FREE_THRESHOLD_M,
+                                      UNKNOWN_VALUE)
+    d_known = int((d_img != UNKNOWN_VALUE).sum())
+    d_occupied = int((d2.esdf_2d[1] == 0).sum())
+    emit({"phase": "publish_frames", "part": "dynamic",
+          "frames": 4, "band_m": list(DYN_BAND_M), "ms": dyn_ms,
+          "launches": dyn_launches,
+          "static_slice": [s_spec.height, s_spec.width],
+          "dynamic_slice": [d_spec.height, d_spec.width],
+          "dynamic_known_cells": d_known,
+          "dynamic_site_cells": d_occupied,
+          "combined_known_share": float((combined != UNKNOWN_VALUE).mean()),
+          "combined_occupancy_grid": {str(v): int((dgrid == v).sum())
+                                      for v in (-1, 0, 100)},
+          "nvidia_smi": smi})
+    for name in ("detect_dynamic", "tsdf_fuse", "occupancy_fuse",
+                 "dilate_dense", "edt_pass1", "edt_pass"):
+        if dyn_launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the dynamic publish "
+                 f"part")
+    if not (d_known > 0 and bool(np.isfinite(d_img).all())
+            and bool(np.isfinite(combined).all())):
+        fail("the dynamic 2-D slice is unknown everywhere or not finite")
+    del sc, s2, d2
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
 
-    from isaac_ros_nvblox_tpu_torch import kernels
+    from isaac_ros_nvblox_tpu_torch import kernels, native
     from isaac_ros_nvblox_tpu_torch.core.types import (
         Transform, voxel_centers_for_blocks)
     from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
@@ -1355,10 +1817,14 @@ def main() -> None:
     built = kernels.build()
     for name in kernels.SIGNATURES:
         kernels.library(name)
+    build_s = time.perf_counter() - t0
+    # The host mesh library of the publish path (g++).
+    t0 = time.perf_counter()
+    native.library()
     emit({"phase": "gpu", "nvidia_smi": smi, "kind": kind,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": time.perf_counter() - t0,
-          "build_s_per_source": built})
+          "build_s": build_s, "build_s_per_source": built,
+          "native_build_s": time.perf_counter() - t0})
 
     # ---- phase 2: the main path at the benchmark's size ------------------
     camera = Camera(fx=500.0, fy=500.0, cx=319.5, cy=239.5, width=640,
@@ -2035,8 +2501,15 @@ def main() -> None:
     results.append(lidar_phase(dev, smi, voxel, world))
 
     # ---- the dynamic mode (MultiMapper) ------------------------------------
-    results.extend(dynamics_phase(dev, smi, camera, depths_r, poses_r,
-                                  max_blocks, voxel, world))
+    scored, rows = dynamics_phase(dev, smi, camera, depths_r, poses_r,
+                                  max_blocks, voxel, world)
+    results.extend(rows)
+
+    # ---- the publish path: the node's default MultiMapper -----------------
+    publish_phase(dev, smi, camera,
+                  [orbit_pose(2 * np.pi * k / n_frames, radius=1.5)
+                   for k in range(n_frames)], depths_r, voxel, world, scored)
+    del scored
 
     flush_checks()
     emit({"kernels": results})

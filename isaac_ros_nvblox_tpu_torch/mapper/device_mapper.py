@@ -23,6 +23,12 @@ layers with color, mesh, ESDF, lidar, decay, clearing and freespace).
                       edt_pass) over the allocated AABB, or over the dirty
                       AABB + band, spliced into the ESDF channels; sites
                       from the TSDF or from occupied voxels
+    update_esdf_2d:   the 2-D ESDF of a height band: band sites collapsed
+                      per (x, y) column, two planar EDT passes (kernels
+                      edt_pass1, edt_pass) over the allocated xy extent
+    integrate_depth_with_esdf2d:
+                      the online tick: integrate_depth, then the 2-D
+                      solve; no host sync
     update_mesh_dirty_device:
                       dirty blocks + their -1-side neighbours -> surface
                       crossing subset -> marching cubes (kernel
@@ -69,7 +75,9 @@ from isaac_ros_nvblox_tpu_torch.ops import decay as decay_ops
 from isaac_ros_nvblox_tpu_torch.ops import esdf as esdf_ops
 from isaac_ros_nvblox_tpu_torch.ops import view as view_ops
 from isaac_ros_nvblox_tpu_torch.ops.color_cuda import integrate_color_cuda
-from isaac_ros_nvblox_tpu_torch.ops.esdf_dense import esdf_from_sites_dense
+from isaac_ros_nvblox_tpu_torch.ops.esdf_dense import (collapse_2d_mask,
+                                                     esdf_2d_from_sites,
+                                                     esdf_from_sites_dense)
 from isaac_ros_nvblox_tpu_torch.ops.freespace import (
     update_freespace, update_freespace_fullpool)
 from isaac_ros_nvblox_tpu_torch.ops.halo import (dilate_occupancy_dense,
@@ -660,30 +668,69 @@ def _esdf_stats(state, esdf_dirty):
             dirty.sum(dtype=torch.int32))
 
 
+def _esdf_sites(layer_a, layer_b, *, voxel_size_m: float, esdf_params,
+                sites_from: str):
+    """(is_site, is_inside, observed) bool[n, 512] of the projective layer:
+    `layer_a`/`layer_b` are (tsdf_distance, tsdf_weight), or with
+    sites_from="occupancy" (occupancy_log_odds, occupancy_observed)."""
+    if sites_from == "occupancy":
+        return esdf_ops.esdf_sites_from_occupancy(
+            layer_a, layer_b > 0, occupied_log_odds_threshold=float(
+                esdf_params.occupied_log_odds_threshold))
+    return esdf_ops.esdf_sites_from_tsdf(
+        layer_a, layer_b, voxel_size_m=voxel_size_m,
+        max_site_distance_vox=float(esdf_params.max_site_distance_vox),
+        min_weight=float(esdf_params.min_weight))
+
+
 @torch.no_grad()
 def _esdf_solve(state, layer_a, layer_b, origin_b, *, dims_b, band: int,
                 voxel_size_m: float, esdf_params, sites_from: str = "tsdf"):
     """sites -> exact banded EDT over the region: (sq, is_inside, observed).
 
-    `layer_a`/`layer_b` are (tsdf_distance, tsdf_weight), or with
-    sites_from="occupancy" (occupancy_log_odds, occupancy_observed). The
-    channels may be a pool prefix `[:n]`; the solve then covers the slots
-    below n only (exact when alloc_count <= n)."""
+    The channels (`_esdf_sites`) may be a pool prefix `[:n]`; the solve
+    then covers the slots below n only (exact when alloc_count <= n)."""
     n = layer_a.shape[0]
-    if sites_from == "occupancy":
-        is_site, is_inside, observed = esdf_ops.esdf_sites_from_occupancy(
-            layer_a, layer_b > 0, occupied_log_odds_threshold=float(
-                esdf_params.occupied_log_odds_threshold))
-    else:
-        is_site, is_inside, observed = esdf_ops.esdf_sites_from_tsdf(
-            layer_a, layer_b, voxel_size_m=voxel_size_m,
-            max_site_distance_vox=float(esdf_params.max_site_distance_vox),
-            min_weight=float(esdf_params.min_weight))
+    is_site, is_inside, observed = _esdf_sites(
+        layer_a, layer_b, voxel_size_m=voxel_size_m, esdf_params=esdf_params,
+        sites_from=sites_from)
     sq = esdf_from_sites_dense(
         is_site, state.block_index_of_slot[:n],
         torch.clamp_max(state.alloc_count, n), origin_b,
         dims_b=dims_b, band=band)
     return sq, is_inside, observed
+
+
+def _voxel_z_band_mask(state, min_height_m: float, max_height_m: float, *,
+                       voxel_size_m: float) -> torch.Tensor:
+    """bool[cap, 512]: the voxel centre's z, (bz*8 + lz + 0.5) * voxel in
+    float32 as the reference computes it, lies in [min_height_m,
+    max_height_m] (the bounds rounded to float32)."""
+    bi = state.block_index_of_slot
+    lz = (torch.arange(VOXELS_PER_BLOCK, device=bi.device) % B).float()
+    z = (bi[:, 2:3].float() * B + lz + 0.5) * float(np.float32(voxel_size_m))
+    return ((z >= float(np.float32(min_height_m)))
+            & (z <= float(np.float32(max_height_m))))
+
+
+@torch.no_grad()
+def _esdf2d_solve(state, layer_a, layer_b, origin_b, min_height_m: float,
+                  max_height_m: float, *, dims_b, band: int,
+                  voxel_size_m: float, esdf_params, sites_from: str):
+    """The 2-D ESDF of the height band over a region of (Nx, Ny) blocks at
+    world block `origin_b` (i32[2 or 3], its x and y): sites -> band mask
+    -> the two planar passes (kernels edt_pass1, edt_pass), and the
+    band's inside / observed collapses. Returns (sq2d f32[X, Y],
+    inside2d bool[X, Y], observed2d bool[X, Y]); no host sync."""
+    is_site, is_inside, observed = _esdf_sites(
+        layer_a, layer_b, voxel_size_m=voxel_size_m, esdf_params=esdf_params,
+        sites_from=sites_from)
+    args = (_voxel_z_band_mask(state, min_height_m, max_height_m,
+                               voxel_size_m=voxel_size_m),
+            state.block_index_of_slot, state.alloc_count, origin_b)
+    return (esdf_2d_from_sites(is_site, *args, dims_b=dims_b, band=band),
+            collapse_2d_mask(is_inside, *args, dims_b=dims_b),
+            collapse_2d_mask(observed, *args, dims_b=dims_b))
 
 
 class DeviceMapper:
@@ -751,6 +798,13 @@ class DeviceMapper:
         self.removed_log = torch.zeros((cap, 3), dtype=torch.int32,
                                        device=dev)
         self.removed_count = torch.zeros((), dtype=torch.int32, device=dev)
+        self._removed_read = 0  # host cursor into the ring
+        # What the last mesh-layer update drained (device_io): the removed
+        # block keys (the ring is read once), the re-meshed keys and the
+        # bytes of mesh rows it copied to the host.
+        self.last_removed_keys = []
+        self.last_meshed_keys = []
+        self.last_mesh_host_bytes = 0
         # The last depth view (TSDF decay keeps its voxels).
         self.last_depth_T_L_C = None
         self.last_depth_camera: Optional[Camera] = None
@@ -768,6 +822,15 @@ class DeviceMapper:
         self._aabb_lo = self._aabb_hi = None
         self._dirty_lo = self._dirty_hi = None
         self._region_unknown = False
+        # The 2-D ESDF (update_esdf_2d): ((origin x, y blocks), sq2d,
+        # inside2d, observed2d) or None; its band; the frame (origin, dims,
+        # band) of the last solve, whose change forces a new solve; and its
+        # own dirty window, so that a 3-D update does not take the 2-D
+        # field's changes away, or the other way round.
+        self.esdf_2d = None
+        self.esdf_2d_frame_heights = None
+        self._esdf2d_frame = None
+        self._dirty2d_lo = self._dirty2d_hi = None
         # Smallest slot bucket of replays not yet checked (0: none).
         self._slot_bucket_pending = 0
         # Time of the last freespace update (ms; f32 on the device, so
@@ -1056,6 +1119,11 @@ class DeviceMapper:
         else:
             self._dirty_lo = np.minimum(self._dirty_lo, lo)
             self._dirty_hi = np.maximum(self._dirty_hi, hi)
+        if self._dirty2d_lo is None:
+            self._dirty2d_lo, self._dirty2d_hi = lo.copy(), hi.copy()
+        else:
+            self._dirty2d_lo = np.minimum(self._dirty2d_lo, lo)
+            self._dirty2d_hi = np.maximum(self._dirty2d_hi, hi)
 
     def _refresh_region_from_device(self) -> bool:
         """One device->host read of the allocated AABB (used only when
@@ -1138,6 +1206,84 @@ class DeviceMapper:
             return (self.channels["occupancy_log_odds"],
                     self.channels["occupancy_observed"])
         return self.channels["tsdf_distance"], self.channels["tsdf_weight"]
+
+    # -------------------------------------------------------------- 2-D esdf
+    def _esdf2d_frame_of(self, min_height_m: float, max_height_m: float):
+        """(origin x, origin y, dims_b, min, max): the allocated AABB's xy
+        extent, each axis rounded up to its coarse bucket, and the band."""
+        a_lo, a_hi = self._aabb_lo, self._aabb_hi
+        dims_b = tuple(_bucket_blocks_coarse(int(a_hi[a] - a_lo[a] + 1))
+                       for a in (0, 1))
+        return (int(a_lo[0]), int(a_lo[1]), dims_b, float(min_height_m),
+                float(max_height_m))
+
+    def _solve_esdf_2d(self, frame) -> None:
+        ox, oy, dims_b, lo, hi = frame
+        field = _esdf2d_solve(
+            self.state, *self._esdf_layers(),
+            device_ints((ox, oy), torch.int32, self.device), lo, hi,
+            dims_b=dims_b, band=self.esdf_band_vox,
+            voxel_size_m=self.voxel_size_m, esdf_params=self.params.esdf,
+            sites_from="occupancy" if self._is_occupancy else "tsdf")
+        self.esdf_2d = ((ox, oy), *field)
+        self.esdf_2d_frame_heights = (lo, hi)
+        self._esdf2d_frame = frame
+        self._dirty2d_lo = self._dirty2d_hi = None
+
+    def update_esdf_2d(self, min_height_m: float, max_height_m: float,
+                       full: Optional[bool] = None) -> None:
+        """The 2-D ESDF (EsdfMode 2d): sites restricted to the height band
+        [min_height_m, max_height_m], planar distances, over the allocated
+        AABB's xy extent (coarse-bucketed). Stored as `self.esdf_2d` =
+        ((origin x, y blocks), sq2d f32[X, Y], inside2d, observed2d) for
+        the 2-D slicer.
+
+        With nothing changed since the last solve in the same frame
+        (origin, dims and band), the call returns at once; otherwise the
+        whole frame is solved again (its fixed shape beats a smaller
+        dirty window). No host sync unless poses arrived as device
+        tensors."""
+        if self._region_unknown and not self._refresh_region_from_device():
+            return
+        if self._aabb_lo is None:
+            return
+        frame = self._esdf2d_frame_of(min_height_m, max_height_m)
+        if full is None:
+            full = self._esdf2d_frame != frame
+        if not full and self._dirty2d_lo is None:
+            return  # nothing changed since the last 2-D solve
+        self._solve_esdf_2d(frame)
+
+    def integrate_depth_with_esdf2d(self, depth, T_L_C, camera: Camera,
+                                    min_height_m: float,
+                                    max_height_m: float) -> bool:
+        """The online tick: integrate one depth frame, then solve the 2-D
+        ESDF over the frame the new AABB gives, with no host sync between
+        or within them. Returns True when it ran; False (nothing done) for
+        an occupancy layer, a pose given as a device tensor or an unknown
+        region that reads back empty: the caller then falls back to
+        integrate_depth() + update_esdf_2d()."""
+        if self._is_occupancy or isinstance(T_L_C, torch.Tensor):
+            return False
+        if self._region_unknown and not self._refresh_region_from_device():
+            return False
+        # The frame covers the blocks this call allocates.
+        self._touch_region(np.asarray(T_L_C), camera)
+        if self._aabb_lo is None:
+            return False
+        frame = self._esdf2d_frame_of(min_height_m, max_height_m)
+        T = self._tensor(T_L_C, torch.float32)
+        self.state = _integrate_frame(
+            self.state, self.channels["tsdf_distance"],
+            self.channels["tsdf_weight"], self.dirty, self.esdf_dirty,
+            self._tensor(depth, torch.float32), T, camera=camera,
+            voxel_size_m=self.voxel_size_m, params=self.params.projective,
+            max_blocks=self.max_blocks_per_frame,
+            view_params=self._view_bounds())
+        self.last_depth_T_L_C = T
+        self.last_depth_camera = camera
+        self._solve_esdf_2d(frame)
+        return True
 
     # --------------------------------------------------------------- replay
     def esdf_region(self, margin_blocks: int = 2, mult: int = 4):
@@ -1402,7 +1548,17 @@ class DeviceMapper:
             dtype=torch.float32, device=self.device)
         self.dirty.zero_()
         self.esdf_dirty.zero_()
+        self._reset_host_tracking()
+        self._removed_read = int(np.asarray(arrays.get("removed_count", 0)))
+
+    def _reset_host_tracking(self) -> None:
+        """Forget the host-tracked regions and the ESDF frames: the next
+        ESDF update reads the allocated AABB back and solves it in full."""
         self._aabb_lo = self._aabb_hi = None
         self._dirty_lo = self._dirty_hi = None
+        self._dirty2d_lo = self._dirty2d_hi = None
         self._region_unknown = True
         self._esdf_has_full = False
+        self.esdf_2d = None
+        self.esdf_2d_frame_heights = None
+        self._esdf2d_frame = None

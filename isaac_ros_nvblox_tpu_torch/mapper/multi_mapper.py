@@ -28,6 +28,7 @@ import torch
 from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
 from isaac_ros_nvblox_tpu_torch.core.types import (Transform, device_ints,
                                                    recip32)
+from isaac_ros_nvblox_tpu_torch.mapper import device_io
 from isaac_ros_nvblox_tpu_torch.mapper import device_mapper as dm
 from isaac_ros_nvblox_tpu_torch.mapper.params import (EsdfMode, MappingType,
                                                       MultiMapperParams,
@@ -42,9 +43,6 @@ from isaac_ros_nvblox_tpu_torch.ops.ground_plane import (GroundPlaneEstimator,
                                                          Plane)
 from isaac_ros_nvblox_tpu_torch.ops.masking import (
     mask_overlay, remove_small_connected_components_device)
-
-_LATER = ("needs the publish-IO slice (ROADMAP queue 1 item 14: "
-          "esdf_2d_from_sites, device_io)")
 
 
 def _default_world(capacity: int) -> wg.WorldGridConfig:
@@ -178,6 +176,20 @@ class MultiMapper:
         self._last_depth_dev = depth_t
         self._last_T_L_C = T_L_C
         self._last_camera = camera
+
+    def integrate_depth_with_esdf2d(self, depth, T_L_C, camera: Camera,
+                                    min_height_m: float,
+                                    max_height_m: float) -> bool:
+        """The online tick of the static TSDF mode: the depth frame
+        (preprocessed as `integrate_depth` does) integrated, then the 2-D
+        ESDF solved (`DeviceMapper.integrate_depth_with_esdf2d`), with no
+        host sync. Returns False, having done nothing, in the dynamic and
+        human modes or where the static mapper declines: the caller then
+        falls back to integrate_depth() + update_esdf()."""
+        if self.dynamic_mapper is not None:
+            return False
+        return self.static_mapper.integrate_depth_with_esdf2d(
+            self._depth(depth), T_L_C, camera, min_height_m, max_height_m)
 
     def integrate_color(self, color, T_L_C, camera: Camera, mask=None,
                         depth=None) -> None:
@@ -326,14 +338,14 @@ class MultiMapper:
 
     # --------------------------------------------------------------- update
     def update_esdf(self) -> None:
-        """The ESDF of both mappers in `EsdfMode.K3D`; the 2-D slice mode
-        comes with the publish-IO slice and raises."""
-        if self.params.esdf_mode != EsdfMode.K3D:
-            raise NotImplementedError(f"update_esdf in {self.params.esdf_mode}"
-                                      f" {_LATER}")
-        self.static_mapper.update_esdf()
-        if self.dynamic_mapper is not None:
-            self.dynamic_mapper.update_esdf()
+        """The ESDF of both mappers as `esdf_mode` says: in `K2D` the
+        planar field of the height band `esdf_2d_band()`
+        (`DeviceMapper.update_esdf_2d`), in `K3D` the 3-D field."""
+        for m in self._mappers().values():
+            if self.params.esdf_mode == EsdfMode.K2D:
+                m.update_esdf_2d(*self.esdf_2d_band())
+            else:
+                m.update_esdf()
 
     def esdf_2d_band(self) -> Tuple[float, float]:
         """The 2-D ESDF's height band: [esdf_slice_min_height,
@@ -351,7 +363,10 @@ class MultiMapper:
         return self.ground_plane_estimator.estimate_device(self.static_mapper)
 
     def update_mesh(self, max_blocks: int = 2048):
-        raise NotImplementedError(f"MultiMapper.update_mesh {_LATER}")
+        """The static mapper's dirty blocks into its host mesh layer
+        (`device_io.update_mesh_layer`); returns the re-serialized keys."""
+        return device_io.update_mesh_layer(self.static_mapper,
+                                           max_blocks=max_blocks)
 
     def decay_static(self) -> None:
         """Static-layer decay: an occupancy layer always, a TSDF in the

@@ -25,6 +25,10 @@ only what the last reads (allocated blocks dilated by ceil(band/8) blocks
 along the last axis) and the first what the middle reads. A pruned block
 holds INF.
 
+The 2-D ESDF (`esdf_2d_from_sites`, EsdfMode 2d) collapses the sites of a
+height band onto one cell per (x, y) column and runs `edt_pass1` along x
+and `edt_pass` along y on an f32[X, Y, 1] grid, unpruned.
+
 `edt_pass1` / `edt_pass` launch their kernels for CUDA tensors and use the
 plain PyTorch versions (loops over k on INF-padded shifted views) for CPU
 tensors.
@@ -96,8 +100,9 @@ def edt_pass_plain(grid, axis: int, band: int, needed=None) -> torch.Tensor:
 
 
 def _launch(grid, axis: int, band: int, first: bool, needed) -> torch.Tensor:
-    if (grid.device.type != "cuda" or grid.dtype != torch.float32
-            or grid.dim() != 3):
+    if grid.device.type != "cuda":
+        raise ValueError(f"edt pass: unsupported device {grid.device}")
+    if grid.dtype != torch.float32 or grid.dim() != 3:
         raise ValueError("edt pass: grid must be a CUDA f32[X, Y, Z] tensor")
     grid = grid.contiguous()
     X, Y, Z = (int(d) for d in grid.shape)
@@ -255,6 +260,61 @@ def gather_slots(dense, in_region, row, band: int) -> torch.Tensor:
     inf = torch.full((), float(INF), device=sq.device)
     sq = torch.where(in_region[:, None], sq, inf)
     return torch.where(sq <= float(band * band), sq, inf)
+
+
+# ---------------------------------------------------------------------------
+# 2-D ESDF (EsdfMode 2d): sites collapsed over a height band, two passes
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def collapse_2d_mask(mask, voxel_z_ok, block_index_of_slot, alloc_count,
+                     origin_b, *, dims_b: Tuple[int, int]) -> torch.Tensor:
+    """any() of a bool voxel mask `[cap, 512]` over the height-band voxels
+    (`voxel_z_ok`) of each (x, y) column -> bool[Nx*8, Ny*8].
+
+    Several z blocks of one column share a 2-D cell, so the per-slot column
+    flags are summed into their cell's row (`index_add_`, no host sync);
+    padding slots (at or beyond `alloc_count`) and slots outside the region
+    go to a spare row that is dropped. `origin_b` holds the region's world
+    block (x, y) in its first two entries."""
+    cap = mask.shape[0]
+    dev = mask.device
+    Nx, Ny = (int(d) for d in dims_b)
+    # Lane v = lx*64 + ly*8 + lz: an any() over each group of 8 lanes.
+    col = torch.any((mask & voxel_z_ok).view(cap, 64, 8), dim=-1)
+    cells = block_index_of_slot[:, :2] - origin_b[None, :2]
+    live = ((torch.arange(cap, device=dev) < alloc_count)
+            & (cells[:, 0] >= 0) & (cells[:, 0] < Nx)
+            & (cells[:, 1] >= 0) & (cells[:, 1] < Ny))
+    row = torch.where(live, cells[:, 0] * Ny + cells[:, 1], Nx * Ny).long()
+    acc = torch.zeros((Nx * Ny + 1, 64), dtype=torch.int32, device=dev)
+    acc.index_add_(0, row, col.to(torch.int32))
+    return (acc[:-1] > 0).view(Nx, Ny, 8, 8).permute(0, 2, 1, 3).reshape(
+        Nx * 8, Ny * 8)
+
+
+@torch.no_grad()
+def esdf_2d_from_sites(is_site, voxel_z_ok, block_index_of_slot, alloc_count,
+                       origin_b, *, dims_b: Tuple[int, int],
+                       band: int) -> torch.Tensor:
+    """Exact banded 2-D squared EDT from height-band-restricted sites.
+
+    The band's sites collapse onto one cell per (x, y) column
+    (`collapse_2d_mask`), seeding a dense `f32[Nx*8, Ny*8, 1]` grid (0 at a
+    site column, INF elsewhere); `edt_pass1` runs along x, `edt_pass` along
+    y. There is no z pass and no output pruning: distances reach columns
+    with no allocated block.
+
+    Returns sq2d: f32[Nx*8, Ny*8] squared planar voxel distances (INF
+    beyond band^2 or away from any site).
+    """
+    site = collapse_2d_mask(is_site, voxel_z_ok, block_index_of_slot,
+                            alloc_count, origin_b, dims_b=dims_b)
+    inf = torch.full((), float(INF), device=site.device)
+    grid = torch.where(site, torch.zeros((), device=site.device), inf)
+    grid = edt_pass1(grid[..., None].contiguous(), 0, band)
+    sq2d = edt_pass(grid, 1, band)[..., 0]
+    return torch.where(sq2d <= float(band * band), sq2d, inf)
 
 
 # ---------------------------------------------------------------------------

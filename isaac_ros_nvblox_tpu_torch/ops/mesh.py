@@ -6,7 +6,8 @@ as the reference leaves it to XLA): for a batch of blocks it gathers the
 +1 halo, looks each cube's corner signs up in the 256-case table of
 ops/mesh_tables.py and emits a fixed-capacity triangle soup
 `[N, 512, MAX_TRIS, 3, 3]` with a validity mask. `MeshLayer` is the host
-store of welded per-block meshes.
+store of welded per-block meshes (the weld of the native host library,
+`native.weld_mesh`, as the reference's layer welds with its own).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from isaac_ros_nvblox_tpu_torch.ops.halo import gather_halo
 from isaac_ros_nvblox_tpu_torch.ops.mesh_tables import (CORNERS,
                                                         MAX_TRIS_PER_CUBE,
                                                         build_tables)
-from isaac_ros_nvblox_tpu_torch.ops.weld import weld_mesh
+from isaac_ros_nvblox_tpu_torch.native import weld_mesh
 
 B = VOXELS_PER_SIDE
 

@@ -660,8 +660,9 @@ def test_colored_mesh_slice_cuda_equals_cpu(dev):
 
 def test_replay_makes_no_host_sync(dev):
     """Frame steps at every cadence (TSDF, TSDF + color, color, ESDF,
-    mesh) and the mesh update never wait on the device (CUDA's sync debug
-    mode turns any synchronizing call into an error)."""
+    mesh), the mesh update and the fused 2-D ESDF tick never wait on the
+    device (CUDA's sync debug mode turns any synchronizing call into an
+    error)."""
     scene = default_test_scene()
     poses = torch.stack([torch.as_tensor(orbit_pose(2 * np.pi * k / 8),
                                          device=dev) for k in range(4)])
@@ -694,12 +695,21 @@ def test_replay_makes_no_host_sync(dev):
     mask = (torch.rand(CAM.height, CAM.width, device=dev) < 0.3).to(
         torch.uint8)
     bounded.integrate_depth(depths[0], poses[0], CAM, mask=mask)
+    host_poses = poses.cpu().numpy()
+    # The replays' device poses leave the region unknown: the first 2-D
+    # tick reads it back once.
+    assert m.integrate_depth_with_esdf2d(depths[2], host_poses[2], CAM, 0.1,
+                                         0.3)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         m.replay_frames(depths, poses, CAM, esdf_every=2, esdf_region=region)
         m.replay_frames(depths, poses, CAM, esdf_every=2, esdf_region=region,
                         slot_bucket=1024, **cadence)
+        # The online 2-D tick, on a host pose as the node gives it (a
+        # device pose, as in the next step, makes the region unknown).
+        assert m.integrate_depth_with_esdf2d(depths[3], host_poses[3], CAM,
+                                             0.1, 0.3)
         m.integrate_depth(depths[0], poses[0], CAM)
         m.integrate_color(colors[1], poses[1], CAM, depth=depths[1])
         m.integrate_color(colors[1], poses[1], CAM,
@@ -1270,3 +1280,93 @@ def test_dynamics_slice_cuda_equals_cpu(dev):
     assert int(a["static_mapper/freespace_high_confidence"].sum()) > 10000
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# The publish slice: the 2-D ESDF, the mesh layer, slices
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dims", [(8, 8), (8, 48), (48, 8), (17, 23),
+                                  (48, 48)])
+@pytest.mark.parametrize("band", [5, 40])
+def test_esdf_2d_matches_plain(dev, dims, band):
+    """The 2-D solve on the card (kernels edt_pass1 along x, edt_pass along
+    y on an f32[X, Y, 1] grid) equals its plain chain on the CPU bit for
+    bit; each pass launches once."""
+    rng = np.random.RandomState(dims[0] * 100 + dims[1] + band)
+    nx, ny = dims
+    cap = 2 * nx * ny + 16
+    cols = np.stack([rng.randint(-2, nx + 2, cap), rng.randint(-2, ny + 2, cap)],
+                    1)
+    bidx = np.concatenate([cols, rng.randint(-1, 3, (cap, 1))], 1).astype(
+        np.int32)
+    site = rng.rand(cap, 512) < 0.003
+    z_ok = rng.rand(cap, 512) < 0.6
+    args = [torch.from_numpy(a) for a in (site, z_ok, bidx)] + [
+        torch.tensor(cap - 9, dtype=torch.int32),
+        torch.tensor([0, 0, 0], dtype=torch.int32)]
+    want = ed.esdf_2d_from_sites(*args, dims_b=dims, band=band)
+    kernels.reset_launch_counts()
+    got = ed.esdf_2d_from_sites(*[a.to(dev) for a in args], dims_b=dims,
+                                band=band)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["edt_pass1"] == 1
+    assert kernels.LAUNCHES["edt_pass"] == 1
+    assert torch.equal(got.cpu(), want)
+    assert bool((want == 0).any()) and bool(((want > 0) & (want < 1e11)).any())
+    mask = ed.collapse_2d_mask(*[a.to(dev) for a in args], dims_b=dims)
+    assert torch.equal(mask.cpu(), ed.collapse_2d_mask(*args, dims_b=dims))
+
+
+def _publish_mappers(dev_list):
+    """A default MultiMapper (static TSDF, K2D; colors) per device, fed the
+    same frames: integrate_depth, update_esdf, the fused tick, color."""
+    from isaac_ros_nvblox_tpu_torch.mapper import device_io
+    scene = default_test_scene()
+    poses = [orbit_pose(2 * np.pi * k / 8) for k in range(4)]
+    depths = [render_depth(scene, CAM, T, device="cpu") for T in poses]
+    colors = [render_color(scene, CAM, T, device="cpu") for T in poses]
+    out = []
+    for d in dev_list:
+        mm = MultiMapper(MultiMapperParams(block_capacity=4096),
+                         world=wg.WorldGridConfig(dims=(48, 48, 24),
+                                                  capacity=4096,
+                                                  origin_block=(-24, -24, -6)),
+                         device=d)
+        for k in range(4):
+            if k % 2:
+                assert mm.integrate_depth_with_esdf2d(
+                    depths[k], poses[k], CAM, *mm.esdf_2d_band())
+            else:
+                mm.integrate_depth(depths[k], poses[k], CAM)
+                mm.update_esdf()
+            mm.integrate_color(colors[k], poses[k], CAM, depth=depths[k])
+        keys = mm.update_mesh(max_blocks=1024)
+        spec, img = device_io.slice_esdf_2d_device(mm.static_mapper,
+                                                   max_distance_m=2.0)
+        out.append((mm, keys, spec, img))
+    return out
+
+
+def test_publish_slice_cuda_equals_cpu(dev):
+    """The publish path on the card equals the plain path on the CPU: the
+    map, the 2-D field, the slice image and the mesh layer (keys, vertices,
+    colors, triangles)."""
+    (a, ka, sa, ia), (b, kb, sb, ib) = _publish_mappers(["cpu", dev])
+    sa_arr, sb_arr = a.state_arrays(), b.state_arrays()
+    for k in sa_arr:
+        np.testing.assert_array_equal(sa_arr[k], sb_arr[k], err_msg=k)
+    fa, fb = a.static_mapper.esdf_2d, b.static_mapper.esdf_2d
+    assert fa[0] == fb[0]
+    for x, y in zip(fa[1:], fb[1:]):
+        assert torch.equal(x, y.cpu())
+    assert sa == sb
+    np.testing.assert_array_equal(ia, ib)
+    assert ka == kb and len(ka) > 50
+    la, lb = a.static_mapper.mesh_layer, b.static_mapper.mesh_layer
+    assert la.blocks.keys() == lb.blocks.keys()
+    for key, blk in la.blocks.items():
+        for f in ("vertices", "colors", "triangles"):
+            np.testing.assert_array_equal(getattr(blk, f),
+                                          getattr(lb.blocks[key], f))
+    assert len(la.blocks) > 50

@@ -369,8 +369,9 @@ def test_params_match_reference():
 
 
 def test_multi_mapper_entry_points_and_later_slices():
-    """esdf_mode 3d updates both mappers; the 2-D slice and the mesh
-    publisher raise until the publish-IO slice; decay and the slice band."""
+    """esdf_mode 3d updates both mappers; in 2d both mappers get the planar
+    field of the slice band, and the mesh publisher fills the static
+    mapper's mesh layer; decay and the slice band."""
     depths, poses, times = _sphere_pop_frames()
     tm = _small(tp, esdf_mode=tp.EsdfMode.K3D)
     cam = tc.Camera(**CAM120)
@@ -381,10 +382,12 @@ def test_multi_mapper_entry_points_and_later_slices():
     tm.decay()
     assert tm.esdf_2d_band() == (0.1, 0.3)
     tm.params.esdf_mode = tp.EsdfMode.K2D
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tm.update_esdf()
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tm.update_mesh()
+    tm.update_esdf()
+    for m in (tm.static_mapper, tm.dynamic_mapper):
+        assert m.esdf_2d is not None
+        assert m.esdf_2d_frame_heights == (0.1, 0.3)
+    assert len(tm.update_mesh()) > 0
+    assert len(tm.static_mapper.mesh_layer.blocks) > 0
     color = np.full((90, 120, 3), 200, np.uint8)
     tm.integrate_color(color, poses[0], cam, mask=(depths[0] > 3.0))
     assert bool((tm.static_mapper.channels["color_weight"] > 0).any())

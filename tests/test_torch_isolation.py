@@ -80,13 +80,17 @@ def test_modules_import_without_jax():
         "ops.freespace", "ops.masking", "ops.detect", "ops.detect_cuda",
         "ops.ground_plane", "ops.backproject", "ops.image_preproc",
         "ops.halo", "mapper.multi_mapper")} <= set(MODULES)
+    # And the publish slice's.
+    assert {pkg + m for m in (
+        "ops.esdf_slicer", "ops.dense_grid", "mapper.device_io", "io.ply",
+        "io.occupancy_grid_io", "native.__init__")} <= set(MODULES)
 
 
 def test_sources_name_no_jax():
     pat = re.compile(r"^\s*(import jax|from jax)|isaac_ros_nvblox_tpu\.",
                      re.M)
     files = list(PKG.rglob("*.py")) + list(PKG.rglob("*.cu")) \
-        + [ROOT / "chip_smoke.py"]
+        + list(PKG.rglob("*.cc")) + [ROOT / "chip_smoke.py"]
     for f in files:
         text = f.read_text()
         assert not pat.search(text), f

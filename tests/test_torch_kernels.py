@@ -11,6 +11,7 @@ from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
 from isaac_ros_nvblox_tpu_torch.models.camera import Camera
 from isaac_ros_nvblox_tpu_torch.ops.color_cuda import integrate_color_cuda
 from isaac_ros_nvblox_tpu_torch.ops.detect_cuda import detect_dynamic
+from isaac_ros_nvblox_tpu_torch.ops.esdf_dense import esdf_2d_from_sites
 from isaac_ros_nvblox_tpu_torch.ops.occupancy import (
     OccupancyIntegratorParams)
 from isaac_ros_nvblox_tpu_torch.ops.occupancy_cuda import (
@@ -103,10 +104,20 @@ def _tsdf_color_on(dev):
         params=TsdfIntegratorParams())
 
 
+def _esdf_2d_on(dev):
+    esdf_2d_from_sites(
+        torch.ones(4, 512, dtype=torch.bool, device=dev),
+        torch.ones(4, 512, dtype=torch.bool, device=dev),
+        torch.zeros(4, 3, dtype=torch.int32, device=dev),
+        torch.full((), 4, dtype=torch.int32, device=dev),
+        torch.zeros(3, dtype=torch.int32, device=dev), dims_b=(1, 2), band=5)
+
+
 @pytest.mark.parametrize(
-    "call", [_occupancy_on, _detect_on, _color_on, _tsdf_color_on],
+    "call", [_occupancy_on, _detect_on, _color_on, _tsdf_color_on,
+             _esdf_2d_on],
     ids=["occupancy_fuse", "detect_dynamic", "color_fuse",
-         "tsdf_color_fuse"])
+         "tsdf_color_fuse", "esdf_2d_edt_passes"])
 def test_wrappers_refuse_other_devices(call):
     """A wrapper takes the plain version for CPU tensors only and raises on
     any device that is neither the CPU nor a card: nothing falls back."""
