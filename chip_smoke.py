@@ -43,6 +43,21 @@ voxels, a 64x64x32-block world with 16384 pool slots.
     detect_dynamic, tsdf_fuse, occupancy_fuse, dilate_dense, edt_pass1,
     edt_pass), its two slices combined. Its launch counts (`publish` in
     `launches_by_path`) add the two parts.
+  * node_ticks: the online node (`NvbloxNode`, the node's and the
+    mapper's defaults) ticking every 10 ms for 1.6 s of simulated time:
+    the orbit's frames as 64 host depth and color images at 40 Hz, poses
+    at 100 Hz, a moving 1800 x 16 lidar scan every 100 ms with per-point
+    times (motion compensation); subscribers to the mesh (and its
+    adapter), the 2-D slice, its occupancy grid, the TSDF layer, the
+    back-projected depth and a costmap layer. Tick wall (mean, p50, p99),
+    device time per simulated second, idle share, bytes copied to the
+    host per publish kind, message counts, queue drops, the node's
+    Timing table; the admitted frames all integrated, the final 2-D field
+    against scipy, the map's score against the reference's CPU run; then
+    the services (save_map -> load_map into a second node,
+    get_esdf_and_gradients, save_ply, shutdown) and a dynamic-mode node
+    on the 8 intruder frames, its two slices combined (kernels
+    detect_dynamic, occupancy_fuse, dilate_dense). Launch counts `node`.
 
 It builds every CUDA kernel from `isaac_ros_nvblox_tpu_torch/csrc/`, checks
 that each path went through its kernels (launch counts set to 0 just before
@@ -1785,6 +1800,370 @@ def publish_phase(dev, smi, camera, poses_np, depths_r, voxel, world,
     torch.cuda.empty_cache()
 
 
+NODE_TICK_MS = 10          # NodeParams.tick_period_ms
+NODE_TICKS = 161           # 0 to 1.6 s of simulated time
+NODE_FRAME_MS = 25         # the replayed orbit's depth and color at 40 Hz
+NODE_SCAN_MS = 100         # the lidar at 10 Hz
+# The Transformer snaps a lookup to a queued pose within 50 ms; on this
+# orbit (a turn every 0.4 s) a 25 ms frame would take a pose 5 ms away,
+# 4.5 degrees off. 1 ms makes every stamp between two 100 Hz poses
+# interpolate.
+NODE_POSE_TOLERANCE_S = 0.001
+NODE_TOPICS = ("~/mesh", "~/mesh_serialized", "~/static_map_slice",
+               "~/map_slice_occupancy_grid", "~/tsdf_layer",
+               "~/back_projected_depth")
+# The node's map, from the reference's own CPU run of the same inputs (its
+# node over the same frames, scans, poses and clock, its XLA integrators,
+# which the port mirrors; `tests/test_torch_accuracy.py --node`): TSDF
+# error 0.034859 m over 2887 blocks, 11 167 known cells in the last 2-D
+# slice (384 x 384). The port's CPU run of the same inputs gives
+# 0.034859 m and 2887 blocks. The limits leave room for the card's own
+# render of the frames and scans, no more: the error within 3%, the block
+# and known-cell counts within 1%.
+NODE_REF = {"tsdf_mae_m": 0.034859, "allocated_blocks": 2887,
+            "last_slice_known_cells": 11167}
+NODE_TSDF_MAE_LIMIT_M = 0.036
+NODE_COUNT_TOL = 0.01
+
+
+def node_lidar_pose(t_s: float) -> np.ndarray:
+    """The lidar's pose at t_s: level, heading +x, at 2.2 m, moving along
+    x at 0.5 m/s from (-0.4, -1.5)."""
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = (-0.4 + 0.5 * t_s, -1.5, 2.2)
+    return T
+
+
+def node_scan(scene, lidar, stamp_s: float, device):
+    """One 1800 x 16 scan starting at stamp_s while the sensor moves
+    (`node_lidar_pose`): each column traced from the sensor's position at
+    its own time, points in the sensor frame (the rotation is fixed), and
+    the per-point times relative to the scan start (column c at
+    c * 100 ms / 1800)."""
+    import torch
+    dirs = torch.as_tensor(lidar_rays(lidar), device=device)
+    A = lidar.num_azimuth_divisions
+    rel = np.tile(np.arange(A) * (NODE_SCAN_MS / 1e3 / A),
+                  lidar.num_elevation_divisions)
+    origins = torch.as_tensor(np.stack([node_lidar_pose(stamp_s + r)[:3, 3]
+                                        for r in rel[:A]]), device=device)
+    origins = origins.repeat(lidar.num_elevation_divisions, 1)
+    t = torch.full((dirs.shape[0],), 1e-3, device=device)
+    for _ in range(96):
+        d = scene.sdf(dirs * t[:, None] + origins)
+        t = torch.clamp_max(t + torch.where(d > 1e-4, d, torch.zeros_like(d)),
+                            2.0 * lidar.max_valid_range_m)
+    hit = ((scene.sdf(dirs * t[:, None] + origins) < 1e-3)
+           & (t < lidar.max_valid_range_m))
+    pts = torch.where(hit[:, None], dirs * t[:, None], torch.zeros_like(dirs))
+    return pts.cpu().numpy(), rel
+
+
+def gate_admits(arrivals_ms, rate_hz: float) -> int:
+    """How many of the frames arriving at these tick times (ms) a node
+    rate gate of rate_hz lets through (RateGate.should_process)."""
+    last, n = None, 0
+    for ms in arrivals_ms:
+        if last is None or ms - last >= 1000.0 / rate_hz - 1e-6:
+            last, n = ms, n + 1
+    return n
+
+
+def node_phase(dev, smi, camera, scene, voxel, world, depths, intr):
+    """The online node (`NvbloxNode` with the node's and the mapper's
+    defaults) ticking every 10 ms for 1.6 s of simulated time: the main
+    path's 16-frame orbit replayed as 64 depth and 64 color frames 25 ms
+    apart, host images as a camera delivers them; camera and lidar poses
+    at 100 Hz; an 1800 x 16 scan every 100 ms with per-point times, so
+    motion compensation runs. Subscribers: the mesh (with the mesh layer
+    adapter), the 2-D slice, its occupancy grid, the TSDF layer, the
+    back-projected depth and a costmap layer. Then the services, and a
+    short dynamic-mode node on the scored intruder frames. Launch counts
+    `node`."""
+    import tempfile
+    from pathlib import Path
+    import torch
+    from isaac_ros_nvblox_tpu_torch import kernels
+    from isaac_ros_nvblox_tpu_torch.core.types import voxel_centers_for_blocks
+    from isaac_ros_nvblox_tpu_torch.mapper.params import (MultiMapperParams,
+                                                          make_params)
+    from isaac_ros_nvblox_tpu_torch.models.lidar import Lidar
+    from isaac_ros_nvblox_tpu_torch.models.scene import (orbit_pose,
+                                                         render_color)
+    from isaac_ros_nvblox_tpu_torch.runtime.adapters import MeshLayerAdapter
+    from isaac_ros_nvblox_tpu_torch.runtime.costmap import (
+        NvbloxCostmapLayer)
+    from isaac_ros_nvblox_tpu_torch.runtime.node import (NodeParams,
+                                                         NvbloxNode)
+    from isaac_ros_nvblox_tpu_torch.utils.timing import Rates, Timing
+
+    n_orbit = depths.shape[0]
+    depth_np = [d.cpu().numpy() for d in depths]
+    color_np = [render_color(scene, camera, orbit_pose(
+        2 * np.pi * k / n_orbit, radius=1.5), device=dev).cpu().numpy()
+        for k in range(n_orbit)]
+    n_frames = 4 * n_orbit
+    p = NodeParams()
+    lidar = Lidar.equal_vertical_fov(p.lidar_width, p.lidar_height,
+                                     p.lidar_vertical_fov_rad,
+                                     min_range_m=p.lidar_min_valid_range_m)
+    n_scans = (NODE_TICKS - 1) * NODE_TICK_MS // NODE_SCAN_MS
+    scans = [node_scan(scene, lidar, m * NODE_SCAN_MS / 1e3, dev)
+             for m in range(n_scans)]
+
+    def make_node(params=None, mapper_params=None):
+        node = NvbloxNode(params or NodeParams(),
+                          mapper_params or MultiMapperParams(), world=world,
+                          device=dev)
+        node.transformer.timestamp_tolerance_s = NODE_POSE_TOLERANCE_S
+        clock = [0.0]
+        node.clock = lambda: clock[0]
+        return node, clock
+
+    def run():
+        node, clock = make_node()
+        counts = {t: 0 for t in NODE_TOPICS}
+        host_bytes = {}
+
+        def counter(topic, kind=None):
+            def cb(msg):
+                counts[topic] += 1
+                if kind:
+                    host_bytes.setdefault(kind, []).append(
+                        node.last_host_bytes[kind])
+            return cb
+
+        MeshLayerAdapter(node.bus)
+        costmap = NvbloxCostmapLayer(node.bus)
+        slices = []
+        node.bus.subscribe("~/static_map_slice", slices.append)
+        for topic, kind in zip(NODE_TOPICS, ("mesh", None, "slice", None,
+                                             "layers",
+                                             "back_projected_depth")):
+            node.bus.subscribe(topic, counter(topic, kind))
+        Timing.reset()
+        Rates.reset()
+        tick_ms = []
+        next_frame = 0
+        for i in range(NODE_TICKS):
+            ms = i * NODE_TICK_MS
+            now = ms / 1e3
+            node.add_pose("cam", now, orbit_pose(
+                2 * np.pi * (ms / NODE_FRAME_MS) / n_orbit, radius=1.5))
+            node.add_pose("lidar", now, node_lidar_pose(now))
+            node.add_pose("base_link", now, node_lidar_pose(now))
+            while next_frame < n_frames \
+                    and next_frame * NODE_FRAME_MS <= ms:
+                k = next_frame
+                stamp = k * NODE_FRAME_MS / 1e3
+                node.add_depth_image(depth_np[k % n_orbit], camera, "cam",
+                                     stamp)
+                node.add_color_image(color_np[k % n_orbit], camera, "cam",
+                                     stamp)
+                next_frame += 1
+            if ms >= NODE_SCAN_MS and ms % NODE_SCAN_MS == 0:
+                m = ms // NODE_SCAN_MS - 1
+                node.add_pointcloud(scans[m][0], "lidar",
+                                    m * NODE_SCAN_MS / 1e3,
+                                    timestamps_s=scans[m][1])
+            clock[0] = now
+            t0 = time.perf_counter()
+            node.tick()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+        return node, {"counts": counts, "host_bytes": host_bytes,
+                      "tick_ms": tick_ms, "costmap": costmap.has_data,
+                      "timing": Timing.to_string(),
+                      "last_slice_known_cells": int(
+                          (slices[-1].data != slices[-1].unknown_value).sum()),
+                      "integrated": Timing.get("node/depth/integrate").count,
+                      "colors": Timing.get("node/color/integrate").count,
+                      "scans": Timing.get("node/lidar/integrate").count}
+
+    run()                                   # warm-up
+    (node, st), launches, times = timed_run(run, NODE_TICKS)
+    mm = node.multi_mapper
+    sm = mm.static_mapper
+    sim_s = (NODE_TICKS - 1) * NODE_TICK_MS / 1e3
+    arrivals = [-(-k * NODE_FRAME_MS // NODE_TICK_MS) * NODE_TICK_MS
+                for k in range(n_frames)]
+    admitted = gate_admits(arrivals, node.params.integrate_depth_rate_hz)
+    overflow = int(sm.state.overflow_count)
+    drops = {q.name: q.dropped_count for q in (
+        node.depth_queue, node.color_queue, node.pointcloud_queue)}
+
+    # The map against the analytic scene (the benchmark's definition).
+    n_alloc = int(sm.state.alloc_count)
+    gt = scene.sdf(voxel_centers_for_blocks(
+        sm.state.block_index_of_slot[:n_alloc], voxel))
+    w = sm.channels["tsdf_weight"][:n_alloc]
+    near = (gt.abs() < 0.1) & (w > 0.5)
+    tsdf_mae = float((sm.channels["tsdf_distance"][:n_alloc]
+                      - gt).abs()[near].mean())
+
+    # The final 2-D field (solved on the last tick, after its scan)
+    # against scipy on every cell.
+    band_m = mm.esdf_2d_band()
+    seeds = site_columns_2d(sm, band_m)
+    brute = sq2d_scipy(seeds, sm.esdf_band_vox)
+    n_diff = int((sm.esdf_2d[1].cpu().numpy() != brute).sum())
+    stale = sm._dirty2d_lo is not None
+
+    # The services, each through the node's service queue.
+    svc = {}
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        node.save_map(tmp / "map.nvblx")
+        svc["save_map_ms"] = (time.perf_counter() - t0) * 1e3
+        second, _ = make_node()
+        t0 = time.perf_counter()
+        second.load_map(tmp / "map.nvblx")
+        torch.cuda.synchronize()
+        svc["load_map_ms"] = (time.perf_counter() - t0) * 1e3
+        s2 = second.multi_mapper.static_mapper
+        round_trip = (same_blocks(sm, s2)
+                      and s2.block_count() == sm.block_count())
+        del second, s2
+        t0 = time.perf_counter()
+        resp = node.get_esdf_and_gradients((-1.0, -1.0, 0.2),
+                                           (1.0, 1.0, 2.2))
+        svc["esdf_and_gradients_ms"] = (time.perf_counter() - t0) * 1e3
+        esdf_ok = (resp.success and resp.esdf.shape == (40, 40, 40)
+                   and resp.gradients.shape == (40, 40, 40, 3)
+                   and bool(np.isfinite(resp.esdf).all())
+                   and float((resp.esdf != node.params
+                              .esdf_and_gradients_unobserved_value).mean())
+                   > 0.05)
+        # After the 3-D solve of the service above, so that esdf.ply holds
+        # the field.
+        t0 = time.perf_counter()
+        node.save_ply(tmp / "ply")
+        svc["save_ply_ms"] = (time.perf_counter() - t0) * 1e3
+        ply = {f.name: f.stat().st_size for f in
+               sorted((tmp / "ply").glob("*.ply"))}
+        t0 = time.perf_counter()
+        node.shutdown(tmp / "shutdown")
+        svc["shutdown_ms"] = (time.perf_counter() - t0) * 1e3
+        shut = sorted(f.name for f in (tmp / "shutdown").iterdir())
+    ticks = np.asarray(st["tick_ms"])
+    row = {"phase": "node_ticks", "ticks": NODE_TICKS,
+           "simulated_s": sim_s,
+           "config": "NvbloxNode(NodeParams(), MultiMapperParams()): static "
+                     "tsdf, esdf 2d, 0.05 m, 16384 slots, the node's rates; "
+                     "bench world and room; 640x480 depth + color at 40 Hz, "
+                     "1800x16 lidar at 10 Hz, poses at 100 Hz",
+           "pose_tolerance_s": NODE_POSE_TOLERANCE_S,
+           "tick_wall_ms": {"mean": float(ticks.mean()),
+                            "p50": float(np.percentile(ticks, 50)),
+                            "p99": float(np.percentile(ticks, 99)),
+                            "max": float(ticks.max())},
+           **times,
+           "device_ms_per_simulated_s":
+               times["device_ms_per_step"] * NODE_TICKS / sim_s,
+           "host_bytes_per_publish": {
+               k: {"mean": float(np.mean(v)), "max": int(np.max(v)),
+                   "publishes": len(v)}
+               for k, v in st["host_bytes"].items()},
+           "messages": st["counts"], "queue_drops": drops,
+           "depth_frames_admitted": admitted,
+           "depth_frames_integrated": st["integrated"],
+           "color_frames_integrated": st["colors"],
+           "scans_integrated": st["scans"], "launches": launches,
+           "allocated_blocks": sm.block_count(), "overflow_count": overflow,
+           "tsdf_mae_m": tsdf_mae,
+           "last_slice_known_cells": st["last_slice_known_cells"],
+           "reference": NODE_REF,
+           "limits": {"tsdf_mae_m": NODE_TSDF_MAE_LIMIT_M,
+                      "count_tolerance": NODE_COUNT_TOL},
+           "site_columns": int(seeds.sum()),
+           "cells_differing_from_scipy": n_diff, "field_stale": stale,
+           "services": svc, "round_trip_exact": round_trip, "ply_bytes": ply,
+           "shutdown_files": shut, "nvidia_smi": smi}
+    emit(row)
+    print(st["timing"], flush=True)
+    if st["integrated"] != admitted or launches["tsdf_fuse"] != admitted:
+        fail(f"{admitted} depth frames admitted, {st['integrated']} "
+             f"integrated, {launches['tsdf_fuse']} tsdf_fuse launches")
+    if overflow != 0:
+        fail(f"node overflow_count {overflow} != 0")
+    if min(st["counts"].values()) == 0 or not st["costmap"]:
+        fail(f"a subscribed topic was never published: {st['counts']}")
+    for name in ("tsdf_fuse", "edt_pass1", "edt_pass", "color_fuse",
+                 "marching_cubes", "tsdf_lidar_fuse"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the node path")
+    if st["scans"] != n_scans:
+        fail(f"{st['scans']} of {n_scans} scans integrated")
+    if n_diff or stale or not seeds.any():
+        fail(f"the node's 2-D field differs from scipy's EDT on {n_diff} "
+             f"cells (stale {stale})")
+    if not tsdf_mae <= NODE_TSDF_MAE_LIMIT_M:
+        fail(f"node tsdf_mae_m {tsdf_mae} > {NODE_TSDF_MAE_LIMIT_M}")
+    for key, got in (("allocated_blocks", sm.block_count()),
+                     ("last_slice_known_cells",
+                      st["last_slice_known_cells"])):
+        if abs(got - NODE_REF[key]) > NODE_COUNT_TOL * NODE_REF[key]:
+            fail(f"node {key} {got}, the reference's {NODE_REF[key]}")
+    if not round_trip:
+        fail("the node's save_map -> load_map round trip changed the map")
+    if len(ply) != 3 or min(ply.values()) <= 1000:
+        fail(f"save_ply wrote {ply}")
+    if not esdf_ok:
+        fail("get_esdf_and_gradients gave a wrong or empty grid")
+    if shut != ["map.png", "map.yaml"]:
+        fail(f"shutdown wrote {shut}")
+    del node, mm, sm
+    torch.cuda.empty_cache()
+
+    # ---- the dynamic mode: 8 intruder frames through the node ------------
+    # The node combines the two 2-D slices only where the frames agree;
+    # the dynamic mapper's default 4 m integration distance gives it a
+    # smaller frame than the static mapper's 7 m, so it takes the static
+    # distance here.
+    dyn_params = make_params(mode="dynamic", overlay={
+        "dynamic_mapper.projective.max_integration_distance_m": float(
+            MultiMapperParams().static_mapper.projective
+            .max_integration_distance_m)})
+    dnode, dclock = make_node(mapper_params=dyn_params)
+    dcounts = {"~/static_map_slice": 0, "~/combined_map_slice": 0}
+    for topic in dcounts:
+        dnode.bus.subscribe(topic, lambda msg, topic=topic:
+                            dcounts.__setitem__(topic, dcounts[topic] + 1))
+    frames = [(d.cpu().numpy(), T) for d, _, T in intr]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for k, (d_np, T) in enumerate(frames):
+        stamp = k * NODE_FRAME_MS / 1e3
+        dnode.add_pose("cam", stamp, T)
+        dnode.add_depth_image(d_np, camera, "cam", stamp)
+        dclock[0] = stamp
+        dnode.tick()
+    torch.cuda.synchronize()
+    dyn_ms = (time.perf_counter() - t0) * 1e3
+    dyn_launches = dict(kernels.LAUNCHES)
+    PATH_LAUNCHES["node"] = {k: launches[k] + dyn_launches[k]
+                             for k in launches}
+    dyn = dnode.multi_mapper.dynamic_mapper
+    emit({"phase": "node_ticks", "part": "dynamic", "frames": len(frames),
+          "ms": dyn_ms, "launches": dyn_launches, "messages": dcounts,
+          "static_frame_2d": list(dnode.multi_mapper.static_mapper
+                                  ._esdf2d_frame[:3]),
+          "dynamic_frame_2d": list(dyn._esdf2d_frame[:3]),
+          "dynamic_blocks": dyn.block_count(),
+          "overflow_count": int(dnode.multi_mapper.static_mapper.state
+                                .overflow_count), "nvidia_smi": smi})
+    for name in ("detect_dynamic", "occupancy_fuse", "dilate_dense"):
+        if dyn_launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the dynamic node")
+    if dcounts["~/combined_map_slice"] == 0:
+        fail(f"the dynamic node published no combined slice: {dcounts}")
+    del dnode, dyn
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2509,7 +2888,12 @@ def main() -> None:
     publish_phase(dev, smi, camera,
                   [orbit_pose(2 * np.pi * k / n_frames, radius=1.5)
                    for k in range(n_frames)], depths_r, voxel, world, scored)
+    intr = scored[1]
     del scored
+
+    # ---- the online node: the runtime over the publish path --------------
+    node_phase(dev, smi, camera, scene, voxel, world, depths, intr)
+    del intr
 
     flush_checks()
     emit({"kernels": results})

@@ -3,14 +3,22 @@
 Holds the groups the TSDF, occupancy, colored-mesh, ESDF, decay and
 freespace paths read, the depth and mask preprocessing switches, the
 MultiMapper's top-level parameters and the mapping-type enums, with the
-reference's field names and defaults. The overlays and `make_params` come
-with the runtime slice.
+reference's field names and defaults.
+
+The tree is built in three tiers, as nvblox's launch files build it:
+defaults in code (the dataclass defaults), a mode overlay
+(`MODE_OVERLAYS`: static / dynamic / people segmentation) and a user
+overlay, applied last (`make_params`). `apply_overlay` takes nested or
+dotted keys, later wins; unknown keys warn and are ignored, enum strings
+parse with warn-and-default.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import logging
+from typing import Any, Dict, Mapping, Optional
 
 from isaac_ros_nvblox_tpu_torch.ops.decay import (OccupancyDecayParams,
                                                   TsdfDecayParams)
@@ -20,7 +28,10 @@ from isaac_ros_nvblox_tpu_torch.ops.mesh import MeshIntegratorParams
 from isaac_ros_nvblox_tpu_torch.ops.occupancy import OccupancyIntegratorParams
 from isaac_ros_nvblox_tpu_torch.ops.tsdf import (TsdfIntegratorParams,
                                                  WeightingFunctionType)
-from isaac_ros_nvblox_tpu_torch.ops.view import ViewCalculatorParams
+from isaac_ros_nvblox_tpu_torch.ops.view import (ViewCalculatorParams,
+                                                 WorkspaceBoundsType)
+
+log = logging.getLogger(__name__)
 
 
 class MappingType(enum.Enum):
@@ -104,6 +115,74 @@ class MultiMapperParams:
     max_blocks_per_frame: int = 2048
 
 
+# ---------------------------------------------------------------- overlays
+MODE_OVERLAYS: Dict[str, Dict[str, Any]] = {
+    # Parity with config/nvblox/specializations: dynamics + segmentation.
+    "static": {"mapping_type": "static_tsdf"},
+    "static_occupancy": {"mapping_type": "static_occupancy"},
+    "dynamic": {"mapping_type": "dynamic"},
+    "people_segmentation": {"mapping_type": "human_with_static_tsdf"},
+}
+
+_ENUM_FIELDS = {
+    "mapping_type": MappingType,
+    "esdf_mode": EsdfMode,
+    "weighting_mode": WeightingFunctionType,
+    "workspace_bounds_type": WorkspaceBoundsType,
+}
+
+
+def _parse_enum(cls, value, default):
+    if isinstance(value, cls):
+        return value
+    try:
+        return cls(value)
+    except ValueError:
+        log.warning("Unknown %s value %r; using default %r",
+                    cls.__name__, value, default)
+        return default
+
+
+def apply_overlay(params: Any, overlay: Mapping[str, Any]) -> Any:
+    """Apply a nested/dotted dict overlay to a (possibly frozen) dataclass
+    tree, returning a new tree. Unknown keys warn and are ignored."""
+    updates: Dict[str, Any] = {}
+    for key, value in overlay.items():
+        head, _, rest = key.partition(".")
+        if not hasattr(params, head):
+            log.warning("Unknown parameter %r (on %s); ignored",
+                        key, type(params).__name__)
+            continue
+        # Merge successive overlays touching the same subtree (dotted and
+        # nested forms may both address one field).
+        current = updates.get(head, getattr(params, head))
+        if rest:
+            updates[head] = apply_overlay(current, {rest: value})
+        elif dataclasses.is_dataclass(current) and isinstance(value, Mapping):
+            updates[head] = apply_overlay(current, value)
+        elif head in _ENUM_FIELDS:
+            updates[head] = _parse_enum(_ENUM_FIELDS[head], value, current)
+        else:
+            updates[head] = value
+    return dataclasses.replace(params, **updates)
+
+
+def make_params(mode: Optional[str] = None,
+                overlay: Optional[Mapping[str, Any]] = None
+                ) -> MultiMapperParams:
+    """Build the parameter tree: defaults + mode overlay + user overlay."""
+    params = MultiMapperParams()
+    if mode is not None:
+        mode_overlay = MODE_OVERLAYS.get(mode)
+        if mode_overlay is None:
+            log.warning("Unknown mode %r; using defaults", mode)
+        else:
+            params = apply_overlay(params, mode_overlay)
+    if overlay:
+        params = apply_overlay(params, overlay)
+    return params
+
+
 def projective_layer_type(mapping_type: MappingType) -> ProjectiveLayerType:
     """Which projective layer the static mapper keeps: occupancy in the
     two occupancy mapping types, a TSDF otherwise."""
@@ -124,3 +203,19 @@ def mesh_accuracy_params(max_integration_distance_m: float = 7.0
             weighting_mode=(WeightingFunctionType
                             .INVERSE_SQUARE_TSDF_DISTANCE_PENALTY)),
         mesh=MeshIntegratorParams(min_weight=0.02))
+
+
+def param_tree_string(params: Any, indent: int = 0) -> str:
+    """Pretty-print the parameter tree (parity:
+    parameters::parameterTreeToString, nvblox_node.cpp:119-124)."""
+    lines = []
+    pad = "  " * indent
+    for f in dataclasses.fields(params):
+        v = getattr(params, f.name)
+        if dataclasses.is_dataclass(v) and not isinstance(v, type):
+            lines.append(f"{pad}{f.name}:")
+            lines.append(param_tree_string(v, indent + 1))
+        else:
+            v_str = v.value if isinstance(v, enum.Enum) else v
+            lines.append(f"{pad}{f.name}: {v_str}")
+    return "\n".join(lines)

@@ -14,7 +14,8 @@ benchmark's accuracy configuration instead (a few minutes on the CPU);
 with `--occupancy` and `--lidar` the reference's own figures for
 chip_smoke.py's occupancy and lidar paths (its XLA integrators; the
 sources of those paths' limits); with `--dynamics` its figures for the
-scored part of chip_smoke.py's `dynamic_frames` phase.
+scored part of chip_smoke.py's `dynamic_frames` phase; with `--node` its
+node's figures for chip_smoke.py's `node_ticks` phase.
 """
 
 import json
@@ -471,6 +472,107 @@ def dynamics_reference():
     return out
 
 
+# chip_smoke.py's node_ticks run: a tick every 10 ms for 1.6 s, the
+# orbit's depth and color at 40 Hz, an 1800 x 16 scan every 100 ms while
+# the lidar moves (`node_lidar_pose`), poses at 100 Hz, lookups snapped to
+# a pose only within 1 ms.
+NODE_TICKS, NODE_TICK_MS, NODE_FRAME_MS, NODE_SCAN_MS = 161, 10, 25, 100
+
+
+def node_lidar_pose(t_s):
+    """chip_smoke.py's `node_lidar_pose`."""
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = (-0.4 + 0.5 * t_s, -1.5, 2.2)
+    return T
+
+
+def _jax_node_scan(scene, lidar, stamp_s, num_steps=96):
+    """chip_smoke.py's `node_scan` in the reference's own terms."""
+    dirs = jnp.asarray(lidar_rays(lidar))
+    A = lidar.num_azimuth_divisions
+    rel = np.tile(np.arange(A) * (NODE_SCAN_MS / 1e3 / A),
+                  lidar.num_elevation_divisions)
+    origins = jnp.asarray(np.tile(np.stack(
+        [node_lidar_pose(stamp_s + r)[:3, 3] for r in rel[:A]]),
+        (lidar.num_elevation_divisions, 1)))
+    t = jnp.full((dirs.shape[0],), 1e-3, jnp.float32)
+    for _ in range(num_steps):
+        d = scene.sdf(dirs * t[:, None] + origins)
+        t = jnp.minimum(t + jnp.where(d > 1e-4, d, 0.0),
+                        2.0 * lidar.max_valid_range_m)
+    hit = ((scene.sdf(dirs * t[:, None] + origins) < 1e-3)
+           & (t < lidar.max_valid_range_m))
+    return np.asarray(jnp.where(hit[:, None], dirs * t[:, None], 0.0)), rel
+
+
+def node_reference():
+    """The reference's CPU run of chip_smoke.py's node_ticks phase: its
+    `NvbloxNode` with the node's and the mapper's defaults on the bench
+    world, the same frames (rendered by the reference), scans, poses and
+    clock. Only the 2-D slice is subscribed: the mesh and layer publishes
+    change no map."""
+    from isaac_ros_nvblox_tpu.mapper.params import MultiMapperParams
+    from isaac_ros_nvblox_tpu.runtime.node import NodeParams, NvbloxNode
+    from isaac_ros_nvblox_tpu.utils.timing import Timing
+    jcam = jc.Camera(**ARGS)
+    poses, depths = _frames(jcam)
+    colors = [np.array(js.render_color(SCENE, jcam, jnp.asarray(T)))
+              for T in poses]
+    node = NvbloxNode(NodeParams(), MultiMapperParams(),
+                      world=jwg.WorldGridConfig(**WORLD))
+    node.transformer.timestamp_tolerance_s = 0.001
+    clock = [0.0]
+    node.clock = lambda: clock[0]
+    slices = []
+    node.bus.subscribe("~/static_map_slice", slices.append)
+    n_scans = (NODE_TICKS - 1) * NODE_TICK_MS // NODE_SCAN_MS
+    scans = [_jax_node_scan(SCENE, node.lidar, m * NODE_SCAN_MS / 1e3)
+             for m in range(n_scans)]
+    Timing.reset()
+    next_frame = 0
+    for i in range(NODE_TICKS):
+        ms = i * NODE_TICK_MS
+        now = ms / 1e3
+        node.add_pose("cam", now, js.orbit_pose(
+            2 * np.pi * (ms / NODE_FRAME_MS) / 16, radius=1.5))
+        node.add_pose("lidar", now, node_lidar_pose(now))
+        node.add_pose("base_link", now, node_lidar_pose(now))
+        while next_frame < 64 and next_frame * NODE_FRAME_MS <= ms:
+            k = next_frame
+            stamp = k * NODE_FRAME_MS / 1e3
+            node.add_depth_image(depths[k % 16], jcam, "cam", stamp)
+            node.add_color_image(colors[k % 16], jcam, "cam", stamp)
+            next_frame += 1
+        if ms >= NODE_SCAN_MS and ms % NODE_SCAN_MS == 0:
+            m = ms // NODE_SCAN_MS - 1
+            node.add_pointcloud(scans[m][0], "lidar", m * NODE_SCAN_MS / 1e3,
+                                timestamps_s=scans[m][1])
+        clock[0] = now
+        node.tick()
+    m = node.multi_mapper.static_mapper
+    n = int(m.state.alloc_count)
+    bidx = np.asarray(m.state.block_index_of_slot)[:n]
+    gt = np.asarray(SCENE.sdf(voxel_centers_for_blocks(jnp.asarray(bidx),
+                                                       VOXEL)))
+    d = np.asarray(m.channels["tsdf_distance"])[:n]
+    w = np.asarray(m.channels["tsdf_weight"])[:n]
+    near = (np.abs(gt) < 0.1) & (w > 0.5)
+    last = slices[-1]
+    return {"tsdf_mae_m": float(np.mean(np.abs(d[near] - gt[near]))),
+            "tsdf_voxels_scored": int(near.sum()),
+            "allocated_blocks": m.block_count(),
+            "overflow_count": int(m.state.overflow_count),
+            "depth_frames_integrated":
+                Timing.get("node/depth/integrate").count,
+            "color_frames_integrated":
+                Timing.get("node/color/integrate").count,
+            "scans_integrated": Timing.get("node/lidar/integrate").count,
+            "slices_published": len(slices),
+            "last_slice_shape": [int(last.height), int(last.width)],
+            "last_slice_known_cells": int(
+                (np.asarray(last.data) != last.unknown_value).sum())}
+
+
 def main():
     import sys
     for flag, fn, config in (
@@ -484,7 +586,12 @@ def main():
             ("--lidar", lidar_reference,
              "chip_smoke lidar path: cluttered two-room scene, 64 scans of "
              "an 1800x16 30-degree lidar (beams a quarter row off the row "
-             "boundaries), 0.05 m, 7 m")):
+             "boundaries), 0.05 m, 7 m"),
+            ("--node", node_reference,
+             "chip_smoke node_ticks: NvbloxNode defaults (static tsdf, "
+             "esdf 2d, 16384 slots) on the bench world and room; 161 ticks "
+             "10 ms apart; 64 640x480 depth + color frames at 40 Hz, 16 "
+             "moving 1800x16 scans at 10 Hz, poses at 100 Hz")):
         if flag in sys.argv:
             print(json.dumps({"config": config,
                               "backend": jax.default_backend(),

@@ -1370,3 +1370,133 @@ def test_publish_slice_cuda_equals_cpu(dev):
             np.testing.assert_array_equal(getattr(blk, f),
                                           getattr(lb.blocks[key], f))
     assert len(la.blocks) > 50
+
+
+# ------------------------------------------------------------ runtime node
+NODE_TOPICS = ("~/static_map_slice", "~/pessimistic_static_map_slice",
+               "~/map_slice_occupancy_grid", "~/mesh", "~/tsdf_layer",
+               "~/color_layer", "~/esdf_layer", "~/back_projected_depth")
+
+
+def _node(d, msgs=None):
+    """A default node (static TSDF, K2D) on device `d` with a 4096-slot
+    world and a simulated clock; `msgs` collects every topic."""
+    from isaac_ros_nvblox_tpu_torch.runtime.node import NodeParams, NvbloxNode
+    node = NvbloxNode(NodeParams(), MultiMapperParams(block_capacity=4096),
+                      world=wg.WorldGridConfig(dims=(48, 48, 24),
+                                               capacity=4096,
+                                               origin_block=(-24, -24, -6)),
+                      device=d)
+    clock = [0.0]
+    node.clock = lambda: clock[0]
+    for topic in (NODE_TOPICS if msgs is not None else ()):
+        msgs[topic] = []
+        node.bus.subscribe(topic, msgs[topic].append)
+    return node, clock
+
+
+def _assert_msgs_equal(a, b, path="msg"):
+    """Messages equal field by field: arrays bit for bit, block lists by
+    block index."""
+    if dataclasses.is_dataclass(a):
+        assert type(a) is type(b), path
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if f.name == "blocks":
+                x = {(k.index.x, k.index.y, k.index.z): k for k in x}
+                y = {(k.index.x, k.index.y, k.index.z): k for k in y}
+            _assert_msgs_equal(x, y, f"{path}.{f.name}")
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and a.shape == b.shape, path
+        np.testing.assert_array_equal(a, b, err_msg=path)
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            _assert_msgs_equal(a[k], b[k], f"{path}[{k}]")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_msgs_equal(x, y, f"{path}[{i}]")
+    else:
+        assert not isinstance(a, torch.Tensor), path
+        assert a == b, path
+
+
+def test_node_cuda_equals_cpu(dev):
+    """The node's ticks on the card equal the plain path on the CPU: the
+    same frames, poses, lidar scan and clock give every topic the same
+    messages (numpy on both), bit for bit."""
+    scene = default_test_scene()
+    poses = [orbit_pose(2 * np.pi * k / 16) for k in range(9)]
+    depths = [render_depth(scene, CAM, T, device="cpu").numpy()
+              for T in poses]
+    colors = [render_color(scene, CAM, T, device="cpu").numpy()
+              for T in poses]
+    lidar = Lidar.equal_vertical_fov(1800, 16, float(np.radians(30.0)),
+                                     min_range_m=0.1)
+    T_l = np.eye(4, dtype=np.float32)
+    T_l[:3, 3] = (0.3, -0.2, 1.2)
+    # A ring of returns a quarter row below a row boundary (where the last
+    # bit of atan2, which differs between the card and the CPU, would pick
+    # the row).
+    el = lidar.max_angle_above_zero_elevation_rad - 4.25 * (
+        lidar.elevation_range_rad / 15)
+    az = (np.arange(1800) + 0.5) / 1800 * 2 * np.pi - np.pi
+    ring = (1.5 * np.stack([np.cos(el) * np.cos(az),
+                            np.cos(el) * np.sin(az),
+                            np.full_like(az, np.sin(el))], 1)).astype(
+        np.float32)
+    runs = []
+    for d in ("cpu", dev):
+        msgs = {}
+        node, clock = _node(d, msgs)
+        for i in range(40):
+            now = i / 100.0
+            k = min(i // 5, len(poses) - 1)
+            node.add_pose("cam", now, poses[k])
+            node.add_pose("lidar", now, T_l)
+            node.add_pose("base_link", now, T_l)
+            if i % 5 == 0:
+                node.add_depth_image(depths[k], CAM, "cam", now)
+                node.add_color_image(colors[k], CAM, "cam", now)
+            if i == 17:
+                node.add_pointcloud(ring, "lidar", now)
+            clock[0] = now
+            node.tick()
+        runs.append(msgs)
+    a, b = runs
+    for topic in NODE_TOPICS:
+        assert a[topic], topic
+        _assert_msgs_equal(a[topic], b[topic], topic)
+    assert sum(len(m.blocks) for m in a["~/mesh"]) > 20
+
+
+def test_node_depth_tick_makes_no_host_sync(dev):
+    """A tick that integrates a depth frame (a CUDA tensor, with a host
+    pose) and publishes nothing never waits on the device: neither the
+    fused 2-D ESDF tick nor a plain one."""
+    scene = default_test_scene()
+    node, clock = _node(dev)
+    poses = [orbit_pose(2 * np.pi * k / 8) for k in range(8)]
+    depths = [render_depth(scene, CAM, T, device=dev) for T in poses]
+    node.add_pose("cam", 0.0, poses[0])
+    node.add_depth_image(depths[0], CAM, "cam", 0.0)
+    node.tick()                       # warm-up: kernel loads
+    torch.cuda.synchronize()
+    fused = []
+    fuse = node.multi_mapper.integrate_depth_with_esdf2d
+    node.multi_mapper.integrate_depth_with_esdf2d = \
+        lambda *a: fused.append(fuse(*a)) or fused[-1]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k in range(1, 8):
+            now = 0.05 * k
+            node.add_pose("cam", now, poses[k])
+            node.add_depth_image(depths[k], CAM, "cam", now)
+            clock[0] = now
+            node.tick()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert fused and all(fused) and len(fused) < 7
+    assert node.multi_mapper.static_mapper.block_count() > 0

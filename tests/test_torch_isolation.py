@@ -45,6 +45,7 @@ from isaac_ros_nvblox_tpu_torch.ops.detect import detect_dynamic_plain
 from isaac_ros_nvblox_tpu_torch.ops.detect_cuda import detect_dynamic
 from isaac_ros_nvblox_tpu_torch.ops.halo import (dilate_dense_grid,
                                                  dilate_dense_grid_plain)
+from isaac_ros_nvblox_tpu_torch.runtime.node import NvbloxNode
 
 torch.set_num_threads(1)
 
@@ -84,6 +85,13 @@ def test_modules_import_without_jax():
     assert {pkg + m for m in (
         "ops.esdf_slicer", "ops.dense_grid", "mapper.device_io", "io.ply",
         "io.occupancy_grid_io", "native.__init__")} <= set(MODULES)
+    # And the runtime slice's.
+    assert {pkg + m for m in (
+        "utils.timing", "runtime.msgs", "runtime.queues",
+        "runtime.transformer", "runtime.layer_streaming", "runtime.costmap",
+        "runtime.adapters", "runtime.visualization",
+        "runtime.sensor_helpers", "runtime.node",
+        "runtime.config_loader")} <= set(MODULES)
 
 
 def test_sources_name_no_jax():
@@ -100,6 +108,7 @@ def test_entry_points_default_to_cuda():
     cam = Camera(fx=50.0, fy=50.0, cx=15.5, cy=11.5, width=32, height=24)
     if torch.cuda.is_available():
         assert DeviceMapper(0.05).device.type == "cuda"
+        assert NvbloxNode().device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         DeviceMapper(0.05)
@@ -107,6 +116,9 @@ def test_entry_points_default_to_cuda():
         MultiMapper(MultiMapperParams(block_capacity=64))
     with pytest.raises(RuntimeError, match="CUDA"):
         render_depth(default_test_scene(), cam, np.eye(4, dtype=np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NvbloxNode()
+    assert NvbloxNode(device="cpu").multi_mapper.device.type == "cpu"
     assert DeviceMapper(0.05, device="cpu").device.type == "cpu"
     mm = MultiMapper(MultiMapperParams(mapping_type=MappingType.DYNAMIC,
                                        block_capacity=64),
