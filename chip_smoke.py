@@ -58,6 +58,21 @@ voxels, a 64x64x32-block world with 16384 pool slots.
     get_esdf_and_gradients, save_ply, shutdown) and a dynamic-mode node
     on the 8 intruder frames, its two slices combined (kernels
     detect_dynamic, occupancy_fuse, dilate_dense). Launch counts `node`.
+  * fuser: the offline fuser at the width of the dataset users replay,
+    Replica's default 1200 x 680 camera: (a) 64 frames of the bench room
+    rendered by `SyntheticDataLoader` through `Fuser(FuserConfig())` on
+    the card (kernels tsdf_fuse and color_fuse every frame, edt_pass1 /
+    edt_pass and marching_cubes every 4th frame and at the end), timed,
+    traced and scored against the reference's CPU run
+    (`tests/test_torch_accuracy.py --fuser`) and the mesh against the
+    analytic surface; (b) its first 4 frames on the CPU (plain versions)
+    and on the card, every map array and mesh block equal; (c) 16 frames
+    written as Replica files (PNG depth with zlib, JPEG color through the
+    host's codec) and read back exactly, their TSDF equal to a fuse of the
+    quantized depth, orbit poses and camera from memory; (d) the host-table
+    `Mapper` backend on those files, the device backend's blocks and
+    TSDF; (e) the example pipeline for 4 frames, every artifact written.
+    Launch counts `fuser`.
 
 It builds every CUDA kernel from `isaac_ros_nvblox_tpu_torch/csrc/`, checks
 that each path went through its kernels (launch counts set to 0 just before
@@ -2164,6 +2179,340 @@ def node_phase(dev, smi, camera, scene, voxel, world, depths, intr):
     torch.cuda.empty_cache()
 
 
+# ---- the offline fuser ---------------------------------------------------
+# Replica's default camera (datasets/replica.py, the vMAP export nvblox's
+# replica loader reads) and the frames of the timed fuser run.
+REPLICA_CAMERA = dict(fx=600.0, fy=600.0, cx=599.5, cy=339.5, width=1200,
+                      height=680)
+FUSER_FRAMES = 64
+FUSER_CPU_FRAMES = 4
+REPLICA_FILES = 16
+# The reference's figures for (a) (its XLA TSDF path and numpy EDT on the
+# CPU: `tests/test_torch_accuracy.py --fuser`). The map's ESDF is held to
+# them; `esdf_split` (map_errors) shows where its error lies.
+FUSER_REF = {"allocated_blocks": 3079, "tsdf_mae_m": 0.021876488,
+             "esdf_mae_m": 0.105891190}
+
+
+def mesh_surface_errors(mesh_layer, scene):
+    """(mean, p90) |SDF| of the mesh vertices against the analytic scene
+    (tests/test_dataset_replay.py:51-86)."""
+    import torch
+    v, _, _ = mesh_layer.as_arrays()
+    sdf = np.abs(scene.sdf(torch.from_numpy(v)).numpy())
+    return float(sdf.mean()), float(np.percentile(sdf, 90))
+
+
+def map_errors(m, scene, voxel, rows=None):
+    """`tsdf_mae_m` and `esdf_mae_m` (PERF.md §2) of a DeviceMapper, or of
+    a host-table Mapper's `rows` (its allocated slots), and the ESDF error
+    split: its median and p90, its mean over the scored voxels a ray
+    passed (TSDF weight > 0) and over the others, and the mean parts where
+    the map's distance is too long (a nearer surface never seen) and too
+    short."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch.core.types import voxel_centers_for_blocks
+    from isaac_ros_nvblox_tpu_torch.ops import esdf as esdf_ops
+    if rows is None:
+        n = m.block_count()
+        bidx = m.state.block_index_of_slot[:n]
+        ch = {k: v[:n] for k, v in m.channels.items()}
+    else:
+        bidx = torch.as_tensor(m.table.block_indices[rows], device=m.device)
+        s = torch.as_tensor(rows.astype(np.int64), device=m.device)
+        ch = {k: v[s] for k, v in m.pool.channels.items()}
+    gt = scene.sdf(voxel_centers_for_blocks(bidx, voxel))
+    near = (gt.abs() < 0.1) & (ch["tsdf_weight"] > 0.5)
+    tsdf_mae = float((ch["tsdf_distance"] - gt).abs()[near].mean())
+    sq = ch["esdf_sq_dist"]
+    est = torch.clamp_max(torch.sqrt(torch.clamp_max(sq, esdf_ops.INF_SQ))
+                          * voxel, 2.0)
+    est = torch.where(ch["esdf_is_inside"], -est, est)
+    emask = (gt > 3 * voxel) & (gt < 1.0) & (sq < 1e11)
+    err = (est - gt)[emask]
+    seen = (ch["tsdf_weight"] > 0)[emask]
+    q = torch.quantile(err.abs().double(), torch.tensor(
+        [0.5, 0.9], dtype=torch.float64, device=err.device))
+    split = {"median_m": float(q[0]), "p90_m": float(q[1]),
+             "voxels": int(err.numel()),
+             "observed_mae_m": float(err[seen].abs().mean()),
+             "observed_voxels": int(seen.sum()),
+             "unobserved_mae_m": float(err[~seen].abs().mean()),
+             "too_long_m": float(err.clamp_min(0).mean()),
+             "too_short_m": float((-err).clamp_min(0).mean())}
+    return tsdf_mae, float(err.abs().mean()), split
+
+
+def _tsdf_by_block(m):
+    """A DeviceMapper's TSDF distance and weight rows by block index."""
+    n = m.block_count()
+    keys = [tuple(k) for k in m.state.block_index_of_slot[:n].tolist()]
+    rows = np.concatenate([m.channels[k][:n].cpu().numpy()
+                           for k in ("tsdf_distance", "tsdf_weight")], 1)
+    return dict(zip(keys, rows))
+
+
+def fuser_phase(dev, smi, scene, voxel):
+    """The offline fuser at Replica's width (launch counts `fuser`):
+    (a) 64 frames of Replica's default camera orbiting the bench's room,
+    rendered by `SyntheticDataLoader`, through `Fuser(FuserConfig())` on
+    the card (the reference's defaults: 0.05 m voxels, 16384 slots, color
+    every frame, ESDF and mesh every 4th and at the end), timed, traced and
+    scored; (b) its first 4 frames fused on the CPU (plain versions) and on
+    the card, equal; (c) 16 frames of the orbit written as a Replica
+    sequence, read back exactly and fused; (d) the host-table backend on
+    those files; (e) the example pipeline for 4 frames."""
+    import tempfile
+    from pathlib import Path
+    import torch
+    from isaac_ros_nvblox_tpu_torch import kernels
+    from isaac_ros_nvblox_tpu_torch.datasets.base import Frame
+    from isaac_ros_nvblox_tpu_torch.datasets.fuser import Fuser, FuserConfig
+    from isaac_ros_nvblox_tpu_torch.datasets.replica import ReplicaDataLoader
+    from isaac_ros_nvblox_tpu_torch.datasets.replica_writer import (
+        DEPTH_SCALE, quantize_depth, write_replica_sequence)
+    from isaac_ros_nvblox_tpu_torch.datasets.synthetic import (
+        SyntheticDataLoader)
+    from isaac_ros_nvblox_tpu_torch.examples import run_pipeline
+    from isaac_ros_nvblox_tpu_torch.io import image_codec
+    from isaac_ros_nvblox_tpu_torch.models.camera import Camera
+    from isaac_ros_nvblox_tpu_torch.models.scene import (orbit_pose,
+                                                         render_depth)
+    from isaac_ros_nvblox_tpu_torch.utils.timing import Timing
+
+    camera = Camera(**REPLICA_CAMERA)
+    codec = image_codec.jpeg_codec()
+    emit({"phase": "fuser", "part": "codec", "jpeg_codec": codec})
+
+    # (a) the timed, scored run.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = list(SyntheticDataLoader(num_frames=FUSER_FRAMES, scene=scene,
+                                      camera=camera, device=dev))
+    load_ms = (time.perf_counter() - t0) * 1e3 / FUSER_FRAMES
+    if len(frames) != FUSER_FRAMES or frames[0].depth.shape != (
+            camera.height, camera.width):
+        fail(f"SyntheticDataLoader did not give {FUSER_FRAMES} frames of "
+             f"{camera.width}x{camera.height}")
+    Timing.reset()
+
+    def run():
+        f = Fuser(frames, FuserConfig(), device=dev)
+        f.run()
+        return f
+
+    # Two runs (the second traced): the span means cover both.
+    fuser, launches, figures = timed_run(run, FUSER_FRAMES)
+    PATH_LAUNCHES["fuser"] = launches
+    spans = {k: Timing.get(k) for k in ("fuser/depth", "fuser/color",
+                                        "fuser/esdf", "fuser/mesh")}
+    m = fuser.mapper
+    n_updates = -(-FUSER_FRAMES // 4) + 1
+    want = {"tsdf_fuse": FUSER_FRAMES, "color_fuse": FUSER_FRAMES,
+            "edt_pass1": n_updates, "edt_pass": 2 * n_updates,
+            "marching_cubes": n_updates}
+    n_blocks = m.block_count()
+    v, c, tri = m.mesh_layer.as_arrays()
+    tsdf_mae, esdf_mae, esdf_split = map_errors(m, scene, voxel)
+    surf_mae, surf_p90 = mesh_surface_errors(m.mesh_layer, scene)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        fuser.output_mesh_ply(Path(tmp) / "mesh.ply")
+        ply_bytes = (Path(tmp) / "mesh.ply").stat().st_size
+    dtoh = [r for r in figures["top_per_step"] if "DtoH" in r["name"]]
+    row = {"phase": "fuser", "part": "timed", "frames": FUSER_FRAMES,
+           "camera": REPLICA_CAMERA, "loader_ms_per_frame": load_ms,
+           **figures,
+           "dtoh_ms_per_frame": sum(r["ms_per_frame"] for r in dtoh),
+           "spans_ms": {k: {"count": st.count, "mean_ms": st.mean * 1e3,
+                                 "max_ms": st.max * 1e3}
+                        for k, st in spans.items()},
+           "launches": launches, "want_launches": want,
+           "allocated_blocks": n_blocks,
+           "overflow_count": int(m.state.overflow_count),
+           "mesh_vertices": int(v.shape[0]), "mesh_triangles": int(tri.shape[0]),
+           "tsdf_mae_m": tsdf_mae, "esdf_mae_m": esdf_mae,
+           "esdf_split": esdf_split,
+           "mesh_surface_mae_m": surf_mae, "mesh_surface_p90_m": surf_p90,
+           "output_mesh_ply_bytes": ply_bytes,
+           "limits": {"tsdf_mae_m": TSDF_MAE_LIMIT_M,
+                      "esdf_mae_m": "reference within 1%",
+                      "esdf_median_m": voxel,
+                      "mesh_surface_mae_m": voxel,
+                      "mesh_surface_p90_m": 2 * voxel},
+           "reference": FUSER_REF, "nvidia_smi": smi}
+    emit(row)
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"fuser launched {name} {launches[name]} times, not {n}")
+    others = {k: n for k, n in launches.items() if k not in want and n}
+    if others:
+        fail(f"fuser launched kernels off its path: {others}")
+    if row["overflow_count"] or n_blocks < 1000 or tri.shape[0] < 10000:
+        fail(f"fuser map too small or overflowed: {n_blocks} blocks, "
+             f"{tri.shape[0]} triangles")
+    if not (np.isfinite([tsdf_mae, esdf_mae, surf_mae]).all()
+            and tsdf_mae <= TSDF_MAE_LIMIT_M
+            and esdf_split["median_m"] < voxel
+            and surf_mae < voxel and surf_p90 < 2 * voxel):
+        fail(f"fuser map outside its limits: {row}")
+    # The map against the reference's CPU run: the same blocks, the scores
+    # within 1%.
+    if n_blocks != FUSER_REF["allocated_blocks"] or any(
+            abs(x - FUSER_REF[k]) > 0.01 * FUSER_REF[k]
+            for k, x in (("tsdf_mae_m", tsdf_mae), ("esdf_mae_m", esdf_mae))):
+        fail(f"fuser map differs from the reference's CPU run: {row}")
+    if ply_bytes < 1000 or c.max() <= 10:
+        fail("fuser wrote no colored mesh")
+    del fuser, m
+    torch.cuda.empty_cache()
+
+    # (b) the card against the port's CPU run (plain versions).
+    head = frames[:FUSER_CPU_FRAMES]
+    maps, secs = [], []
+    for d in ("cpu", dev):
+        t0 = time.perf_counter()
+        f = Fuser(head, FuserConfig(), device=d)
+        f.run()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        maps.append(f.mapper)
+    a, b = (mm.state_arrays() for mm in maps)
+    differ = sorted(k for k in a if not np.array_equal(a[k], b[k]))
+    # The mesh layers block for block: the same keys, and equal vertices,
+    # colors and triangles in each.
+    la, lb = (mm.mesh_layer.blocks for mm in maps)
+    mesh_differ = sorted(
+        str(k) for k in la.keys() | lb.keys()
+        if k not in la or k not in lb or not all(
+            np.array_equal(getattr(la[k], f), getattr(lb[k], f))
+            for f in ("vertices", "colors", "triangles")))
+    tri_counts = [mm.mesh_layer.as_arrays()[2].shape[0] for mm in maps]
+    row = {"phase": "fuser", "part": "card_vs_cpu",
+           "frames": FUSER_CPU_FRAMES, "blocks": [mm.block_count()
+                                                  for mm in maps],
+           "mesh_blocks": [len(la), len(lb)], "triangles": tri_counts,
+           "arrays_differ": differ, "mesh_blocks_differ": mesh_differ[:8],
+           "seconds_cpu_card": secs}
+    emit(row)
+    if differ or mesh_differ or tri_counts[0] == 0:
+        fail(f"fuser on the card differs from its CPU run: {row}")
+    del maps, a, b
+    torch.cuda.empty_cache()
+
+    # (c) Replica files: 16 frames of the same orbit, written and read.
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        root = Path(tmp) / "replica"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        write_replica_sequence(root, scene, camera, n_frames=REPLICA_FILES,
+                               orbit_radius=2.0, orbit_height=1.5,
+                               target=(0.0, 0.0, 1.0),
+                               with_color=codec is not None, device=dev)
+        write_ms = (time.perf_counter() - t0) * 1e3 / REPLICA_FILES
+        poses = [orbit_pose(2 * np.pi * i / REPLICA_FILES, radius=2.0,
+                            height=1.5, target=(0.0, 0.0, 1.0))
+                 for i in range(REPLICA_FILES)]
+        q = [quantize_depth(render_depth(scene, camera, pose, device=dev)
+                            .cpu().numpy()) for pose in poses]
+        pngs = [(root / "results" / f"depth{i:06d}.png").read_bytes()
+                for i in range(REPLICA_FILES)]
+        t0 = time.perf_counter()
+        decoded = [image_codec.decode_png(b) for b in pngs]
+        png_ms = (time.perf_counter() - t0) * 1e3 / REPLICA_FILES
+        read = list(ReplicaDataLoader(root))
+        exact = (len(read) == REPLICA_FILES
+                 and all(np.array_equal(d, w) for d, w in zip(decoded, q))
+                 and all(np.array_equal(f.depth, w.astype(np.float32)
+                                        / DEPTH_SCALE)
+                         for f, w in zip(read, q)))
+        with_color = all(f.color is not None for f in read)
+
+        def fuse_files(backend):
+            f = Fuser(ReplicaDataLoader(root), FuserConfig(),
+                      backend=backend, device=dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            f.run()
+            torch.cuda.synchronize()
+            return f.mapper, (time.perf_counter() - t) * 1e3 / REPLICA_FILES
+
+        dm, dev_ms = fuse_files("device")
+        # The same frames from memory: the writer's quantized depth, the
+        # orbit's poses and the camera, never through the files.
+        mem = Fuser([Frame(depth=w.astype(np.float32) / DEPTH_SCALE,
+                           T_L_C=np.asarray(pose, np.float32), camera=camera)
+                     for w, pose in zip(q, poses)],
+                    FuserConfig(), device=dev)
+        mem.run()
+        tsdf_files, tsdf_mem = (_tsdf_by_block(mm) for mm in (dm, mem.mapper))
+        keys_files, keys_mem = set(tsdf_files), set(tsdf_mem)
+        tsdf_equal = keys_files == keys_mem and all(
+            np.array_equal(tsdf_files[k], tsdf_mem[k]) for k in keys_files)
+        row = {"phase": "fuser", "part": "replica_files",
+               "frames": REPLICA_FILES, "jpeg_codec": codec,
+               "color": with_color, "write_ms_per_frame": write_ms,
+               "png_decode_ms_per_frame": png_ms, "depth_exact": exact,
+               "png_bytes_per_frame": float(np.mean([len(b) for b in pngs])),
+               "device_ms_per_frame_wall": dev_ms,
+               "blocks_files": len(keys_files), "blocks_memory": len(keys_mem),
+               "tsdf_files_equal_memory": tsdf_equal}
+        emit(row)
+        if not exact or not tsdf_equal or not keys_files:
+            fail(f"Replica files did not round-trip: {row}")
+        if with_color != (codec is not None):
+            fail(f"Replica colors with codec {codec}: {with_color}")
+        del mem, tsdf_files, tsdf_mem
+
+        # (d) the host-table backend on the same files.
+        hm, host_ms = fuse_files("host")
+        rows = hm.table.allocated_slots()
+        keys_host = {tuple(k) for k in hm.table.block_indices[rows].tolist()}
+        bi = dm.state.block_index_of_slot[:dm.block_count()].tolist()
+        slots = np.asarray([hm.table.slot_of(tuple(k)) for k in bi])
+        tsdf_diff = max(
+            float((dm.channels[k][:dm.block_count()]
+                   - hm.pool[k][torch.as_tensor(slots, device=dev)])
+                  .abs().max()) for k in ("tsdf_distance", "tsdf_weight"))
+        h_tsdf, h_esdf, _ = map_errors(hm, scene, voxel, rows)
+        d_tsdf, d_esdf, _ = map_errors(dm, scene, voxel)
+        row = {"phase": "fuser", "part": "host_backend",
+               "frames": REPLICA_FILES, "blocks": len(keys_host),
+               "blocks_device_backend": len(keys_files),
+               "ms_per_frame": host_ms, "device_backend_ms_per_frame": dev_ms,
+               "tsdf_mae_m": h_tsdf, "esdf_mae_m": h_esdf,
+               "device_backend_tsdf_mae_m": d_tsdf,
+               "device_backend_esdf_mae_m": d_esdf,
+               "tsdf_max_abs_diff_vs_device": tsdf_diff,
+               "mesh_triangles": int(hm.mesh_layer.as_arrays()[2].shape[0])}
+        emit(row)
+        if keys_host != keys_files or tsdf_diff > 1e-5 \
+                or row["mesh_triangles"] == 0:
+            fail(f"host backend differs from the device backend: {row}")
+        del hm, dm
+        torch.cuda.empty_cache()
+
+        # (e) the example pipeline, every artifact written.
+        out = Path(tmp) / "pipeline"
+        t0 = time.perf_counter()
+        node = run_pipeline.main(["--frames", "4", "--out", str(out),
+                                  "--device", str(dev)])
+        pipe_s = time.perf_counter() - t0
+        arts = {a: (out / a).stat().st_size if (out / a).exists() else 0
+                for a in ("mesh.ply", "tsdf.ply", "esdf.ply", "map.png",
+                          "map.yaml", "mesh.html")}
+        row = {"phase": "fuser", "part": "pipeline", "frames": 4,
+               "seconds": pipe_s, "artifact_bytes": arts,
+               "blocks": node.multi_mapper.static_mapper.block_count()}
+        emit(row)
+        if not all(arts.values()):
+            fail(f"the example pipeline left an artifact empty: {arts}")
+        del node
+    torch.cuda.empty_cache()
+
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2197,9 +2546,11 @@ def main() -> None:
     for name in kernels.SIGNATURES:
         kernels.library(name)
     build_s = time.perf_counter() - t0
-    # The host mesh library of the publish path (g++).
+    # The host libraries (g++): the publish path's mesh helpers and the
+    # dataset loaders' PNG unfilter.
     t0 = time.perf_counter()
     native.library()
+    native.png_library()
     emit({"phase": "gpu", "nvidia_smi": smi, "kind": kind,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "build_s_per_source": built,
@@ -2894,6 +3245,10 @@ def main() -> None:
     # ---- the online node: the runtime over the publish path --------------
     node_phase(dev, smi, camera, scene, voxel, world, depths, intr)
     del intr
+    torch.cuda.empty_cache()
+
+    # ---- the offline fuser and the host-table backend ---------------------
+    fuser_phase(dev, smi, scene, voxel)
 
     flush_checks()
     emit({"kernels": results})

@@ -1,5 +1,6 @@
 """PLY export of meshes and voxel layers (port of
-isaac_ros_nvblox_tpu/io/ply.py for the device mapper).
+isaac_ros_nvblox_tpu/io/ply.py, for the device mapper and the host-table
+Mapper).
 
 Reference: `io::outputColorMeshLayerToPly` / `io::outputVoxelLayerToPly`
 (nvblox/io/mesh_io.h; the save_ply service, nvblox_node.cpp:1612-1628).
@@ -117,4 +118,44 @@ def write_voxel_layer_ply_device(path, m, channel: str,
         vals = ch["freespace_high_confidence"].reshape(-1).astype(np.float32)
         mask = np.ones_like(vals, bool)
     write_pointcloud_ply(path, centers[mask], vals[mask].astype(np.float32))
+    return int(mask.sum())
+
+
+@torch.no_grad()
+def write_voxel_layer_ply(path, mapper, channel: str,
+                          min_weight: float = 1e-4) -> int:
+    """`write_voxel_layer_ply_device` for the host-table `Mapper` (a
+    BlockPool over a BlockTable): the channel at the voxel centres of its
+    allocated blocks, in slot order. Returns the number of points."""
+    from isaac_ros_nvblox_tpu_torch.ops.esdf import esdf_distance_m
+    table, pool = mapper.table, mapper.pool
+    slots = table.allocated_slots()
+    if slots.size == 0:
+        write_pointcloud_ply(path, np.zeros((0, 3), np.float32),
+                             np.zeros((0,), np.float32))
+        return 0
+    s = torch.as_tensor(slots.astype(np.int64), device=pool.device)
+    centers = voxel_centers_for_blocks(
+        torch.as_tensor(table.block_indices[slots]),
+        mapper.voxel_size_m).numpy().reshape(-1, 3)
+
+    def rows(t):
+        return t[s].cpu().numpy().reshape(-1)
+
+    if channel == "esdf":
+        vals = rows(esdf_distance_m(pool, mapper.voxel_size_m,
+                                    mapper.params.esdf.max_esdf_distance_m))
+        mask = rows(pool["esdf_observed"])
+    elif channel == "tsdf":
+        vals = rows(pool["tsdf_distance"])
+        mask = rows(pool["tsdf_weight"]) >= min_weight
+    elif channel == "occupancy":
+        vals = rows(pool["occupancy_log_odds"])
+        mask = rows(pool["occupancy_observed"]) > 0
+    elif channel == "freespace":
+        vals = rows(pool["freespace_high_confidence"]).astype(np.float32)
+        mask = np.ones_like(vals, bool)
+    else:
+        raise ValueError(f"unknown channel {channel!r}")
+    write_pointcloud_ply(path, centers[mask], vals[mask])
     return int(mask.sum())

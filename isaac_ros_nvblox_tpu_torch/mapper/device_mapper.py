@@ -1083,12 +1083,15 @@ class DeviceMapper:
             max_blocks=self.max_blocks_per_frame)
 
     def _image(self, image) -> torch.Tensor:
-        """A color image (or a stack of them) on the device, u8 kept u8."""
-        if not isinstance(image, torch.Tensor):
-            image = torch.from_numpy(np.ascontiguousarray(image))
-        if image.dtype != torch.uint8:
-            image = image.to(torch.float32)
-        return image.to(self.device)
+        """A color image (or a stack of them) on the device, u8 kept u8; a
+        host array goes through pinned memory, as `_tensor`'s do."""
+        if isinstance(image, torch.Tensor):
+            dtype = torch.uint8 if image.dtype == torch.uint8 \
+                else torch.float32
+            return image.to(device=self.device, dtype=dtype)
+        image = np.asarray(image)
+        return self._tensor(image, torch.uint8 if image.dtype == np.uint8
+                            else torch.float32)
 
     # ----------------------------------------------------------- region AABB
     def _world_bounds(self):

@@ -1,11 +1,12 @@
-"""ctypes binding of the port's host mesh library (`mesh_native.cc`), with
-the numpy versions of its entry points.
+"""ctypes bindings of the port's host libraries, `mesh_native.cc` (the
+mesh helpers) and `png_native.cc` (the PNG unfilter), with the numpy
+versions of their entry points.
 
-The library is compiled by `g++` on first use into
-`build/torch_native/libmesh_native-<hash>.so` under the repository root
-(the hash covers the source and the flags) and loaded with `ctypes`. A
-failed build raises: nothing falls back to the numpy versions, which stay
-here as the plain versions the tests hold the library against.
+Each library is compiled by `g++` on first use into
+`build/torch_native/lib<name>-<hash>.so` under the repository root (the
+hash covers the source and the flags) and loaded with `ctypes`. A failed
+build raises: nothing falls back to the numpy versions, which stay here as
+the plain versions the tests hold the libraries against.
 
   * `compact_mesh_blocks`: per-block CSR compaction of the device mesh
     soup (`f32[N, 3, K, V]` planes + mask) in v-major, then slot, order.
@@ -14,6 +15,7 @@ here as the plain versions the tests hold the library against.
     appearance, with the triangles as indices.
   * `write_mesh_ply`: a binary little-endian PLY, byte for byte what
     `io/ply.py::write_mesh_ply` writes.
+  * `png_unfilter`: undo the five PNG row filters of inflated scanlines.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "mesh_native.cc"
+PNG_SOURCE = SOURCE.with_name("png_native.cc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-Wall"]
 
@@ -44,51 +47,67 @@ SIGNATURES = {
     "write_mesh_ply": ([ctypes.c_char_p, _P, _P, _I64, _P, _I64,
                         ctypes.c_int], ctypes.c_int),
 }
+PNG_SIGNATURES = {"png_unfilter": ([_P, _I64, _I64, _I64, _P], _I64)}
 
 _lib: Optional[ctypes.CDLL] = None
+_png_lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes()
+def library_path(source: Path = SOURCE) -> Path:
+    h = hashlib.sha256(source.read_bytes()
                        + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libmesh_native-{h}.so"
+    return BUILD_DIR / f"lib{source.stem}-{h}.so"
 
 
-def build() -> Path:
-    """Compile `mesh_native.cc` unless it is built; raises with the
-    compiler's output if the build fails."""
-    out = library_path()
+def build(source: Path = SOURCE) -> Path:
+    """Compile `source` (a library of this directory) unless it is built;
+    raises with the compiler's output if the build fails."""
+    out = library_path(source)
     if out.exists():
         return out
+    name = source.stem
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("mesh_native: no C++ compiler (set CXX or put "
+        raise RuntimeError(f"{name}: no C++ compiler (set CXX or put "
                            "g++ on PATH)")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(source)],
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"mesh_native: {cxx} failed:\n{proc.stdout}"
+        raise RuntimeError(f"{name}: {cxx} failed:\n{proc.stdout}"
                            f"{proc.stderr}")
     os.replace(tmp, out)
     return out
 
 
+def _load(source: Path, signatures) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build(source)))
+    for fn, (argtypes, restype) in signatures.items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = restype
+    return lib
+
+
 def library() -> ctypes.CDLL:
-    """The loaded library, built on first use."""
+    """The loaded mesh library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for fn, (argtypes, restype) in SIGNATURES.items():
-                f = getattr(lib, fn)
-                f.argtypes = argtypes
-                f.restype = restype
-            _lib = lib
+            _lib = _load(SOURCE, SIGNATURES)
         return _lib
+
+
+def png_library() -> ctypes.CDLL:
+    """The loaded PNG library, built on first use."""
+    global _png_lib
+    with _lock:
+        if _png_lib is None:
+            _png_lib = _load(PNG_SOURCE, PNG_SIGNATURES)
+        return _png_lib
 
 
 def _ptr(a: np.ndarray) -> int:
@@ -177,7 +196,67 @@ def write_mesh_ply(path, verts: np.ndarray, colors: Optional[np.ndarray],
         raise OSError(f"mesh_native: writing {path} failed ({rc})")
 
 
+def png_unfilter(raw: bytes, height: int, row_bytes: int,
+                 bpp: int) -> np.ndarray:
+    """Undo the PNG row filters: `raw` holds `height` inflated scanlines of
+    one filter-type byte and `row_bytes` bytes each; `bpp` is the bytes
+    per pixel (at least 1). Returns u8[height, row_bytes]; raises on a
+    filter type outside 0-4."""
+    src = np.frombuffer(raw, np.uint8)
+    if src.size != height * (row_bytes + 1):
+        raise ValueError(f"PNG data holds {src.size} bytes, expected "
+                         f"{height * (row_bytes + 1)}")
+    out = np.empty((height, row_bytes), np.uint8)
+    bad = png_library().png_unfilter(_ptr(src), height, row_bytes, bpp,
+                                     _ptr(out))
+    if bad:
+        raise ValueError(f"PNG row {bad - 1} has an unknown filter type")
+    return out
+
+
 # ------------------------------------------------------------ plain versions
+
+def png_unfilter_plain(raw: bytes, height: int, row_bytes: int,
+                       bpp: int) -> np.ndarray:
+    """numpy version of `png_unfilter`: sub and up by whole rows, average
+    and Paeth one pixel column at a time (each byte depends on the one
+    decoded `bpp` to its left)."""
+    src = np.frombuffer(raw, np.uint8)
+    if src.size != height * (row_bytes + 1):
+        raise ValueError(f"PNG data holds {src.size} bytes, expected "
+                         f"{height * (row_bytes + 1)}")
+    rows = src.reshape(height, row_bytes + 1)
+    out = np.zeros((height, row_bytes), np.uint8)
+    prev = np.zeros(row_bytes, np.int32)
+    for y in range(height):
+        f, x = int(rows[y, 0]), rows[y, 1:].astype(np.int32)
+        if f == 0:
+            cur = x
+        elif f == 2:
+            cur = (x + prev) & 0xFF
+        elif f in (1, 3, 4):
+            cur = np.zeros(row_bytes, np.int32)
+            for i in range(0, row_bytes, bpp):
+                j = slice(i, i + bpp)
+                a = cur[i - bpp:i] if i >= bpp else 0
+                if f == 1:
+                    pred = a
+                elif f == 3:
+                    pred = (a + prev[j]) >> 1
+                else:
+                    b = prev[j]
+                    c = prev[i - bpp:i] if i >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+                    pred = np.where((pa <= pb) & (pa <= pc), a,
+                                    np.where(pb <= pc, b, c))
+                cur[j] = (x[j] + pred) & 0xFF
+        else:
+            raise ValueError(f"PNG row {y} has an unknown filter type")
+        out[y] = cur
+        prev = cur
+    return out
+
 
 def compact_triangles_plain(verts: np.ndarray, colors: np.ndarray,
                             valid: np.ndarray

@@ -1,5 +1,4 @@
-"""Projective color integrator (port of isaac_ros_nvblox_tpu/ops/color.py,
-planar form).
+"""Projective color integrator (port of isaac_ros_nvblox_tpu/ops/color.py).
 
 `integrate_color_planar` is the plain PyTorch version of the color fusion
 kernel (`ops/color_cuda.py`, `csrc/color_fuse.cu`): per voxel of a batch of
@@ -13,8 +12,14 @@ running average with the weight `compute_weight` gives at sdf = 0.
 ops/tsdf.py, then the same color step on the rows it has just written, with
 the depth frame itself as the occlusion test.
 
-Both mirror the reference's XLA path step for step, including its float32
-rounding (core/types.py).
+`integrate_color` is the packed form (`f32[cap, 512, 3]` colors) of the
+host-table Mapper: the same voxel test, blended by a division by the
+summed weight where the planar form multiplies by its reciprocal (the two
+differ in the last bit). The reference computes it outside any Pallas
+kernel; so does the port, on whatever device the pool lives.
+
+All three mirror the reference's XLA path step for step, including its
+float32 rounding (core/types.py).
 """
 
 from __future__ import annotations
@@ -117,3 +122,62 @@ def integrate_tsdf_color(distance, weight, color_r, color_g, color_b,
                 torch.ones((), dtype=torch.bool, device=depth.device),
                 camera=camera, voxel_size_m=voxel_size_m, params=params)
     return distance, weight, color_r, color_g, color_b, color_weight
+
+
+@torch.no_grad()
+def integrate_color(color_rgb, color_weight, tsdf_distance, tsdf_weight,
+                    slots, block_indices, color_image, depth, T_L_C, *,
+                    camera: Camera, voxel_size_m: float,
+                    params: TsdfIntegratorParams):
+    """Fuse one color frame into packed color channels, in place.
+
+    Args:
+      color_rgb: `f32[cap, 512, 3]` (0-255 scale); color_weight
+        `f32[cap, 512]`.
+      tsdf_distance, tsdf_weight: TSDF channels (read only).
+      slots: `i32[N]`; entries outside [0, cap) are padding.
+      block_indices: `i32[N, 3]`.
+      color_image: `u8/f32[H, W, 3]`.
+      depth: `f32[Hd, Wd]` occlusion depth, sampled at uv * Hd / H; an
+        all-zero image switches the occlusion test off.
+
+    Returns (color_rgb, color_weight), the same tensors.
+    """
+    cap = color_rgb.shape[0]
+    truncation = params.truncation_m(voxel_size_m)
+    centers_L = voxel_centers_for_blocks(block_indices, voxel_size_m)
+    p_C = Transform.apply(Transform.inverse(T_L_C), centers_L)
+    uv, in_view = camera.project(p_C)
+    z = p_C[..., 2]
+
+    rgb = sample_image_nearest(color_image.to(torch.float32), uv)  # [N,512,3]
+    safe = slots.clamp(0, cap - 1).long()
+    near_surface = ((tsdf_weight[safe] > 1e-6)
+                    & (torch.abs(tsdf_distance[safe]) <= truncation))
+    update = in_view & near_surface & (z <= params.max_integration_distance_m)
+
+    has_depth = torch.any(depth > 0.0)
+    scale = float(np.float32(depth.shape[0]) / np.float32(camera.height))
+    measured = sample_image_nearest(depth, uv * scale)
+    not_occluded = (~has_depth) | ((measured > 0.0)
+                                   & (z <= measured + truncation))
+    update = update & not_occluded & ((slots >= 0) & (slots < cap))[:, None]
+
+    w_new = compute_weight(params.weighting_mode, z, torch.zeros_like(z),
+                           truncation, dropoff_epsilon_m=voxel_size_m)
+    w_new = torch.where(update, w_new, torch.zeros_like(w_new))
+    c_old = color_rgb[safe]
+    w_old = color_weight[safe]
+    w_sum = w_old + w_new
+    # (c_old * w_old + rgb * w_new) / max(w_sum, 1e-6), contracted as XLA
+    # does.
+    c_fused = torch.where(
+        (w_sum > 1e-6)[..., None],
+        fma(c_old, w_old[..., None], rgb * w_new[..., None])
+        / torch.clamp_min(w_sum, 1e-6)[..., None],
+        c_old)
+    w_fused = torch.clamp_max(w_sum, params.max_weight)
+    set_rows_drop(color_rgb, slots,
+                  torch.where(update[..., None], c_fused, c_old))
+    set_rows_drop(color_weight, slots, torch.where(update, w_fused, w_old))
+    return color_rgb, color_weight

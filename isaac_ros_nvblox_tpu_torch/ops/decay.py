@@ -99,3 +99,18 @@ def decay_occupancy(log_odds, *, params: OccupancyDecayParams
     out = torch.where(log_odds > target, down,
                       torch.where(log_odds < target, up, log_odds))
     return out, torch.amax(torch.abs(out - target), dim=1)
+
+
+def deallocate_fully_decayed_blocks(pool, table, block_metric: np.ndarray,
+                                    threshold: float) -> int:
+    """Free the host-table blocks (`core/block_pool.py`) whose per-block
+    metric (host f32[cap]) fell below `threshold`; their rows return to
+    their fill values. Returns the count."""
+    slots = table.allocated_slots()
+    dead = slots[block_metric[slots] < threshold]
+    if dead.size == 0:
+        return 0
+    keys = [tuple(k) for k in table.block_indices[dead].tolist()]
+    table.free(keys)
+    pool.reset_slots(dead)
+    return int(dead.size)

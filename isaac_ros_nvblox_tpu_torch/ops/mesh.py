@@ -162,3 +162,38 @@ class MeshLayer:
             ts.append(mb.triangles + offset)
             offset += mb.vertices.shape[0]
         return np.concatenate(vs), np.concatenate(cs), np.concatenate(ts)
+
+
+def mesh_dirty_blocks(mesh_layer: MeshLayer, pool, table,
+                      dirty_slots: np.ndarray, *,
+                      color_channel: str = "color_rgb",
+                      chunk: int = 256) -> None:
+    """Marching cubes (`marching_cubes_blocks`, f32) over the host-table
+    slots `dirty_slots` (`core/block_pool.py`), in chunks of `chunk`
+    blocks; each block's soup goes to the mesh layer."""
+    if dirty_slots.size == 0:
+        return
+    tsdf_grid = pool.voxel_grid_view("tsdf_distance")
+    weight_grid = pool.voxel_grid_view("tsdf_weight")
+    if color_channel in pool.channels:
+        color_grid = pool.voxel_grid_view(color_channel)
+    else:
+        color_grid = torch.zeros((), device=tsdf_grid.device).expand(
+            tsdf_grid.shape + (3,))
+    dev = tsdf_grid.device
+    for start in range(0, dirty_slots.size, chunk):
+        sl = dirty_slots[start:start + chunk]
+        bidx = table.block_indices[sl]
+        verts, colors, valid = marching_cubes_blocks(
+            tsdf_grid, weight_grid, color_grid,
+            torch.as_tensor(table.neighbors[sl], device=dev),
+            torch.as_tensor(bidx, device=dev),
+            voxel_size_m=mesh_layer.voxel_size_m,
+            min_weight=float(mesh_layer.params.min_weight))
+        verts, colors, valid = (t.cpu().numpy()
+                                for t in (verts, colors, valid))
+        for i in range(sl.size):
+            m = valid[i].reshape(-1)
+            mesh_layer.update_block(tuple(bidx[i]),
+                                    verts[i].reshape(-1, 3, 3)[m],
+                                    colors[i].reshape(-1, 3, 3)[m])

@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -282,3 +282,35 @@ def frustum_block_aabb(T_L_C_np: np.ndarray, camera: Camera,
     lo = np.floor(corners.min(axis=0) / bs).astype(np.int64) - margin_blocks
     hi = np.floor(corners.max(axis=0) / bs).astype(np.int64) + margin_blocks
     return lo, hi
+
+
+def blocks_in_view(depth, T_L_C, *, camera: Camera, voxel_size_m: float,
+                   max_distance_m: float, truncation_m: float,
+                   params: Optional[ViewCalculatorParams] = None) -> np.ndarray:
+    """Block indices `i32[M, 3]` touched by this view, in grid order, read
+    back to the host (the host-table Mapper allocates them there)."""
+    params = params or ViewCalculatorParams()
+    grid, origin = touched_block_grid(
+        depth, T_L_C, camera=camera, voxel_size_m=voxel_size_m,
+        max_distance_m=max_distance_m, truncation_m=truncation_m)
+    idx = np.argwhere(grid.cpu().numpy()).astype(np.int32) \
+        + origin.cpu().numpy()
+    return apply_workspace_bounds(idx, voxel_size_m, params)
+
+
+def apply_workspace_bounds(block_indices: np.ndarray, voxel_size_m: float,
+                           params: ViewCalculatorParams) -> np.ndarray:
+    """Keep the block indices whose blocks intersect the workspace (blocks
+    outside it are never allocated)."""
+    if params.workspace_bounds_type == WorkspaceBoundsType.UNBOUNDED:
+        return block_indices
+    bs = block_size_m(voxel_size_m)
+    lo_m = np.asarray(params.workspace_bounds_min_corner_m, np.float64)
+    hi_m = np.asarray(params.workspace_bounds_max_corner_m, np.float64)
+    block_lo = block_indices.astype(np.float64) * bs
+    block_hi = block_lo + bs
+    if params.workspace_bounds_type == WorkspaceBoundsType.HEIGHT_BOUNDS:
+        keep = (block_hi[:, 2] > lo_m[2]) & (block_lo[:, 2] < hi_m[2])
+    else:
+        keep = np.all((block_hi > lo_m) & (block_lo < hi_m), axis=1)
+    return block_indices[keep]

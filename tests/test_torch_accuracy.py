@@ -15,7 +15,8 @@ with `--occupancy` and `--lidar` the reference's own figures for
 chip_smoke.py's occupancy and lidar paths (its XLA integrators; the
 sources of those paths' limits); with `--dynamics` its figures for the
 scored part of chip_smoke.py's `dynamic_frames` phase; with `--node` its
-node's figures for chip_smoke.py's `node_ticks` phase.
+node's figures for chip_smoke.py's `node_ticks` phase; with `--fuser` its
+figures for chip_smoke.py's `fuser` phase (a).
 """
 
 import json
@@ -573,6 +574,43 @@ def node_reference():
                 (np.asarray(last.data) != last.unknown_value).sum())}
 
 
+def fuser_reference():
+    """The reference's figures for chip_smoke.py's `fuser` phase (a):
+    `SyntheticDataLoader`'s 64-frame orbit (radius 2 m) of the bench room
+    at Replica's default camera (1200x680, fx = fy = 600) through the
+    fuser's world and defaults (7 m, 16384 slots). TSDF only (color does
+    not move it) through the XLA path, then the ESDF of the final map over
+    its allocated region with the numpy EDT (the fuser's incremental
+    updates solve the same field); blocks, `tsdf_mae_m`, `esdf_mae_m`."""
+    from isaac_ros_nvblox_tpu.datasets.synthetic import SyntheticDataLoader
+    cam = jc.Camera(fx=600.0, fy=600.0, cx=599.5, cy=339.5, width=1200,
+                    height=680)
+    world = dict(dims=(128, 128, 32), capacity=16384,
+                 origin_block=(-64, -64, -8))
+    jm = JMapper(VOXEL, world=jwg.WorldGridConfig(**world),
+                 enable_color=False, enable_esdf=False)
+    tm = tdm.DeviceMapper(VOXEL, world=twg.WorldGridConfig(**world),
+                          device="cpu")
+    for frame in SyntheticDataLoader(num_frames=64, scene=SCENE, camera=cam,
+                                     with_color=False):
+        jm.integrate_depth(jnp.asarray(frame.depth), jnp.asarray(frame.T_L_C),
+                           cam)
+        tm._touch_region(np.asarray(frame.T_L_C), tc.Camera(
+            fx=600.0, fy=600.0, cx=599.5, cy=339.5, width=1200, height=680))
+    n = jm.block_count()
+    bidx = np.asarray(jm.state.block_index_of_slot)
+    d_j = np.asarray(jm.channels["tsdf_distance"])
+    w_j = np.asarray(jm.channels["tsdf_weight"])
+    origin, dims = tm.esdf_region(margin_blocks=0, mult=1)
+    _, inside, ref_sq = _reference_esdf(d_j, w_j, bidx, n, origin, dims)
+    centers = np.asarray(voxel_centers_for_blocks(jnp.asarray(bidx[:n]),
+                                                  VOXEL))
+    tsdf_mae, esdf_mae = _scores(np.asarray(SCENE.sdf(centers)), d_j[:n],
+                                 w_j[:n], ref_sq[:n], inside[:n])
+    return {"allocated_blocks": int(n), "tsdf_mae_m": tsdf_mae,
+            "esdf_mae_m": esdf_mae}
+
+
 def main():
     import sys
     for flag, fn, config in (
@@ -587,6 +625,10 @@ def main():
              "chip_smoke lidar path: cluttered two-room scene, 64 scans of "
              "an 1800x16 30-degree lidar (beams a quarter row off the row "
              "boundaries), 0.05 m, 7 m"),
+            ("--fuser", fuser_reference,
+             "chip_smoke fuser phase (a): bench room, SyntheticDataLoader's "
+             "64-frame orbit at Replica's default 1200x680 camera, fuser "
+             "world 128x128x32 blocks, 16384 slots, 0.05 m, 7 m, band 40"),
             ("--node", node_reference,
              "chip_smoke node_ticks: NvbloxNode defaults (static tsdf, "
              "esdf 2d, 16384 slots) on the bench world and room; 161 ticks "

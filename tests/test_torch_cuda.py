@@ -1500,3 +1500,97 @@ def test_node_depth_tick_makes_no_host_sync(dev):
     torch.cuda.synchronize()
     assert fused and all(fused) and len(fused) < 7
     assert node.multi_mapper.static_mapper.block_count() > 0
+
+
+# ------------------------------------------------ the offline fuser slice
+def test_native_png_unfilter_on_the_card_host(dev):
+    """The host PNG library builds and equals its numpy version where the
+    card is; a Replica-size 16-bit depth PNG round-trips."""
+    from isaac_ros_nvblox_tpu_torch import native
+    from isaac_ros_nvblox_tpu_torch.io import image_codec as ic
+    rng = np.random.default_rng(0)
+    for bpp in (1, 2, 3, 4):
+        H, row = 17, 11 * bpp
+        raw = rng.integers(0, 256, (H, row + 1)).astype(np.uint8)
+        raw[:, 0] = rng.integers(0, 5, H)
+        np.testing.assert_array_equal(
+            native.png_unfilter(raw.tobytes(), H, row, bpp),
+            native.png_unfilter_plain(raw.tobytes(), H, row, bpp))
+    depth = (np.add.outer(np.arange(680), np.arange(1200)) * 37
+             + rng.integers(0, 50, (680, 1200))).astype(np.uint16)
+    np.testing.assert_array_equal(ic.decode_png(ic.encode_png(depth)), depth)
+
+
+def _fuser_frames(n=5, cam=CAM):
+    from isaac_ros_nvblox_tpu_torch.datasets.synthetic import (
+        SyntheticDataLoader)
+    return list(SyntheticDataLoader(num_frames=n, camera=cam, device="cpu"))
+
+
+def test_fuser_device_step_makes_no_host_sync(dev):
+    """The device backend's frame step (host depth and color, TSDF and
+    color fusion) never waits on the card between its ESDF and mesh
+    turns."""
+    from isaac_ros_nvblox_tpu_torch.datasets.fuser import Fuser, FuserConfig
+    frames = _fuser_frames()
+    fuser = Fuser(frames, FuserConfig(capacity=8192), device=dev)
+    fuser.integrate_frame(frames[0])   # frame 0: the ESDF and mesh turns
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in frames[1:4]:
+            fuser.integrate_frame(f)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tsdf_fuse"] == 3
+    assert kernels.LAUNCHES["color_fuse"] == 3
+
+
+def test_fuser_device_backend_cuda_equals_cpu(dev):
+    from isaac_ros_nvblox_tpu_torch.datasets.fuser import Fuser, FuserConfig
+    frames = _fuser_frames()
+    runs = [Fuser(frames, FuserConfig(capacity=8192), device=d)
+            for d in ("cpu", dev)]
+    for f in runs:
+        assert f.run() == 5
+    a, b = (f.mapper.state_arrays() for f in runs)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    la, lb = (f.mapper.mesh_layer.blocks for f in runs)
+    assert la.keys() == lb.keys() and len(la) > 100
+    for k, blk in la.items():
+        for f in ("vertices", "colors", "triangles"):
+            np.testing.assert_array_equal(getattr(lb[k], f), getattr(blk, f))
+
+
+def test_host_mapper_cuda_equals_cpu(dev):
+    """The host-table Mapper on the card (tsdf_fuse for depth, the
+    reference's plain functions for the rest) equals its CPU run."""
+    from isaac_ros_nvblox_tpu_torch.mapper.mapper import Mapper
+    frames = _fuser_frames(3)
+    params = MapperParams(
+        projective=TsdfIntegratorParams(max_integration_distance_m=3.0),
+        esdf=EsdfIntegratorParams(max_esdf_distance_m=0.6))
+    maps = [Mapper(VOXEL, params=params, capacity=2048, device=d)
+            for d in ("cpu", dev)]
+    kernels.reset_launch_counts()
+    for m in maps:
+        for f in frames:
+            m.integrate_depth(f.depth, f.T_L_C, CAM)
+            m.integrate_color(f.color, f.T_L_C, CAM, depth=f.depth)
+        m.update_esdf()
+        m.update_mesh()
+    assert kernels.LAUNCHES["tsdf_fuse"] == 3
+    assert kernels.LAUNCHES["color_fuse"] == 0
+    a, b = maps
+    np.testing.assert_array_equal(a.table.block_indices, b.table.block_indices)
+    for k in a.pool.channels:
+        np.testing.assert_array_equal(a.pool[k].numpy(), b.pool[k].cpu()
+                                      .numpy(), err_msg=k)
+    assert a.mesh_layer.blocks.keys() == b.mesh_layer.blocks.keys()
+    for k, blk in a.mesh_layer.blocks.items():
+        for f in ("vertices", "colors", "triangles"):
+            np.testing.assert_array_equal(getattr(b.mesh_layer.blocks[k], f),
+                                          getattr(blk, f))

@@ -46,6 +46,9 @@ from isaac_ros_nvblox_tpu_torch.ops.detect_cuda import detect_dynamic
 from isaac_ros_nvblox_tpu_torch.ops.halo import (dilate_dense_grid,
                                                  dilate_dense_grid_plain)
 from isaac_ros_nvblox_tpu_torch.runtime.node import NvbloxNode
+from isaac_ros_nvblox_tpu_torch.datasets.fuser import Fuser, FuserConfig
+from isaac_ros_nvblox_tpu_torch.datasets.synthetic import SyntheticDataLoader
+from isaac_ros_nvblox_tpu_torch.mapper.mapper import Mapper
 
 torch.set_num_threads(1)
 
@@ -68,7 +71,9 @@ def test_modules_import_without_jax():
             + "bad = [m for m in sys.modules if m == 'jax' "
               "or m.startswith('jax.') or m.startswith('jaxlib') "
               "or m.startswith('isaac_ros_nvblox_tpu.') "
-              "or m == 'isaac_ros_nvblox_tpu']\n"
+              "or m == 'isaac_ros_nvblox_tpu' or m == 'imageio' "
+              "or m.startswith('imageio.') or m == 'mesh_viewer' "
+              "or m == 'tools' or m.startswith('tools.')]\n"
               "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env=_clean_env(), capture_output=True, text=True,
@@ -92,6 +97,13 @@ def test_modules_import_without_jax():
         "runtime.adapters", "runtime.visualization",
         "runtime.sensor_helpers", "runtime.node",
         "runtime.config_loader")} <= set(MODULES)
+    # And the offline fuser's and the host-table backend's.
+    assert {pkg + m for m in (
+        "datasets.base", "datasets.synthetic", "datasets.replica",
+        "datasets.replica_writer", "datasets.recorded", "datasets.fuser",
+        "io.image_codec", "io.mesh_viewer", "io.serialization",
+        "core.block_pool", "mapper.mapper",
+        "examples.run_pipeline")} <= set(MODULES)
 
 
 def test_sources_name_no_jax():
@@ -109,6 +121,8 @@ def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         assert DeviceMapper(0.05).device.type == "cuda"
         assert NvbloxNode().device.type == "cuda"
+        assert Mapper(0.05, capacity=16).device.type == "cuda"
+        assert Fuser([]).mapper.device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         DeviceMapper(0.05)
@@ -118,6 +132,15 @@ def test_entry_points_default_to_cuda():
         render_depth(default_test_scene(), cam, np.eye(4, dtype=np.float32))
     with pytest.raises(RuntimeError, match="CUDA"):
         NvbloxNode()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SyntheticDataLoader(num_frames=1, camera=cam)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Mapper(0.05, capacity=16)
+    for backend in ("device", "host"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Fuser([], FuserConfig(capacity=64), backend=backend)
+    assert Fuser([], FuserConfig(capacity=64), backend="host",
+                 device="cpu").mapper.device.type == "cpu"
     assert NvbloxNode(device="cpu").multi_mapper.device.type == "cpu"
     assert DeviceMapper(0.05, device="cpu").device.type == "cpu"
     mm = MultiMapper(MultiMapperParams(mapping_type=MappingType.DYNAMIC,
@@ -240,3 +263,16 @@ def test_kernel_sources_and_build_flags():
         for h in headers:
             assert (kernels.CSRC / h).exists()
             assert f'#include "{h}"' in (kernels.CSRC / f"{name}.cu").read_text()
+
+
+def test_native_png_library_builds_into_the_build_dir():
+    """The PNG unfilter library builds from the repository's source into
+    build/torch_native/ (ignored by git), apart from the mesh library."""
+    from isaac_ros_nvblox_tpu_torch import native
+    path = native.library_path(native.PNG_SOURCE)
+    assert path.parent == native.BUILD_DIR
+    assert native.BUILD_DIR.relative_to(ROOT).parts == ("build",
+                                                        "torch_native")
+    assert path != native.library_path()
+    native.png_library()
+    assert path.exists()
