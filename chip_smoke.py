@@ -73,6 +73,26 @@ voxels, a 64x64x32-block world with 16384 pool slots.
     `Mapper` backend on those files, the device backend's blocks and
     TSDF; (e) the example pipeline for 4 frames, every artifact written.
     Launch counts `fuser`.
+  * sharded: the multi-device slice on one card. (a) A
+    `ShardedDeviceMapper` of 2 x 2 tiles (all four shards on the card,
+    4096 slots each) over the main path's 64 frames with host poses at
+    the pipeline's cadence (kernels tsdf_fuse, color_fuse, edt_pass1,
+    edt_pass, marching_cubes), timed and traced; its owned blocks held
+    against a single-device DeviceMapper of the same frames (blocks
+    equal, TSDF within 1e-5, ESDF bit for bit, each mesh row within
+    1e-5), the EDT passes on one shard's halo-extended region (path
+    `sharded`), the ESDF update's time, collectives and ppermute bytes.
+    (b) The rest of the sharded API at the reference tests' sizes
+    (occupancy, freespace, the dynamic tick, decay, lidar, routed
+    frames, the 2-D slice and its costmap, meshing): the card's run
+    equal to the CPU's on every array, routed frames to broadcast ones.
+    (c) The orbit with each hop's translation stretched 10% through a
+    `SubmapCollection`, a loop closure, `optimize` and `fuse`: the
+    anchor error, the fused map's ESDF and mesh; the same steps on the
+    orbit's first 6 frames at half resolution, the card's fused map
+    equal to the CPU's. (d) The worker (`parallel/worker.py`) in two gloo processes of
+    two shards each on the card and in one process of four: equal
+    checksums. Launch counts `sharded`.
 
 It builds every CUDA kernel from `isaac_ros_nvblox_tpu_torch/csrc/`, checks
 that each path went through its kernels (launch counts set to 0 just before
@@ -114,6 +134,7 @@ import time
 
 import numpy as np
 
+START = time.perf_counter()  # each phase row's `smoke_s` counts from here
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 # CTA sizes of the marching_cubes, dilate_dense, occupancy_fuse and
@@ -196,6 +217,10 @@ def fail(msg: str) -> None:
 
 
 def emit(obj) -> None:
+    """Print one JSON line; a phase row also gets `smoke_s`, the seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "smoke_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -235,6 +260,18 @@ def cuda_ms(fn, reps: int = 21) -> float:
     return float(np.median(times))
 
 
+def device_events(prof):
+    """[(name, microseconds)] of the device activities (kernels, copies,
+    memsets) of a finished torch.profiler trace, read from its raw kineto
+    results: `prof.events()` first builds an event tree of every host
+    call, which took ~20 s for one traced replay of the sharded path."""
+    import torch
+    from torch.autograd import DeviceType
+    return [(torch._C._demangle(e.name()), (e.end_ns() - e.start_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
 def trace(fn, reps: int):
     """Device activities (kernels, copies) of `reps` calls of `fn` after a
     warm-up call, from torch.profiler: ([(name, microseconds)], wall
@@ -249,8 +286,7 @@ def trace(fn, reps: int):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return ([(e.name, e.time_range.elapsed_us()) for e in prof.events()
-             if "CUDA" in str(e.device_type)], wall)
+    return device_events(prof), wall
 
 
 def kernel_ms(fn, match: str, reps: int = 21):
@@ -461,8 +497,7 @@ def timed_run(run, n_steps: int):
         run()
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t
-    evs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-           if "CUDA" in str(e.device_type)]
+    evs = device_events(prof)
     busy = sum(us for _, us in evs) / 1e3
     return out, launches, {
         "ms_per_step": wall * 1e3 / n_steps,
@@ -475,12 +510,14 @@ def timed_run(run, n_steps: int):
 
 
 def edt_check(state, is_site, esdf_sq, origin_t, dims_b, band: int,
-              path: str):
+              path: str, seeds=None):
     """edt_pass1 and edt_pass against their plain versions on a path's
     ESDF region (origin `origin_t`, `dims_b` blocks), seeded from its map's
-    sites `is_site`: the three passes in the mapper's order (shortest axis
-    first), each with the block mask the solve gives it (`needed_masks`),
-    each fed the plain chain's previous output, each held bit for bit. The
+    sites `is_site` (or the given dense `seeds`, as the sharded path builds
+    them from its exchanged site tiles): the three passes in the mapper's
+    order (shortest axis first), each with the block mask the solve gives
+    it (`needed_masks`), each fed the plain chain's previous output, each
+    held bit for bit. The
     plain chain gathered back to the slots must equal the path's ESDF
     channel `esdf_sq` on every slot. Emits one kernel_check line per pass
     and returns them by kernel name."""
@@ -488,7 +525,8 @@ def edt_check(state, is_site, esdf_sq, origin_t, dims_b, band: int,
     from isaac_ros_nvblox_tpu_torch.ops import esdf_dense as ed
     in_region, row = ed.region_rows(state.block_index_of_slot,
                                     state.alloc_count, origin_t, dims_b)
-    seeds = ed.seed_grid(is_site, in_region, row, dims_b)
+    if seeds is None:
+        seeds = ed.seed_grid(is_site, in_region, row, dims_b)
     axes = ed.pass_order(seeds.shape)
     masks = ed.needed_masks(row, dims_b, band)
     nvox = seeds.numel()
@@ -2513,6 +2551,509 @@ def fuser_phase(dev, smi, scene, voxel):
 
 
 
+SHARDED_GRID = (2, 2)
+SHARDED_MESH_BLOCKS = 2048
+SUBMAP_ANCHOR_ERR_LIMIT_M = 0.02
+WORKER_TIMEOUT_S = 300
+# (c)'s card = CPU check: the first frames of the drifted orbit at half
+# resolution (the CPU twin of the whole orbit at VGA dominated the phase).
+SUBMAP_TWIN_FRAMES = 6
+SUBMAP_TWIN_STRIDE = 2
+
+
+def sharded_equal_single(m, single):
+    """The sharded map's owned blocks against a single-device map of the
+    same frames: (owned blocks, single-device blocks, every owned block
+    found there, max |TSDF diff|, max |weight diff|, ESDF bit for bit)."""
+    import torch
+    n_owned, found, d_err, w_err, esdf_same = 0, True, 0.0, 0.0, True
+    origin = single.state.origin_block
+    for i, st in enumerate(m.state):
+        owned = m._owned(st) & (torch.arange(st.block_index_of_slot.shape[0],
+                                             device=origin.device)
+                                < st.alloc_count)
+        slots = torch.nonzero(owned)[:, 0]
+        cells = (st.block_index_of_slot[slots] - origin).long()
+        ss = single.state.slot_grid[cells[:, 0], cells[:, 1], cells[:, 2]]
+        n_owned += int(slots.numel())
+        found = found and bool((ss >= 0).all())
+        ss = ss.clamp_min(0).long()
+        ch, sc = m.channels, single.channels
+        d_err = max(d_err, float((ch["tsdf_distance"][i][slots]
+                                  - sc["tsdf_distance"][ss]).abs().max()))
+        w_err = max(w_err, float((ch["tsdf_weight"][i][slots]
+                                  - sc["tsdf_weight"][ss]).abs().max()))
+        esdf_same = esdf_same and bool(torch.equal(
+            ch["esdf_sq_dist"][i][slots], sc["esdf_sq_dist"][ss]))
+    return n_owned, single.block_count(), found, d_err, w_err, esdf_same
+
+
+def sharded_mesh_vs_single(m, single):
+    """Every owned live block of the sharded map marked dirty and meshed
+    (kernel marching_cubes), each batch row held against the same block
+    meshed from the single-device map's rows by the same kernel: (rows,
+    rows with triangles, max |vertex diff| m, max |color diff|, masks
+    equal)."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
+    from isaac_ros_nvblox_tpu_torch.ops.mesh_cuda import (
+        local_to_world_verts, marching_cubes_fused, resolve_edge_soup)
+    cap = m.config.capacity_per_shard
+    vs = m.config.voxel_size_m
+    for i, st in enumerate(m.state):
+        m.dirty[i] |= wg.live_slot_mask(st)
+    rows = tri_rows = 0
+    v_err = c_err = 0.0
+    masks_equal = True
+    sc = single.channels
+    for verts, colors, mask, bidx, slots in m.update_mesh_dirty():
+        real = slots < cap
+        bidx = bidx[real]
+        n = int(bidx.shape[0])
+        ve, ce, table = marching_cubes_fused(
+            sc["tsdf_distance"], sc["tsdf_weight"],
+            tuple(sc[k] for k in ("color_r", "color_g", "color_b")),
+            wg.neighbor_slots8_of(single.state, bidx),
+            torch.ones((n,), dtype=torch.int32, device=bidx.device),
+            min_weight=float(single.params.mesh.min_weight), with_color=True)
+        v1, c1 = resolve_edge_soup(ve, ce, table, with_color=True)
+        w0, m0 = local_to_world_verts(verts[real], bidx, vs)
+        w1, m1 = local_to_world_verts(v1, bidx, vs)
+        masks_equal = masks_equal and bool(torch.equal(m0, m1))
+        sel = m0[:, None].expand_as(w0)
+        v_err = max(v_err, float((w0 - w1).abs()[sel].max()) if sel.any()
+                    else 0.0)
+        c_err = max(c_err, float((colors[real].float() - c1.float()).abs()
+                                 .max()) if n else 0.0)
+        rows += n
+        tri_rows += int(m0.flatten(1).any(1).sum())
+    return rows, tri_rows, v_err, c_err, masks_equal
+
+
+def sharded_phase(dev, smi, camera, scene, depths, colors, voxel, params,
+                  max_blocks, world, main_row, pipe_row):
+    """The sharded mapper and the submaps (launch counts `sharded`):
+    (a) a `ShardedDeviceMapper` of 2 x 2 tiles, all four shards on the
+    card, over the main path's 64 VGA frames with host poses at the
+    pipeline's cadence (depth every frame, color every 8th, ESDF every
+    4th, dirty mesh every 8th), timed and traced, then held against a
+    single-device DeviceMapper fed the same frames; the EDT passes on one
+    shard's halo-extended region (path `sharded`); (b) the rest of the API
+    at the reference tests' sizes, the card's run equal to the CPU's, and
+    routed frames equal to broadcast ones; (c) a drifted orbit through a
+    SubmapCollection, a loop closure, optimize and fuse, then the fused
+    map's ESDF and mesh, and the same steps on a shorter, half-resolution
+    orbit on the card and on the CPU, their fused maps equal; (d) the
+    worker in two
+    gloo processes of two shards each on the card against one process of
+    four."""
+    import os
+    import socket
+    from pathlib import Path
+    import torch
+    from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
+    from isaac_ros_nvblox_tpu_torch.core.types import voxel_centers_for_blocks
+    from isaac_ros_nvblox_tpu_torch.mapper import device_io
+    from isaac_ros_nvblox_tpu_torch.mapper.device_mapper import DeviceMapper
+    from isaac_ros_nvblox_tpu_torch.mapper.params import MapperParams
+    from isaac_ros_nvblox_tpu_torch.mapper.submaps import (SubmapCollection,
+                                                           SubmapParams)
+    from isaac_ros_nvblox_tpu_torch.models.camera import Camera
+    from isaac_ros_nvblox_tpu_torch.models.lidar import (
+        Lidar, pointcloud_to_range_image)
+    from isaac_ros_nvblox_tpu_torch.models.scene import (Scene, Sphere,
+                                                         orbit_pose,
+                                                         render_color,
+                                                         render_depth)
+    from isaac_ros_nvblox_tpu_torch.ops.esdf import EsdfIntegratorParams
+    from isaac_ros_nvblox_tpu_torch.parallel.sharded_mapper import (
+        ShardedDeviceMapper, ShardedMapperConfig)
+    from isaac_ros_nvblox_tpu_torch.parallel.spatial import make_spatial_mesh
+    from isaac_ros_nvblox_tpu_torch.runtime.costmap import (
+        CostmapLayerParams, distance_to_cost)
+
+    # (a) the timed run at the main path's width.
+    t_part = time.perf_counter()
+    n_frames = depths.shape[0]
+    n_steps = 4 * n_frames
+    poses_np = [orbit_pose(2 * np.pi * k / n_frames, radius=1.5)
+                for k in range(n_frames)]
+    n_shards = SHARDED_GRID[0] * SHARDED_GRID[1]
+    cfg = ShardedMapperConfig(
+        n_shards=n_shards, shard_grid=SHARDED_GRID,
+        global_dims=world.dims, origin_block=world.origin_block,
+        capacity_per_shard=world.capacity // n_shards, voxel_size_m=voxel,
+        max_blocks_per_frame=max_blocks, mesh_max_blocks=SHARDED_MESH_BLOCKS,
+        enable_color=True)
+
+    def run(esdf=True, color=True, mesh=True):
+        m = ShardedDeviceMapper(make_spatial_mesh(n_shards, device=dev),
+                                camera, cfg, params)
+        for k in range(n_steps):
+            f = k % n_frames
+            m.integrate_depth(depths[f], poses_np[f])
+            if color and (k + 1) % 8 == 0:
+                m.integrate_color(colors[f], depths[f], poses_np[f])
+            if esdf and (k + 1) % 4 == 0:
+                m.update_esdf()
+            if mesh and (k + 1) % 8 == 0:
+                m.update_mesh_dirty()
+        return m
+
+    steps_s = {}                    # the seconds of each step of (a)
+    clock = [t_part]
+
+    def lap(name):
+        now = time.perf_counter()
+        steps_s[name] = now - clock[0]
+        clock[0] = now
+
+    lap("setup")
+    run()                                           # warm-up
+    lap("warm_up")
+    m, launches, figures = timed_run(run, n_steps)
+    lap("timed_and_traced")
+    PATH_LAUNCHES["sharded"] = launches
+    for name in ("tsdf_fuse", "edt_pass1", "edt_pass", "color_fuse",
+                 "marching_cubes"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the sharded path")
+    tsdf_dev, _ = device_ms(lambda: run(False, False, False))
+    tsdf_dev /= n_steps
+    lap("depth_alone_traced")
+    overflow = [int(st.overflow_count) for st in m.state]
+    if any(overflow):
+        fail(f"sharded overflow_count {overflow} != 0")
+
+    def esdf_once():
+        m._esdf_pending = True
+        m.update_esdf()
+
+    esdf_ms = cuda_ms(esdf_once, reps=5)
+    esdf_dev = plain_device_ms(esdf_once, reps=5)
+    n_coll, ex_bytes = m.last_exchange
+    lap("esdf_timed")
+    single = DeviceMapper(voxel_size_m=voxel, params=params, world=world,
+                          max_blocks_per_frame=max_blocks, device=dev)
+    for k in range(n_steps):
+        f = k % n_frames
+        single.integrate_depth(depths[f], poses_np[f], camera)
+        if (k + 1) % 8 == 0:
+            single.integrate_color(colors[f], poses_np[f], camera,
+                                   depth=depths[f])
+        if (k + 1) % 4 == 0:
+            single.update_esdf()
+    if int(single.state.overflow_count) != 0:
+        fail("the single-device reference of the sharded path overflowed")
+    lap("single_device_run")
+    n_owned, n_single, found, d_err, w_err, esdf_same = \
+        sharded_equal_single(m, single)
+    lap("held_to_single")
+    # One shard's EDT passes on its halo-extended region.
+    tiles = m._exchange_halos(m._site_tiles())
+    seeds, origin_b, dims_b = m._region_seeds(0, tiles[0])
+    del tiles
+    edt_check(m.state[0], None, m.channels["esdf_sq_dist"][0], origin_b,
+              dims_b, m.esdf_band_vox, "sharded", seeds=seeds)
+    del seeds
+    lap("edt_check")
+    mesh_rows, mesh_tri_rows, v_err, c_err, masks_equal = \
+        sharded_mesh_vs_single(m, single)
+    lap("mesh_vs_single")
+    row = {"phase": "sharded", "part": "timed", "frames": n_steps,
+           "shard_grid": list(SHARDED_GRID),
+           "capacity_per_shard": cfg.capacity_per_shard,
+           "esdf_every": 4, "color_every": 8, "mesh_every": 8, **figures,
+           "tsdf_device_ms_per_frame": tsdf_dev,
+           "device_ms_vs_pipeline": figures["device_ms_per_step"]
+           / pipe_row["pipeline_device_ms_per_frame"],
+           "tsdf_device_ms_vs_main_path": tsdf_dev
+           / main_row["tsdf_device_ms_per_frame"],
+           "esdf_ms_per_update": esdf_ms,
+           "esdf_device_ms_per_update": esdf_dev,
+           "collectives_per_esdf": n_coll,
+           "ppermute_bytes_per_esdf": ex_bytes,
+           "esdf_region_dims_blocks": list(dims_b),
+           "owned_blocks": n_owned, "single_device_blocks": n_single,
+           "tsdf_max_abs_diff": d_err, "weight_max_abs_diff": w_err,
+           "esdf_bit_exact": esdf_same, "mesh_rows": mesh_rows,
+           "mesh_rows_with_triangles": mesh_tri_rows,
+           "mesh_vertex_max_abs_diff_m": v_err,
+           "mesh_color_max_abs_diff": c_err,
+           "mesh_masks_equal": masks_equal,
+           "overflow_count": overflow, "launches": launches,
+           "seconds": time.perf_counter() - t_part, "steps_s": steps_s,
+           "nvidia_smi": smi}
+    emit(row)
+    if not (found and n_owned == n_single > 1000):
+        fail(f"sharded owned blocks differ from the single device's: {row}")
+    if not (d_err <= 1e-5 and w_err <= 1e-5 and esdf_same):
+        fail(f"sharded TSDF / ESDF differ from the single device's: {row}")
+    if not (masks_equal and v_err <= 1e-5 and c_err <= 1e-5
+            and mesh_tri_rows > 300):
+        fail(f"sharded mesh differs from the single device's: {row}")
+    del m, single
+    torch.cuda.empty_cache()
+
+    # (b) the rest of the API at the reference tests' sizes: card = CPU.
+    t_part = time.perf_counter()
+    cam_s = Camera(fx=120.0, fy=120.0, cx=59.5, cy=44.5, width=120,
+                   height=90)
+    cfg_b = ShardedMapperConfig(
+        n_shards=4, shard_grid=(2, 2), global_dims=(32, 32, 16),
+        origin_block=(-16, -16, -4), capacity_per_shard=2048,
+        voxel_size_m=0.05, max_blocks_per_frame=1024, mesh_max_blocks=512,
+        enable_color=True, enable_occupancy=True, enable_freespace=True)
+    params_b = MapperParams(esdf=EsdfIntegratorParams(
+        max_esdf_distance_m=1.0))
+    sphere = Scene(primitives=(Sphere(center=(0.0, 0.0, 1.0), radius=0.6),))
+    intruder = Scene(primitives=sphere.primitives + (
+        Sphere(center=(0.6, 0.3, 1.0), radius=0.18),))
+    small = []
+    for k in range(2):
+        T = orbit_pose(2 * np.pi * k / 8, radius=2.0, height=1.0,
+                       target=(0, 0, 1.0))
+        small.append((render_depth(sphere, cam_s, T, device="cpu").numpy(),
+                      render_color(sphere, cam_s, T, device="cpu").numpy(),
+                      T))
+    d_intr = render_depth(intruder, cam_s, small[-1][2], device="cpu").numpy()
+    lidar = Lidar.equal_vertical_fov(64, 16, np.deg2rad(30.0),
+                                     min_range_m=0.2, max_range_m=8.0)
+    az, el = np.meshgrid(np.linspace(-np.pi, np.pi, 256, endpoint=False),
+                         np.linspace(-0.12, 0.12, 12))
+    r = 1.2 / np.cos(el)
+    pts = np.stack([r * np.cos(el) * np.cos(az), r * np.cos(el) * np.sin(az),
+                    r * np.sin(el)], -1).reshape(-1, 3).astype(np.float32)
+    rimg = pointcloud_to_range_image(torch.as_tensor(pts), lidar).numpy()
+    T_lidar = np.eye(4, dtype=np.float32)
+    T_lidar[2, 3] = 1.0
+    bs = 0.05 * 8
+    cxs = [(-16 + (s + 0.5) * 8) * bs for s in range(4)]
+    ring = Scene(primitives=tuple(Sphere(center=(cx, 0.0, 1.0), radius=0.5)
+                                  for cx in cxs))
+    r_poses, r_depths = [], []
+    for s, cx in enumerate(cxs):
+        T = orbit_pose(np.pi / 3, radius=1.5, height=1.0,
+                       target=(cx, 0, 1.0))
+        T[:3, 3] += np.asarray([cx, 0.0, 0.0])
+        r_poses.append(T)
+        r_depths.append(render_depth(ring, cam_s, T, device="cpu").numpy())
+    r_poses, r_depths = np.stack(r_poses), np.stack(r_depths)
+
+    def api_run(d):
+        m = ShardedDeviceMapper(make_spatial_mesh(4, device=d), cam_s, cfg_b,
+                                params_b)
+        for k, (depth, color, T) in enumerate(small):
+            m.integrate_depth(depth, T)
+            m.integrate_depth_occupancy(depth, T)
+            m.integrate_color(color, depth, T)
+            m.update_freespace(T, 400.0 * (k + 1))
+        m.update_esdf()
+        mask = m.dynamic_tick(d_intr, small[-1][2], 1200.0)
+        m.decay()
+        m.integrate_lidar(rimg, T_lidar, lidar)
+        m.integrate_frames_routed(r_depths, r_poses)
+        m.update_esdf()
+        grid = m.slice_esdf_2d(height_m=1.0)
+        soups = [tuple(None if t is None else t.float().cpu() for t in out)
+                 for out in m.update_mesh_dirty()]
+        return m.state_arrays(), mask.cpu(), grid, soups
+
+    t0 = time.perf_counter()
+    card = api_run(dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = api_run("cpu")
+    cpu_s = time.perf_counter() - t0
+    differ = [k for k in card[0] if not np.array_equal(card[0][k],
+                                                      cpu[0][k])]
+    mask_same = bool(torch.equal(card[1], cpu[1]))
+    grid_same = bool(np.array_equal(card[2], cpu[2]))
+    soup_same = all((x is None and y is None) or torch.equal(x, y)
+                    for a, b in zip(card[3], cpu[3]) for x, y in zip(a, b))
+    known = card[2] < 1000.0
+    costs = distance_to_cost(card[2], unknown_value=1000.0,
+                             params=CostmapLayerParams())
+    # Routed frames against broadcasting them, on the card.
+    routed, bcast = (ShardedDeviceMapper(make_spatial_mesh(4, device=dev),
+                                         cam_s, cfg_b, params_b)
+                     for _ in range(2))
+    routed.integrate_frames_routed(r_depths, r_poses)
+    for f in range(4):
+        bcast.integrate_depth(r_depths[f], r_poses[f])
+    ra, ba = routed.state_arrays(), bcast.state_arrays()
+    routed_ok, routed_err = True, 0.0
+    for s in range(4):
+        n = int(ra["alloc_count"][s])
+        kr = {tuple(b): i for i, b in
+              enumerate(ra["block_index_of_slot"][s][:n].tolist())}
+        kb = {tuple(b): i for i, b in
+              enumerate(ba["block_index_of_slot"][s][:n].tolist())}
+        routed_ok = routed_ok and n == int(ba["alloc_count"][s]) \
+            and kr.keys() == kb.keys()
+        for key, i in kr.items():
+            j = kb.get(key, 0)
+            for name in ("tsdf_distance", "tsdf_weight"):
+                routed_err = max(routed_err, float(np.abs(
+                    ra[name][s][i] - ba[name][s][j]).max()))
+    row_b = {"phase": "sharded", "part": "api_card_vs_cpu",
+             "card_s": card_s, "cpu_s": cpu_s, "arrays": len(card[0]),
+             "arrays_differing": differ, "dynamic_mask_equal": mask_same,
+             "dynamic_pixels": int(card[1].sum()),
+             "slice_equal": grid_same, "slice_known_cells": int(known.sum()),
+             "costmap_lethal_cells": int((costs[known] == 254).sum()),
+             "mesh_soup_equal": soup_same,
+             "occupied_voxels": int((card[0]["occupancy_log_odds"] > 0).sum()),
+             "freed_blocks": int(card[0]["free_count"].sum()),
+             "routed_blocks_equal": routed_ok,
+             "routed_tsdf_max_abs_diff": routed_err,
+             "seconds": time.perf_counter() - t_part, "nvidia_smi": smi}
+    emit(row_b)
+    if differ or not (mask_same and grid_same and soup_same):
+        fail(f"the sharded API's card run differs from its CPU run: {row_b}")
+    if not (routed_ok and routed_err <= 1e-5 and known.sum() > 500
+            and int(card[1].sum()) > 10):
+        fail(f"the sharded API's checks failed: {row_b}")
+    del card, cpu, routed, bcast, ra, ba
+    torch.cuda.empty_cache()
+
+    # (c) submaps: a drifted orbit, a loop closure, optimize and fuse.
+    t_part = time.perf_counter()
+    depths_np = depths.cpu().numpy()
+    est = [poses_np[0].astype(np.float32)]
+    for k in range(1, n_frames):
+        rel = np.linalg.inv(poses_np[k - 1]) @ poses_np[k]
+        rel[:3, 3] *= 1.10              # each hop's translation stretched
+        est.append((est[-1] @ rel).astype(np.float32))
+
+    def submap_run(d, frames, cam):
+        col = SubmapCollection(lambda: DeviceMapper(
+            voxel_size_m=voxel, params=params, world=wg.WorldGridConfig(
+                dims=world.dims, capacity=4096,
+                origin_block=world.origin_block),
+            enable_color=False, max_blocks_per_frame=max_blocks, device=d),
+            SubmapParams())
+        firsts = []
+        for k, depth in enumerate(frames):
+            before = col.num_submaps
+            col.integrate_depth(depth, est[k], cam)
+            if col.num_submaps > before:
+                firsts.append(k)
+        if col.num_submaps < 2:
+            fail(f"the drifted orbit spawned {col.num_submaps} submap(s)")
+        # True anchors: T_true(first frame) @ T_est(first frame)^-1 @ anchor.
+        true = [poses_np[k] @ np.linalg.inv(est[k]) @ a
+                for k, a in zip(firsts, col.T_W_S_est)]
+        last = col.num_submaps - 1
+        col.add_loop_closure(0, last, np.linalg.inv(true[0]) @ true[last],
+                             weight=100.0)
+        col.optimize(iters=25)
+        err_est = float(np.linalg.norm(col.T_W_S_est[last][:3, 3]
+                                       - true[last][:3, 3]))
+        err_opt = float(np.linalg.norm(col.T_W_S_opt[last][:3, 3]
+                                       - true[last][:3, 3]))
+        t0 = time.perf_counter()
+        fused = col.fuse()
+        return col, fused, err_est, err_opt, time.perf_counter() - t0
+
+    col, fused, err_est, err_opt, fuse_s = submap_run(dev, depths_np, camera)
+    card_s = time.perf_counter() - t_part
+    # The card = CPU twin, on the orbit's first frames at half resolution.
+    t0 = time.perf_counter()
+    st = SUBMAP_TWIN_STRIDE
+    cam_t = Camera(fx=camera.fx / st, fy=camera.fy / st, cx=camera.cx / st,
+                   cy=camera.cy / st, width=camera.width // st,
+                   height=camera.height // st)
+    twin = depths_np[:SUBMAP_TWIN_FRAMES, ::st, ::st]
+    _, twin_card, _, _, _ = submap_run(dev, twin, cam_t)
+    _, twin_cpu, _, _, _ = submap_run("cpu", twin, cam_t)
+    fa, fb = twin_card.state_arrays(), twin_cpu.state_arrays()
+    fused_differ = [k for k in fa if not np.array_equal(fa[k], fb[k])]
+    twin_blocks = twin_card.block_count()
+    del twin_card, twin_cpu, fa, fb
+    twin_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused.update_esdf()
+    torch.cuda.synchronize()
+    esdf_s = time.perf_counter() - t0
+    device_io.update_mesh_layer(fused)
+    _, _, tris = fused.mesh_layer.as_arrays()
+    n = fused.block_count()
+    bidx = fused.state.block_index_of_slot[:n]
+    gt = scene.sdf(voxel_centers_for_blocks(bidx, voxel))
+    w = fused.channels["tsdf_weight"][:n]
+    near = (gt.abs() < 0.1) & (w > 0.5)
+    fused_mae = float((fused.channels["tsdf_distance"][:n] - gt)
+                      .abs()[near].mean())
+    row_c = {"phase": "sharded", "part": "submaps", "frames": n_frames,
+             "submaps": col.num_submaps,
+             "anchor_err_est_m": err_est, "anchor_err_opt_m": err_opt,
+             "fused_blocks": n,
+             "fused_world_dims": list(fused.state.slot_grid.shape),
+             "fuse_s": fuse_s, "twin_frames": SUBMAP_TWIN_FRAMES,
+             "twin_stride": st, "twin_blocks": twin_blocks,
+             "twin_arrays_differing": fused_differ,
+             "fused_tsdf_mae_m": fused_mae,
+             "fused_esdf_s": esdf_s,
+             "fused_esdf_resolved_voxels": int(
+                 (fused.channels["esdf_sq_dist"][:n] < 1e11).sum()),
+             "fused_mesh_triangles": int(len(tris)), "card_s": card_s,
+             "twin_s": twin_s, "seconds": time.perf_counter() - t_part,
+             "nvidia_smi": smi}
+    emit(row_c)
+    if fused_differ or not (err_opt < SUBMAP_ANCHOR_ERR_LIMIT_M
+                            and twin_blocks > 100
+                            and col.num_submaps >= 3 and len(tris) > 1000
+                            and row_c["fused_esdf_resolved_voxels"] > 0):
+        fail(f"the submap run failed its checks: {row_c}")
+    del col, fused
+    torch.cuda.empty_cache()
+
+    # (d) two gloo processes of two shards each, against one of four.
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(root) + os.pathsep + env.get("PYTHONPATH", "")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = [sys.executable, "-m", "isaac_ros_nvblox_tpu_torch.parallel.worker"]
+    tail = ["--shards", "4", "--device", str(dev)]
+    cmds = [base + [f"127.0.0.1:{port}", "2", str(pid)] + tail
+            for pid in range(2)]
+    cmds.append(base + ["none", "1", "0"] + tail + ["--regions", "2"])
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(c, cwd=str(root), env=env, text=True,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        fail("a sharded worker process timed out")
+    workers_s = time.perf_counter() - t0
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0 or "OK" not in out:
+            fail(f"sharded worker {c[-6:]} failed:\n{out[-3000:]}")
+
+    def value(out, key):
+        return [ln for ln in out.splitlines()
+                if key in ln][0].split(key)[1].split()[0]
+
+    vals = {k: [value(o, k) for o in outs] for k in ("resolved=", "fused=")}
+    row_d = {"phase": "sharded", "part": "two_processes",
+             "backend": "gloo", "workers_s": workers_s,
+             "resolved": vals["resolved="], "fused": vals["fused="],
+             "nvidia_smi": smi}
+    emit(row_d)
+    if any(len(set(v)) != 1 for v in vals.values()):
+        fail(f"the two-process checksums differ: {row_d}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3249,6 +3790,10 @@ def main() -> None:
 
     # ---- the offline fuser and the host-table backend ---------------------
     fuser_phase(dev, smi, scene, voxel)
+
+    # ---- the sharded mapper, submaps and two processes --------------------
+    sharded_phase(dev, smi, camera, scene, depths, colors, voxel, params,
+                  max_blocks, world, path, pipe)
 
     flush_checks()
     emit({"kernels": results})

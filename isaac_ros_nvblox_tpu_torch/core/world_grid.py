@@ -201,6 +201,51 @@ def allocate_and_batch(state: WorldGridState, mask_grid, mask_origin_block,
 
 
 @torch.no_grad()
+def allocate_from_mask(state: WorldGridState, mask_grid, mask_origin_block
+                       ) -> WorldGridState:
+    """Allocate slots for the touched, in-grid, unallocated cells of a mask
+    `bool[G, G, G]` whose cell 0 is world block `mask_origin_block` (i32[3]).
+
+    The i-th new cell in flat mask order takes a recycled slot (LIFO from
+    `free_stack`) or the fresh slot `alloc_count + i`; cells past capacity
+    are dropped and counted in `overflow_count`. `slot_grid` and
+    `block_index_of_slot` are updated in place; the returned state holds
+    the new counters. No host sync.
+    """
+    cap = state.block_index_of_slot.shape[0]
+    dev = mask_grid.device
+    G = mask_grid.shape[0]
+    D = state.slot_grid.shape
+    r = torch.arange(G, dtype=_I32, device=dev)
+    cells = (torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1)
+             + (mask_origin_block - state.origin_block)).reshape(-1, 3)
+    current = _slots_at(state, cells)
+    is_new = mask_grid.reshape(-1) & _in_grid(cells, D) & (current < 0)
+    order = torch.cumsum(is_new, 0, dtype=_I32) - 1
+    # Recycle freed slots first (LIFO), then take fresh ones.
+    reuse = order < state.free_count
+    stack_idx = (state.free_count - 1 - order).clamp(0, cap - 1)
+    recycled = state.free_stack[stack_idx.long()]
+    fresh = state.alloc_count + (order - state.free_count)
+    new_slot = torch.where(reuse, recycled, fresh)
+    ok = is_new & (new_slot < cap)
+    lin = (cells[:, 0] * D[1] + cells[:, 1]) * D[2] + cells[:, 2]
+    set_rows_drop(state.slot_grid.view(-1),
+                  torch.where(ok, lin, torch.full_like(lin, -1)), new_slot)
+    set_rows_drop(state.block_index_of_slot,
+                  torch.where(ok, new_slot, torch.full_like(new_slot, cap)),
+                  cells + state.origin_block)
+    n_ok = ok.sum(dtype=_I32)
+    n_reused = (ok & reuse).sum(dtype=_I32)
+    return dataclasses.replace(
+        state,
+        alloc_count=state.alloc_count + (n_ok - n_reused),
+        overflow_count=state.overflow_count
+        + (is_new & ~ok).sum(dtype=_I32),
+        free_count=state.free_count - n_reused)
+
+
+@torch.no_grad()
 def free_slots(state: WorldGridState, slots_to_free) -> WorldGridState:
     """Deallocate the given slots `i32[N]` and recycle their storage.
 

@@ -124,6 +124,24 @@ def _bucket_blocks_coarse(n: int) -> int:
     return _bucket_blocks(n, 64)
 
 
+def _to_device(x, device, dtype) -> torch.Tensor:
+    """`x` on `device`. Host arrays go through pinned memory with an
+    asynchronous copy, so that no step waits on the device."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype)
+    t = torch.tensor(np.asarray(x), dtype=dtype)
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _image_dtype(image) -> torch.dtype:
+    """A color image's device dtype: u8 stays u8, anything else f32."""
+    u8 = (image.dtype == torch.uint8 if isinstance(image, torch.Tensor)
+          else np.asarray(image).dtype == np.uint8)
+    return torch.uint8 if u8 else torch.float32
+
+
 def _masked_depth(depth, mask, mask_mode: int):
     """mask_mode 1 keeps the unmasked pixels (background), 2 the masked
     ones (foreground), 0 all."""
@@ -865,14 +883,8 @@ class DeviceMapper:
                 == view_ops.WorkspaceBoundsType.UNBOUNDED else v)
 
     def _tensor(self, x, dtype):
-        """`x` on the mapper's device. Host arrays go through pinned memory
-        with an asynchronous copy, so that no step waits on the device."""
-        if isinstance(x, torch.Tensor):
-            return x.to(device=self.device, dtype=dtype)
-        t = torch.tensor(np.asarray(x), dtype=dtype)
-        if self.device.type == "cpu":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        """`x` on the mapper's device (`_to_device`)."""
+        return _to_device(x, self.device, dtype)
 
     # ------------------------------------------------------------ integrate
     def integrate_depth(self, depth, T_L_C, camera: Camera,
@@ -1085,13 +1097,7 @@ class DeviceMapper:
     def _image(self, image) -> torch.Tensor:
         """A color image (or a stack of them) on the device, u8 kept u8; a
         host array goes through pinned memory, as `_tensor`'s do."""
-        if isinstance(image, torch.Tensor):
-            dtype = torch.uint8 if image.dtype == torch.uint8 \
-                else torch.float32
-            return image.to(device=self.device, dtype=dtype)
-        image = np.asarray(image)
-        return self._tensor(image, torch.uint8 if image.dtype == np.uint8
-                            else torch.float32)
+        return self._tensor(image, _image_dtype(image))
 
     # ----------------------------------------------------------- region AABB
     def _world_bounds(self):

@@ -1594,3 +1594,127 @@ def test_host_mapper_cuda_equals_cpu(dev):
         for f in ("vertices", "colors", "triangles"):
             np.testing.assert_array_equal(getattr(b.mesh_layer.blocks[k], f),
                                           getattr(blk, f))
+
+
+def _sharded_pair(dev_list, capacity=1024):
+    from isaac_ros_nvblox_tpu_torch.parallel.sharded_mapper import (
+        ShardedDeviceMapper, ShardedMapperConfig)
+    from isaac_ros_nvblox_tpu_torch.parallel.spatial import make_spatial_mesh
+    cfg = ShardedMapperConfig(
+        n_shards=4, shard_grid=(2, 2), global_dims=(32, 32, 16),
+        origin_block=(-16, -16, -4), capacity_per_shard=capacity,
+        voxel_size_m=VOXEL, max_blocks_per_frame=1024, enable_color=True,
+        enable_occupancy=True, enable_freespace=True)
+    params = MapperParams(
+        projective=TsdfIntegratorParams(max_integration_distance_m=3.0),
+        esdf=EsdfIntegratorParams(max_esdf_distance_m=0.6))
+    return [ShardedDeviceMapper(make_spatial_mesh(4, device=d), CAM, cfg,
+                                params) for d in dev_list]
+
+
+def test_sharded_mapper_cuda_equals_cpu(dev):
+    """The 2 x 2 sharded mapper over two RGB-D frames, an ESDF update, a
+    freespace update, the dynamic tick, lidar and a mesh update: every
+    shard's state and channels, the 2-D slice and the mesh soup on the
+    card equal the CPU run (kernels tsdf_fuse, color_fuse,
+    occupancy_fuse, edt_pass1, edt_pass, dilate_dense, detect_dynamic,
+    tsdf_lidar_fuse, marching_cubes)."""
+    scene = default_test_scene()
+    lidar = Lidar.equal_vertical_fov(256, 16, np.deg2rad(30.0),
+                                     min_range_m=0.2, max_range_m=8.0)
+    runs = _sharded_pair(("cpu", dev))
+    kernels.reset_launch_counts()
+    soups = []
+    for m in runs:
+        for k in range(2):
+            T = orbit_pose(2 * np.pi * k / 8)
+            depth = render_depth(scene, CAM, T, device="cpu")
+            m.integrate_depth(depth, T)
+            m.integrate_color(render_color(scene, CAM, T, device="cpu"),
+                              depth, T)
+            m.update_freespace(T, 400.0 * (k + 1))
+        m.update_esdf()
+        m.dynamic_tick(depth, T, 1200.0)
+        m.integrate_lidar(torch.full((16, 256), 1.5), np.eye(4,
+                                                             dtype=np.float32),
+                          lidar)
+        soups.append([tuple(None if t is None else t.float().cpu()
+                            for t in out) for out in m.update_mesh_dirty()])
+    for name in ("tsdf_fuse", "color_fuse", "occupancy_fuse", "edt_pass1",
+                 "edt_pass", "dilate_dense", "detect_dynamic",
+                 "tsdf_lidar_fuse", "marching_cubes"):
+        assert kernels.LAUNCHES[name] > 0, name
+    a, b = (m.state_arrays() for m in runs)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert (a["tsdf_weight"] > 0).sum() > 10000
+    np.testing.assert_array_equal(runs[0].slice_esdf_2d(1.0),
+                                  runs[1].slice_esdf_2d(1.0))
+    for sa, sb in zip(*soups):
+        for x, y in zip(sa, sb):
+            assert (x is None) == (y is None)
+            if x is not None:
+                assert torch.equal(x, y)
+
+
+def test_sharded_frame_steps_make_no_host_sync(dev):
+    """With host poses, the sharded depth, occupancy, color, lidar and
+    routed steps never wait on the card."""
+    scene = default_test_scene()
+    (m,) = _sharded_pair((dev,), capacity=4096)
+    lidar = Lidar.equal_vertical_fov(256, 16, np.deg2rad(30.0),
+                                     min_range_m=0.2, max_range_m=8.0)
+    poses = [orbit_pose(2 * np.pi * k / 8) for k in range(4)]
+    depths = [render_depth(scene, CAM, T, device=dev) for T in poses]
+    colors = [render_color(scene, CAM, T, device=dev) for T in poses]
+    rimg = torch.full((16, 256), 1.5, device=dev)
+    host_depths = np.stack([d.cpu().numpy() for d in depths])
+
+    def steps():
+        for T, d, c in zip(poses, depths, colors):
+            m.integrate_depth(d, T)
+            m.integrate_depth_occupancy(d, T)
+            m.integrate_color(c, d, T)
+        m.integrate_lidar(rimg, np.eye(4, dtype=np.float32), lidar)
+        m.integrate_frames_routed(host_depths, np.stack(poses))
+
+    steps()                                  # warm-up: kernel loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        steps()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert sum(int(st.alloc_count) for st in m.state) > 1000
+
+
+def test_fused_submap_cuda_equals_cpu(dev):
+    """Submaps on the card: the fused map (host splat, device rows) equals
+    the CPU run's; the ESDF on it equals too."""
+    from isaac_ros_nvblox_tpu_torch.mapper.submaps import (SubmapCollection,
+                                                           SubmapParams)
+    scene = default_test_scene()
+    fused = []
+    for d in ("cpu", dev):
+        col = SubmapCollection(
+            lambda d=d: DeviceMapper(
+                VOXEL, world=wg.WorldGridConfig(dims=(48, 48, 24),
+                                                capacity=4096,
+                                                origin_block=(-24, -24, -6)),
+                enable_color=False, max_blocks_per_frame=1024, device=d),
+            SubmapParams(max_translation_m=10.0, max_rotation_rad=0.5))
+        for k in range(6):
+            T = orbit_pose(2 * np.pi * k / 24)
+            col.integrate_depth(render_depth(scene, CAM, T, device="cpu"),
+                                T, CAM)
+        col.add_loop_closure(0, col.num_submaps - 1, np.linalg.inv(
+            col.T_W_S_est[0]) @ col.T_W_S_est[-1], weight=10.0)
+        col.optimize(iters=5)
+        f = col.fuse()
+        f.update_esdf()
+        fused.append(f.state_arrays())
+    a, b = fused
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert (a["tsdf_weight"] > 0).sum() > 10000

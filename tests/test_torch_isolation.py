@@ -104,6 +104,12 @@ def test_modules_import_without_jax():
         "io.image_codec", "io.mesh_viewer", "io.serialization",
         "core.block_pool", "mapper.mapper",
         "examples.run_pipeline")} <= set(MODULES)
+    # And the submaps and multi-device slice's, the worker among them.
+    assert {pkg + m for m in (
+        "core.world_grid", "mapper.submaps", "parallel.__init__",
+        "parallel.spatial", "parallel.sharded_mapper",
+        "parallel.distributed", "parallel.dryrun",
+        "parallel.worker")} <= set(MODULES)
 
 
 def test_sources_name_no_jax():
@@ -141,6 +147,26 @@ def test_entry_points_default_to_cuda():
             Fuser([], FuserConfig(capacity=64), backend=backend)
     assert Fuser([], FuserConfig(capacity=64), backend="host",
                  device="cpu").mapper.device.type == "cpu"
+    from isaac_ros_nvblox_tpu_torch.mapper.submaps import SubmapCollection
+    from isaac_ros_nvblox_tpu_torch.parallel import spatial
+    from isaac_ros_nvblox_tpu_torch.parallel.dryrun import dryrun_multichip
+    from isaac_ros_nvblox_tpu_torch.parallel.sharded_mapper import (
+        ShardedDeviceMapper, ShardedMapperConfig)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        spatial.make_spatial_mesh(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedDeviceMapper(spatial.make_spatial_mesh(2), cam,
+                            ShardedMapperConfig(n_shards=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dryrun_multichip(2)
+    col = SubmapCollection(lambda: DeviceMapper(0.05))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        col.integrate_depth(np.ones((24, 32), np.float32),
+                            np.eye(4, dtype=np.float32), cam)
+    mesh = spatial.make_spatial_mesh(2, device="cpu")
+    assert ShardedDeviceMapper(mesh, cam, ShardedMapperConfig(
+        n_shards=2, capacity_per_shard=8)).channels[
+            "tsdf_distance"][1].device.type == "cpu"
     assert NvbloxNode(device="cpu").multi_mapper.device.type == "cpu"
     assert DeviceMapper(0.05, device="cpu").device.type == "cpu"
     mm = MultiMapper(MultiMapperParams(mapping_type=MappingType.DYNAMIC,
