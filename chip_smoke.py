@@ -93,6 +93,35 @@ voxels, a 64x64x32-block world with 16384 pool slots.
     equal to the CPU's. (d) The worker (`parallel/worker.py`) in two gloo processes of
     two shards each on the card and in one process of four: equal
     checksums. Launch counts `sharded`.
+  * human_frames: the people-segmentation modes on the bench room with a
+    0.5 x 0.3 x 1.7 m person walking through it, the 64 VGA frames and
+    the mask from its own 320 x 240 camera (`camera.scaled(0.5)`, 4 cm and
+    2 degrees off the depth camera, `T_CM_CD`). (a) `human_with_static_
+    tsdf` loaded from nvblox_base.yaml + nvblox_segmentation.yaml: the
+    MultiMapper's masked `integrate_depth` (mask reprojection, the 2000 px
+    connected-component filter, kernels tsdf_fuse on the background and
+    occupancy_fuse on the foreground), masked `integrate_color` every 8th
+    frame (color_fuse), the 2-D ESDF and the dynamic decay every 4th
+    (edt_pass1, edt_pass), `update_mesh` every 8th (marching_cubes); (b)
+    `human_with_static_occupancy` on the same frames (occupancy_fuse on
+    the background); each timed and traced, its map against the
+    reference's CPU run (`tests/test_torch_accuracy.py --human`). (c) The
+    node in that mode with the ground-plane estimator, 1.6 s of the frames
+    at 40 Hz with their masks: tick wall, the Timing table, the
+    plane-relative 2-D band, the plane against the floor. (d) (a)'s first
+    4 frames card = CPU on every array and mesh block; (e) the ground
+    plane card = CPU with the same draws. Every kernel the path launches
+    against its plain version on the path's own batches. Launch counts
+    `human`.
+  * scenes: bench.py's large scene (a 10 x 7.2 x 3.2 m room, 7 m, slot
+    bucket 8192) and sparse scene (a floor slab and an object cluster,
+    5 m, slot bucket 2048), each the 16-frame VGA orbit 4x over through
+    `replay_frames` with ESDF every frame: TSDF and ESDF ms per frame by
+    bench.py's paired differences (wall and device), blocks and both
+    errors against the reference's CPU run (`--scenes`), overflow and the
+    slot bucket checked; tsdf_fuse, edt_pass1 and edt_pass at these shapes
+    against their plain versions, their rows appended to `kernels` (path
+    `scenes/<name>`). Launch counts `scenes`.
 
 It builds every CUDA kernel from `isaac_ros_nvblox_tpu_torch/csrc/`, checks
 that each path went through its kernels (launch counts set to 0 just before
@@ -1453,16 +1482,17 @@ def sq2d_scipy(seeds, band: int) -> np.ndarray:
                     np.float32(1e12))
 
 
-def edt2d_check(site, band: int):
+def edt2d_check(site, band: int, path: str = "esdf_2d"):
     """edt_pass1 (along x) and edt_pass (along y) against their plain
     versions on the 2-D solve's own grid, f32[X, Y, 1] seeded from the
     collapsed site columns `site` (bool[X, Y] on the card), each pass fed
     the plain chain's previous output and held bit for bit. Emits one
-    kernel_check line per pass (path esdf_2d); returns the plain chain's
-    output. The passes commute, so each line also times its kernel along
-    the other axis (`ms_other_axis`: edt_pass1 along y, contiguous lines;
-    edt_pass along x), and the edt_pass line says whether that order's
-    chain gives the same field (`other_order_bit_exact`)."""
+    kernel_check line per pass (`path`, esdf_2d by default); returns the
+    plain chain's output. The passes commute, so each line also times its
+    kernel along the other axis (`ms_other_axis`: edt_pass1 along y,
+    contiguous lines; edt_pass along x), and the edt_pass line says
+    whether that order's chain gives the same field
+    (`other_order_bit_exact`)."""
     import torch
     from isaac_ros_nvblox_tpu_torch.ops import esdf_dense as ed
     inp = torch.where(site, 0.0, float(ed.INF))[..., None].contiguous()
@@ -1493,7 +1523,7 @@ def edt2d_check(site, band: int):
         o_in = seeds if axis == 0 else other
         ms_other, _ = kernel_ms(lambda: fk(o_in, 1 - axis, band), match)
         row = {
-            "phase": "kernel_check", "name": name, "path": "esdf_2d",
+            "phase": "kernel_check", "name": name, "path": path,
             "axis": axis, "grid": list(inp.shape), "sites": n_sites,
             "band": band, "pruned_share": 0.0, "bit_exact": exact,
             "max_abs_err": max_err, "ms": ms, "ms_timing": how,
@@ -3054,6 +3084,926 @@ def sharded_phase(dev, smi, camera, scene, depths, colors, voxel, params,
         fail(f"the two-process checksums differ: {row_d}")
 
 
+# ---- the people-segmentation (human) modes --------------------------------
+# tests/test_torch_human.py's scene at full size: the bench room with a
+# 0.5 x 0.3 x 1.7 m person standing on the floor and walking along
+# y = -1.85 m from x = -2.4 to 2.4 over the 64 frames; the segmentation
+# mask from its own camera, the depth camera scaled by 0.5 (320 x 240),
+# 4 cm to the side and turned 2 degrees about its vertical axis (T_CM_CD);
+# the mask is the person's geometric ground truth in that camera (the
+# scene with the person nearer than the scene without it by more than 2
+# voxels).
+PERSON_HALF = (0.25, 0.15, 0.85)
+PERSON_Y, PERSON_X0, PERSON_X1 = -1.85, -2.4, 2.4
+MASK_BASELINE_M, MASK_YAW_RAD = 0.04, float(np.deg2rad(2.0))
+# The node's cadences on its 40 Hz depth stream (nvblox_base.yaml): the
+# ESDF and the dynamic layer's decay at 10 Hz, mesh and color at 5 Hz.
+HUMAN_ESDF_EVERY = 4
+HUMAN_MESH_EVERY = 8
+HUMAN_COLOR_EVERY = 8
+HUMAN_CPU_FRAMES = 4
+# The reference's own CPU run of parts (a) and (b) (its MultiMapper from
+# the same two YAML files, its XLA integrators, which the port mirrors;
+# `tests/test_torch_accuracy.py --human`): blocks of both mappers, the
+# static TSDF's error against the room without the person, the static
+# map's person voxels (in the person's swept box above the floor band,
+# weight > 0.5 and distance < 1 voxel, or occupied) and the dynamic map's
+# occupied voxels. Agreement allowed (the card renders its own frames):
+# counts within 1%, the error within 3%, person voxels no more than the
+# reference's.
+HUMAN_REF = {
+    "human_with_static_tsdf": {
+        "static_blocks": 2251, "dynamic_blocks": 195,
+        "dynamic_occupied_voxels": 1994, "tsdf_mae_m": 0.025897063,
+        "static_person_voxels": 0},
+    "human_with_static_occupancy": {
+        "static_blocks": 2084, "dynamic_blocks": 195,
+        "dynamic_occupied_voxels": 1994, "static_occupied_voxels": 85083,
+        "static_person_voxels": 0}}
+HUMAN_COUNT_TOL, HUMAN_MAE_TOL = 0.01, 0.03
+# The ground plane (tests/test_multi_mapper.py:98-116's bounds): height at
+# the origin within 0.08 m of the floor (z = 0), normal z > 0.95; the card
+# within 1e-5 of the port's CPU estimate on the same map and draws.
+GROUND_HEIGHT_TOL_M, GROUND_NORMAL_Z_MIN, GROUND_EQUAL_TOL = 0.08, 0.95, 1e-5
+HUMAN_NODE_TOPICS = ("~/ground_plane", "~/ground_plane_vis",
+                     "~/static_map_slice", "~/mesh")
+
+
+def person_center(k: int, n: int):
+    """The person's box centre at frame k of n."""
+    t = k / max(n - 1, 1)
+    return (PERSON_X0 + (PERSON_X1 - PERSON_X0) * t, PERSON_Y,
+            PERSON_HALF[2])
+
+
+def t_cm_cd() -> np.ndarray:
+    """T_CM_CD: depth-camera points into the mask camera's frame."""
+    c, s = np.cos(MASK_YAW_RAD), np.sin(MASK_YAW_RAD)
+    T = np.eye(4, dtype=np.float32)
+    T[:3, :3] = [[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]]
+    T[:3, 3] = (-MASK_BASELINE_M, 0.0, 0.0)
+    return T
+
+
+def human_inputs(dev, camera, voxel: float, n_frames: int = 64):
+    """The human_frames inputs on `dev`: per frame the depth with the
+    person, the mask in the mask camera (u8, 255 = person), the mask in
+    the depth camera (for the aligned color image), the color image, and
+    the host pose (the bench orbit, 4x over)."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch.models.scene import (Box, RoomBox, Scene,
+                                                         Sphere, orbit_pose,
+                                                         render_color,
+                                                         render_depth)
+    room = (RoomBox(center=(0.0, 0.0, 1.5), half_extents=(3.0, 2.2, 1.5)),
+            Sphere(center=(1.2, 0.8, 1.0), radius=0.5),
+            Box(center=(-1.5, -1.0, 0.4), half_extents=(0.4, 0.4, 0.4)))
+    static = Scene(primitives=room)
+    mask_cam = camera.scaled(0.5)
+    T_CM_CD_inv = np.linalg.inv(t_cm_cd())
+    out = {k: [] for k in ("depths", "masks", "color_masks", "colors",
+                           "poses")}
+
+    # The room alone seen from each of the 16 orbit poses, by each camera.
+    empty = {}
+
+    def truth(full, cam, T, key):
+        d_full = render_depth(full, cam, T, device=dev)
+        if key not in empty:
+            empty[key] = render_depth(static, cam, T, device=dev)
+        m = (d_full > 0) & (d_full < empty[key] - 2 * voxel)
+        return d_full, m.to(torch.uint8) * 255
+
+    for k in range(n_frames):
+        T = orbit_pose(2 * np.pi * (k % 16) / 16, radius=1.5)
+        full = Scene(primitives=room + (Box(
+            center=person_center(k, n_frames), half_extents=PERSON_HALF),))
+        depth, cmask = truth(full, camera, T, ("depth", k % 16))
+        _, mask = truth(full, mask_cam, (T @ T_CM_CD_inv).astype(np.float32),
+                        ("mask", k % 16))
+        out["depths"].append(depth)
+        out["masks"].append(mask)
+        out["color_masks"].append(cmask)
+        out["colors"].append(render_color(full, camera, T, device=dev))
+        out["poses"].append(T)
+    return static, out
+
+
+def human_map_figures(mm, static_scene, voxel: float) -> dict:
+    """The --human figures of a MultiMapper's maps: blocks, the dynamic
+    map's occupied voxels, the static TSDF's error against the room
+    without the person (bench.py:628-646's definition) or the static
+    occupied voxels, and the static map's person voxels (in the person's
+    swept box above the floor band)."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch.core.types import voxel_centers_for_blocks
+    sm, dm = mm.static_mapper, mm.dynamic_mapper
+    n = int(sm.state.alloc_count)
+    centers = voxel_centers_for_blocks(sm.state.block_index_of_slot[:n],
+                                       voxel)
+    lo = torch.tensor([PERSON_X0 - PERSON_HALF[0], PERSON_Y - PERSON_HALF[1],
+                       2 * voxel], device=centers.device)
+    hi = torch.tensor([PERSON_X1 + PERSON_HALF[0], PERSON_Y + PERSON_HALF[1],
+                       2 * PERSON_HALF[2]], device=centers.device)
+    in_box = ((centers >= lo) & (centers <= hi)).all(-1)
+    ch = sm.channels
+    out = {"static_blocks": sm.block_count(),
+           "dynamic_blocks": dm.block_count(),
+           "static_overflow": int(sm.state.overflow_count),
+           "dynamic_overflow": int(dm.state.overflow_count),
+           "dynamic_occupied_voxels": int(
+               (dm.channels["occupancy_log_odds"] > 0).sum())}
+    if "tsdf_distance" in ch:
+        d, w = ch["tsdf_distance"][:n], ch["tsdf_weight"][:n]
+        gt = static_scene.sdf(centers)
+        near = (gt.abs() < 0.1) & (w > 0.5)
+        out["tsdf_mae_m"] = float((d - gt).abs()[near].mean())
+        out["tsdf_voxels_scored"] = int(near.sum())
+        keep = (w > 0.5) & (d < voxel)
+    else:
+        keep = ((ch["occupancy_observed"][:n] > 0)
+                & (ch["occupancy_log_odds"][:n] > 0))
+        out["static_occupied_voxels"] = int(keep.sum())
+    out["static_person_voxels"] = int((in_box & keep).sum())
+    return out
+
+
+def human_ref_failures(mode: str, got: dict) -> list:
+    """The figures of `got` outside their agreement with HUMAN_REF."""
+    ref, bad = HUMAN_REF[mode], []
+    for k, r in ref.items():
+        x = got[k]
+        if k == "static_person_voxels":
+            ok = x <= r
+        elif k == "tsdf_mae_m":
+            ok = abs(x - r) <= HUMAN_MAE_TOL * r
+        else:
+            ok = abs(x - r) <= HUMAN_COUNT_TOL * r
+        if not ok:
+            bad.append(f"{k} {x} (reference {r})")
+    return bad
+
+
+def plain_check(name: str, path: str, run_k, run_p, outs_k, outs_p, *,
+                match: str, n_bytes: float, n_ops: float, base=None,
+                rows=None, **extra) -> dict:
+    """One kernel against its plain version on one of a path's own
+    batches: `run_k` and `run_p` write `outs_k` and `outs_p` (clones of
+    the same buffers `base`, if given; or callables that give them after
+    the runs); held bit for bit, with every pool row outside `rows`
+    untouched. Times the kernel (profiler) and the plain call (events); the
+    bound from this batch's bytes and operations (`n_bytes`, `n_ops`: or
+    callables of the voxels the plain version changed). Appends its
+    kernel_check line and returns it."""
+    import torch
+    run_k()
+    run_p()
+    torch.cuda.synchronize()
+    outs_k = outs_k() if callable(outs_k) else outs_k
+    outs_p = outs_p() if callable(outs_p) else outs_p
+    exact = all(torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                            else a, b.view(torch.int16)
+                            if b.dtype == torch.bfloat16 else b)
+                for a, b in zip(outs_k, outs_p))
+    max_err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(outs_k, outs_p))
+    n_changed = (None if base is None
+                 else int(changed(list(outs_p), list(base)).sum()))
+    untouched = (True if rows is None
+                 else rows_untouched(outs_k, base, rows))
+    if callable(n_bytes):
+        n_bytes, n_ops = n_bytes(n_changed), n_ops(n_changed)
+    ms, how = kernel_ms(run_k, match)
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    row = {"phase": "kernel_check", "name": name, "path": path,
+           "bit_exact": exact, "rows_untouched": untouched,
+           "changed_voxels": n_changed, "max_abs_err": max_err, "ms": ms,
+           "ms_timing": how, "plain_ms": cuda_ms(run_p),
+           "plain_device_ms": plain_device_ms(run_p), "bound_ms": b_ms,
+           "bound_by": b_by, **extra}
+    CHECKS.append(row)
+    if not (exact and untouched) or n_changed == 0:
+        fail(f"{name} differs from its plain version on the {path} path: "
+             f"{row}")
+    return row
+
+
+def human_kernel_checks(dev, camera, voxel, inp, mm_tsdf, mm_occ, params):
+    """Each kernel the human path launches, against its plain version on
+    the path's own batches of a frame with the person in view: tsdf_fuse
+    on the background depth (mask_mode 1) and occupancy_fuse on the
+    foreground depth (mask_mode 2) of part (a)'s maps, occupancy_fuse on
+    the background depth of part (b)'s static occupancy map (mask_mode 1),
+    color_fuse on a masked color frame, the 2-D EDT passes on (a)'s
+    static 2-D frame and marching_cubes on its surface batch."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
+    from isaac_ros_nvblox_tpu_torch.mapper import device_mapper as dmod
+    from isaac_ros_nvblox_tpu_torch.mapper.multi_mapper import reproject_mask
+    from isaac_ros_nvblox_tpu_torch.ops import esdf_dense as ed
+    from isaac_ros_nvblox_tpu_torch.ops import mesh_cuda as mc
+    from isaac_ros_nvblox_tpu_torch.ops import view as view_ops
+    from isaac_ros_nvblox_tpu_torch.ops.color import integrate_color_planar
+    from isaac_ros_nvblox_tpu_torch.ops.color_cuda import integrate_color_cuda
+    from isaac_ros_nvblox_tpu_torch.ops.masking import (
+        remove_small_connected_components_device)
+    from isaac_ros_nvblox_tpu_torch.ops.occupancy import integrate_occupancy
+    from isaac_ros_nvblox_tpu_torch.ops.occupancy_cuda import (
+        integrate_occupancy_cuda)
+    from isaac_ros_nvblox_tpu_torch.ops.tsdf import integrate_tsdf
+    from isaac_ros_nvblox_tpu_torch.ops.tsdf_cuda import integrate_tsdf_cuda
+
+    # The frame with the most masked pixels, its mask as the MultiMapper
+    # builds it (reprojected, then filtered).
+    k = int(np.argmax([int((m > 0).sum()) for m in inp["masks"]]))
+    depth, T_np = inp["depths"][k], inp["poses"][k]
+    T = torch.as_tensor(T_np, device=dev)
+    mask = reproject_mask(depth, inp["masks"][k],
+                          torch.as_tensor(t_cm_cd(), device=dev),
+                          depth_camera=camera, mask_camera=camera.scaled(0.5))
+    mask = remove_small_connected_components_device(
+        mask, params.static_mapper.connected_mask_component_size_threshold)
+    n_masked = int((mask > 0).sum())
+    H, W = depth.shape
+    rows = []
+
+    def batch(m, masked, max_d, trunc, max_blocks):
+        st = wg.WorldGridState(**{a: v.clone()
+                                  for a, v in vars(m.state).items()})
+        st, slots, bidx = dmod._allocate_view(
+            st, view_ops.touched_block_grid(
+                masked, T, camera=camera, voxel_size_m=voxel,
+                max_distance_m=max_d, truncation_m=trunc),
+            voxel_size_m=voxel, max_blocks=max_blocks,
+            view_params=m._view_bounds())
+        return slots, bidx
+
+    # tsdf_fuse on the background depth, (a)'s static map.
+    sm = mm_tsdf.static_mapper
+    pp = sm.params.projective
+    bg = dmod._masked_depth(depth, mask, 1)
+    slots, bidx = batch(sm, bg, pp.max_integration_distance_m,
+                        pp.truncation_m(voxel), sm.max_blocks_per_frame)
+    base = (sm.channels["tsdf_distance"], sm.channels["tsdf_weight"])
+    got, want = [b.clone() for b in base], [b.clone() for b in base]
+    kw = dict(camera=camera, voxel_size_m=voxel, params=pp)
+    cap = sm.capacity
+    real = (slots >= 0) & (slots < cap)
+    p_C = centers_in_sensor(T, bidx, voxel)
+    uv, ok = camera.project(p_C)
+    n_view, n_upd = tsdf_reads_writes(uv, p_C[..., 2], ok & real[:, None],
+                                      bg, pp, voxel)
+    rows.append(plain_check(
+        "tsdf_fuse", "human", lambda: integrate_tsdf_cuda(
+            *got, slots, bidx, bg, T, **kw),
+        lambda: integrate_tsdf(*want, slots, bidx, bg, T, **kw), got, want,
+        base=base, rows=slots[real].long(), match="tsdf_fuse_kernel",
+        n_bytes=n_view * 8 + n_upd * 8 + H * W * 4 + slots.numel() * 16 + 64,
+        n_ops=int(real.sum()) * 512 * 30 + n_upd * 15, mask_mode=1,
+        frame=k, masked_pixels=n_masked, batch_blocks=int(real.sum()),
+        in_view_voxels=n_view, updated_voxels=n_upd))
+
+    # occupancy_fuse on the foreground (a) and background (b) depths.
+    for mode, m, mask_mode in ((
+            "human_with_static_tsdf", mm_tsdf.dynamic_mapper, 2),
+            ("human_with_static_occupancy", mm_occ.static_mapper, 1)):
+        occ = m.params.occupancy
+        masked = dmod._masked_depth(depth, mask, mask_mode)
+        slots, bidx = batch(m, masked, float(occ.max_integration_distance_m),
+                            float(occ.occupied_region_half_width_m),
+                            m.max_blocks_per_frame)
+        base = (m.channels["occupancy_log_odds"],
+                m.channels["occupancy_observed"])
+        got, want = [b.clone() for b in base], [b.clone() for b in base]
+        okw = dict(camera=camera, voxel_size_m=voxel, params=occ)
+        real = (slots >= 0) & (slots < m.capacity)
+        n_view = in_view_voxels(slots, bidx, T, camera, voxel, m.capacity)
+        rows.append(plain_check(
+            "occupancy_fuse", "human", lambda: integrate_occupancy_cuda(
+                *got, slots, bidx, masked, T, **okw),
+            lambda: integrate_occupancy(*want, slots, bidx, masked, T, **okw),
+            got, want, base=base, rows=slots[real].long(),
+            match="occupancy_fuse_kernel",
+            n_bytes=lambda n_upd: (n_view * 5 + n_upd * 5 + H * W * 4
+                                   + slots.numel() * 16),
+            n_ops=lambda n_upd: n_view * 40, mask_mode=mask_mode, mode=mode, frame=k,
+            batch_blocks=int(real.sum()), in_view_voxels=n_view))
+
+    # color_fuse on the color batch of the last color frame with the person
+    # in view, its color blacked out under the color-resolution mask.
+    kc = max(j for j in range(HUMAN_COLOR_EVERY - 1, len(inp["colors"]),
+                              HUMAN_COLOR_EVERY)
+             if bool((inp["color_masks"][j] > 0).any()))
+    Tc = torch.as_tensor(inp["poses"][kc], device=dev)
+    color = torch.where(inp["color_masks"][kc][..., None] > 0,
+                        torch.zeros((), dtype=torch.uint8, device=dev),
+                        inp["colors"][kc])
+    grid, origin = view_ops.touched_block_grid(
+        torch.full((H, W), pp.max_integration_distance_m, device=dev), Tc,
+        camera=camera, voxel_size_m=voxel,
+        max_distance_m=pp.max_integration_distance_m,
+        truncation_m=pp.truncation_m(voxel))
+    slots, bidx, _ = wg.view_batch(sm.state, grid, origin,
+                                   max_blocks=sm.max_blocks_per_frame)
+    names = ("color_r", "color_g", "color_b", "color_weight")
+    base = [sm.channels[c] for c in names]
+    got, want = [b.clone() for b in base], [b.clone() for b in base]
+    occl = torch.zeros((1, 1), device=dev)
+    cargs = (sm.channels["tsdf_distance"], sm.channels["tsdf_weight"], slots,
+             bidx, color, occl, Tc)
+    n_view = in_view_voxels(slots, bidx, Tc, camera, voxel, cap)
+    real = (slots >= 0) & (slots < cap)
+    rows.append(plain_check(
+        "color_fuse", "human", lambda: integrate_color_cuda(*got, *cargs,
+                                                            **kw),
+        lambda: integrate_color_planar(*want, *cargs, **kw), got, want,
+        base=base, rows=slots[real].long(), match="color_fuse_kernel",
+        n_bytes=lambda n_col: (n_view * 8 + n_col * 32 + H * W * 3 + 4
+                               + slots.numel() * 16),
+        n_ops=lambda n_col: n_view * 30 + n_col * 20, frame=kc,
+        masked_color_pixels=int((inp["color_masks"][kc] > 0).sum()),
+        batch_blocks=int(real.sum()), in_view_voxels=n_view))
+
+    # The 2-D EDT passes on (a)'s static 2-D frame (its last solve came
+    # after its last frame) and marching_cubes on its surface batch.
+    band_m = mm_tsdf.esdf_2d_band()
+    seeds = site_columns_2d(sm, band_m)
+    band = sm.esdf_band_vox
+    chain = edt2d_check(torch.as_tensor(seeds, device=dev), band,
+                        path="human")
+    if not torch.equal(torch.where(chain <= float(band * band), chain,
+                                   float(ed.INF)), sm.esdf_2d[1]):
+        fail("the human path's 2-D field differs from the plain passes'")
+    live = wg.live_slot_mask(sm.state)
+    nbr8, valid, *_ = dmod._surface_batch(
+        sm.state, live, torch.zeros_like(live), sm.channels["tsdf_distance"],
+        sm.channels["tsdf_weight"],
+        min_weight=float(sm.params.mesh.min_weight), max_blocks=4096)
+    crows = tuple(sm.channels[c] for c in names[:3])
+    mc_args = (sm.channels["tsdf_distance"], sm.channels["tsdf_weight"],
+               crows, nbr8, valid)
+    mc_kw = dict(min_weight=float(sm.params.mesh.min_weight),
+                 with_color=True)
+    outs = {}
+
+    def run_mc(key, fn):
+        def run():
+            outs[key] = fn(*mc_args, **mc_kw)
+        return run
+
+    n_surf = int(valid.sum())
+    halo = nbr8[valid > 0]
+    n_rows = int(torch.unique(halo[halo >= 0]).numel())
+    n_out = nbr8.shape[0] * (2 * 3 * 16 * 512 * 2 + 16 * 512 * 2)
+    rows.append(plain_check(
+        "marching_cubes", "human", run_mc("k", mc.marching_cubes_fused),
+        run_mc("p", mc.marching_cubes_plain), lambda: outs["k"],
+        lambda: outs["p"],
+        match="marching_cubes_kernel",
+        n_bytes=n_out + n_rows * 5 * 2048 + nbr8.numel() * 4,
+        n_ops=n_surf * 512 * (12 * 12 + 60), surface_blocks=n_surf))
+    return rows
+
+
+def centers_in_sensor(T, bidx, voxel):
+    """Voxel centres of blocks `bidx` in the frame of the sensor at T."""
+    from isaac_ros_nvblox_tpu_torch.core.types import (
+        Transform, voxel_centers_for_blocks)
+    return Transform.apply(Transform.inverse(T),
+                           voxel_centers_for_blocks(bidx, voxel))
+
+
+def human_phase(dev, smi, camera, voxel: float, world):
+    """The people-segmentation modes at the bench's width (the bench room
+    with a person walking through it, the 64 VGA frames, the mask from its
+    own 320 x 240 camera): (a) `human_with_static_tsdf` from
+    nvblox_base.yaml + nvblox_segmentation.yaml through the MultiMapper
+    (mask reprojection, the 2000 px connected-component filter, tsdf_fuse
+    on the background, occupancy_fuse on the foreground, color_fuse on the
+    masked color every 8th frame, the 2-D ESDF and the dynamic decay every
+    4th, the mesh every 8th); (b) `human_with_static_occupancy` on the
+    same frames; (c) the node in that mode with the ground-plane
+    estimator, ticking every 10 ms over 1.6 s of the frames at 40 Hz;
+    (d) (a)'s first 4 frames on the card and on the CPU; (e) the ground
+    plane against the port's CPU estimate. Each map against the
+    reference's CPU run (`--human`); every kernel the path launches
+    against its plain version. Launch counts `human`."""
+    import dataclasses
+    from pathlib import Path
+    import torch
+    from isaac_ros_nvblox_tpu_torch.mapper.multi_mapper import MultiMapper
+    from isaac_ros_nvblox_tpu_torch.mapper.params import apply_overlay
+    from isaac_ros_nvblox_tpu_torch.models.scene import orbit_pose
+    from isaac_ros_nvblox_tpu_torch.ops.ground_plane import (
+        GroundPlaneEstimator)
+    from isaac_ros_nvblox_tpu_torch.runtime.config_loader import load_config
+    from isaac_ros_nvblox_tpu_torch.runtime.node import NvbloxNode
+    from isaac_ros_nvblox_tpu_torch.utils.timing import Rates, Timing
+
+    cfg = Path(__file__).resolve().parent / "examples" / "config" / "nvblox"
+    node_params, params = load_config([
+        cfg / "nvblox_base.yaml",
+        cfg / "specializations" / "nvblox_segmentation.yaml"])
+    sp = params.static_mapper
+    if (params.mapping_type.value != "human_with_static_tsdf"
+            or not sp.remove_small_connected_components
+            or sp.connected_mask_component_size_threshold != 2000):
+        fail(f"the segmentation overlay loaded as {params.mapping_type}, "
+             f"threshold {sp.connected_mask_component_size_threshold}")
+    static_scene, inp = human_inputs(dev, camera, voxel)
+    n = len(inp["depths"])
+    mask_cam = camera.scaled(0.5)
+    T_CM_CD = t_cm_cd()
+    modes = ("human_with_static_tsdf", "human_with_static_occupancy")
+
+    def run_mode(mode, inputs=inp, frames=n, device=dev, end=False):
+        mm = MultiMapper(apply_overlay(params, {"mapping_type": mode}),
+                         world=world, device=device)
+        meshes = "tsdf_distance" in mm.static_mapper.channels
+        for k in range(frames):
+            T = inputs["poses"][k]
+            mm.integrate_depth(inputs["depths"][k], T, camera,
+                               mask=inputs["masks"][k], mask_camera=mask_cam,
+                               T_CM_CD=T_CM_CD)
+            last = end and k == frames - 1
+            if (k + 1) % HUMAN_COLOR_EVERY == 0 or last:
+                mm.integrate_color(inputs["colors"][k], T, camera,
+                                   mask=inputs["color_masks"][k])
+            if (k + 1) % HUMAN_ESDF_EVERY == 0 or last:
+                mm.update_esdf()
+                mm.decay_dynamic()
+            if meshes and ((k + 1) % HUMAN_MESH_EVERY == 0 or last):
+                mm.update_mesh()
+        return mm
+
+    launches_all, maps = {}, {}
+    for part, mode in zip("ab", modes):
+        t0 = time.perf_counter()
+        run_mode(mode)                          # warm-up
+        mm, launches, times = timed_run(lambda: run_mode(mode), n)
+        figs = human_map_figures(mm, static_scene, voxel)
+        emit({"phase": "human_frames", "part": part, "mode": mode,
+              "frames": n, "config": "nvblox_base.yaml + "
+              "nvblox_segmentation.yaml, mapping_type " + mode + "; bench "
+              "world and room with a walking person; 640x480 depth, "
+              "320x240 mask camera (T_CM_CD 4 cm, 2 deg); color every 8th "
+              "frame, 2-D ESDF and dynamic decay every 4th, mesh every 8th",
+              **times, **figs, "reference": HUMAN_REF[mode],
+              "masked_frames": sum(bool((m > 0).any())
+                                   for m in inp["masks"]),
+              "launches": launches, "seconds": time.perf_counter() - t0,
+              "nvidia_smi": smi})
+        if figs["static_overflow"] or figs["dynamic_overflow"]:
+            fail(f"human_frames ({part}) overflowed: {figs}")
+        bad = human_ref_failures(mode, figs)
+        if bad:
+            fail(f"human_frames ({part}) differs from the reference's CPU "
+                 f"run: {bad}")
+        for name, c in launches.items():
+            launches_all[name] = launches_all.get(name, 0) + c
+        maps[mode] = mm
+
+    # (c) the node with the segmentation overlay and the ground plane.
+    nparams = dataclasses.replace(node_params, use_segmentation=True,
+                                  use_ground_plane_estimator=True)
+    host = {k: [x.cpu().numpy() for x in inp[k]]
+            for k in ("depths", "masks", "colors")}
+
+    def run_node():
+        node = NvbloxNode(nparams, params, world=world, device=dev)
+        node.transformer.timestamp_tolerance_s = NODE_POSE_TOLERANCE_S
+        clock = [0.0]
+        node.clock = lambda: clock[0]
+        counts = {t: 0 for t in HUMAN_NODE_TOPICS}
+        for topic in HUMAN_NODE_TOPICS:
+            node.bus.subscribe(topic, lambda msg, topic=topic:
+                               counts.__setitem__(topic, counts[topic] + 1))
+        Timing.reset()
+        Rates.reset()
+        tick_ms, next_frame = [], 0
+        for i in range(NODE_TICKS):
+            ms = i * NODE_TICK_MS
+            now = ms / 1e3
+            node.add_pose("cam", now, orbit_pose(
+                2 * np.pi * (ms / NODE_FRAME_MS) / 16, radius=1.5))
+            node.add_pose("base_link", now, np.eye(4, dtype=np.float32))
+            while next_frame < n and next_frame * NODE_FRAME_MS <= ms:
+                k = next_frame
+                stamp = k * NODE_FRAME_MS / 1e3
+                node.add_depth_image(host["depths"][k], camera, "cam", stamp,
+                                     mask=host["masks"][k],
+                                     mask_camera=mask_cam, T_CM_CD=T_CM_CD)
+                node.add_color_image(host["colors"][k], camera, "cam", stamp)
+                next_frame += 1
+            clock[0] = now
+            t0 = time.perf_counter()
+            node.tick()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+        return node, {"counts": counts, "tick_ms": tick_ms,
+                      "timing": Timing.to_string(),
+                      "integrated": Timing.get("node/depth/integrate").count,
+                      "ground_plane": Timing.get("node/ground_plane").count,
+                      "esdf": Timing.get("node/esdf/update").count,
+                      "slices": Timing.get("node/esdf/slice").count}
+
+    t0 = time.perf_counter()
+    run_node()                                  # warm-up
+    (node, st), launches, times = timed_run(run_node, NODE_TICKS)
+    for name, c in launches.items():
+        launches_all[name] = launches_all.get(name, 0) + c
+    mm = node.multi_mapper
+    sm = mm.static_mapper
+    plane = mm.ground_plane_estimator.last_plane
+    arrivals = [-(-k * NODE_FRAME_MS // NODE_TICK_MS) * NODE_TICK_MS
+                for k in range(n)]
+    admitted = gate_admits(arrivals, nparams.integrate_depth_rate_hz)
+    band = mm.esdf_2d_band()
+    ticks = np.asarray(st["tick_ms"])
+    row = {"phase": "human_frames", "part": "c", "ticks": NODE_TICKS,
+           "config": "NvbloxNode: nvblox_base.yaml + nvblox_segmentation."
+                     "yaml, use_segmentation, use_ground_plane_estimator; "
+                     "depth (with the 320x240 mask) and color at 40 Hz, "
+                     "poses at 100 Hz, a tick every 10 ms",
+           "tick_wall_ms": {"mean": float(ticks.mean()),
+                            "p50": float(np.percentile(ticks, 50)),
+                            "p99": float(np.percentile(ticks, 99)),
+                            "max": float(ticks.max())},
+           **times, "messages": st["counts"],
+           "depth_frames_admitted": admitted,
+           "depth_frames_integrated": st["integrated"],
+           "ground_plane_updates": st["ground_plane"],
+           "esdf_updates": st["esdf"], "slices": st["slices"],
+           "plane": None if plane is None else [plane.a, plane.b, plane.c],
+           "band_m": list(band),
+           "static_frame_2d": list(sm._esdf2d_frame[:3]),
+           "static_frame_heights": list(sm.esdf_2d_frame_heights),
+           "static_blocks": sm.block_count(),
+           "dynamic_blocks": mm.dynamic_mapper.block_count(),
+           "overflow_count": int(sm.state.overflow_count),
+           "launches": launches, "seconds": time.perf_counter() - t0,
+           "nvidia_smi": smi}
+    emit(row)
+    print(st["timing"], flush=True)
+    if st["integrated"] != admitted:
+        fail(f"the human node integrated {st['integrated']} of {admitted} "
+             f"admitted depth frames")
+    if min(st["counts"].values()) == 0 or st["ground_plane"] == 0:
+        fail(f"a subscribed topic was never published: {st['counts']}")
+    if plane is None or not (
+            abs(plane.height_at(0.0, 0.0)) <= GROUND_HEIGHT_TOL_M
+            and plane.normal()[2] > GROUND_NORMAL_Z_MIN):
+        fail(f"the node's ground plane misses the floor: {row['plane']}")
+    lo = plane.c + sp.esdf_slice.slice_height_above_plane_m
+    if (band != (lo, lo + sp.esdf_slice.slice_height_thickness_m)
+            or tuple(sm.esdf_2d_frame_heights) != band):
+        fail(f"the 2-D band {band} (frame {sm.esdf_2d_frame_heights}) is "
+             f"not the plane-relative band")
+    if row["overflow_count"]:
+        fail("the human node overflowed")
+
+    # (e) the ground plane on the node's map against the port's CPU
+    # estimate of the same map, both from a fresh estimator (same draws).
+    cpu = MultiMapper(params, world=world, device="cpu")
+    cpu.load_state_arrays(mm.state_arrays())
+    planes = [GroundPlaneEstimator().estimate_device(m)
+              for m in (sm, cpu.static_mapper)]
+    coef = [None if p is None else np.asarray([p.a, p.b, p.c])
+            for p in planes]
+    diff = (float(np.abs(coef[0] - coef[1]).max())
+            if coef[0] is not None and coef[1] is not None else None)
+    emit({"phase": "human_frames", "part": "ground_plane",
+          "card": None if coef[0] is None else coef[0].tolist(),
+          "cpu": None if coef[1] is None else coef[1].tolist(),
+          "max_abs_diff": diff, "tolerance": GROUND_EQUAL_TOL})
+    if (diff is None or diff > GROUND_EQUAL_TOL
+            or abs(planes[0].height_at(0.0, 0.0)) > GROUND_HEIGHT_TOL_M
+            or planes[0].normal()[2] <= GROUND_NORMAL_Z_MIN):
+        fail(f"the card's ground plane {coef[0]} is not the floor or differs "
+             f"from the CPU's {coef[1]}")
+    del node, mm, sm, cpu
+
+    # (d) (a)'s first 4 frames (then color, the ESDF and the mesh) on the
+    # CPU and on the card: every array and every mesh block.
+    t0 = time.perf_counter()
+    cpu_inp = {k: [x.cpu() if isinstance(x, torch.Tensor) else x
+                   for x in v[:HUMAN_CPU_FRAMES]] for k, v in inp.items()}
+    pair = [run_mode(modes[0], inputs=src, frames=HUMAN_CPU_FRAMES,
+                     device=d, end=True)
+            for d, src in (("cpu", cpu_inp), (dev, inp))]
+    torch.cuda.synchronize()
+    a, b = (m.state_arrays() for m in pair)
+    loose = ("tsdf_distance", "tsdf_weight", "color_r", "color_g", "color_b",
+             "color_weight")
+    differ = sorted(
+        k for k in a if a[k].shape != b[k].shape or not (
+            np.allclose(a[k], b[k], rtol=0, atol=1e-5)
+            if k.split("/")[-1] in loose else np.array_equal(a[k], b[k])))
+    la, lb = (m.static_mapper.mesh_layer.blocks for m in pair)
+    mesh_differ = sorted(
+        str(k) for k in la.keys() | lb.keys()
+        if k not in la or k not in lb or not all(
+            np.array_equal(getattr(la[k], f), getattr(lb[k], f))
+            for f in ("vertices", "colors", "triangles")))
+    row = {"phase": "human_frames", "part": "d_card_vs_cpu",
+           "frames": HUMAN_CPU_FRAMES, "arrays": len(a),
+           "arrays_differ": differ, "mesh_blocks": [len(la), len(lb)],
+           "mesh_blocks_differ": mesh_differ[:8],
+           "masked_pixels": [int((m.last_dynamic_mask > 0).sum())
+                             for m in pair],
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    if differ or mesh_differ or not la:
+        fail(f"the human path on the card differs from its CPU run: {row}")
+    del pair, a, b
+
+    # The launches of (a)-(c), and every kernel against its plain version.
+    PATH_LAUNCHES["human"] = launches_all
+    for name in ("tsdf_fuse", "occupancy_fuse", "color_fuse", "edt_pass1",
+                 "edt_pass", "marching_cubes"):
+        if launches_all.get(name, 0) <= 0:
+            fail(f"kernel {name} was not launched on the human path")
+    for name in ("detect_dynamic", "dilate_dense"):
+        if launches_all.get(name, 0) != 0:
+            fail(f"kernel {name} ran on the human path, which keeps no "
+                 f"freespace")
+    human_kernel_checks(dev, camera, voxel, inp, maps[modes[0]],
+                        maps[modes[1]], params)
+    del maps
+    torch.cuda.empty_cache()
+
+
+# ---- bench.py's large and sparse scenes -----------------------------------
+# (name, orbit radius, integration distance, slot bucket): bench.py:464-575.
+SCENES = (("large", 2.0, 7.0, 8192), ("sparse", 1.8, 5.0, 2048))
+# The reference's own CPU run of the two scenes (its XLA TSDF path, which
+# the port mirrors, and the numpy EDT over the allocated region;
+# `tests/test_torch_accuracy.py --scenes`). Agreement allowed: blocks
+# within 1%, each error within 3% (the main path's margin: its ESDF limit
+# 0.05 m sits 2.8% above the reference's 0.0486 m).
+SCENES_REF = {"large": {"allocated_blocks": 6200, "tsdf_mae_m": 0.045416806,
+                        "esdf_mae_m": 0.22327462},
+              "sparse": {"allocated_blocks": 1532, "tsdf_mae_m": 0.053872108,
+                         "esdf_mae_m": 0.56427372}}
+SCENES_BLOCK_TOL, SCENES_MAE_TOL = 0.01, 0.03
+
+
+def bench_scene(name: str):
+    """bench.py's large (`:467-472`) or sparse (`:523-528`) scene."""
+    from isaac_ros_nvblox_tpu_torch.models.scene import (Box, RoomBox, Scene,
+                                                         Sphere)
+    if name == "large":
+        return Scene(primitives=(
+            RoomBox(center=(0.0, 0.0, 1.6), half_extents=(5.0, 3.6, 1.6)),
+            Sphere(center=(1.2, 0.8, 1.0), radius=0.5),
+            Box(center=(-1.5, -1.0, 0.4), half_extents=(0.4, 0.4, 0.4)),
+            Box(center=(2.8, -1.8, 0.6), half_extents=(0.5, 0.3, 0.6))))
+    return Scene(primitives=(
+        Box(center=(0.0, 0.0, -0.1), half_extents=(3.0, 3.0, 0.1)),
+        Box(center=(0.0, 0.0, 0.45), half_extents=(0.25, 0.25, 0.45)),
+        Box(center=(0.0, -0.22, 1.1), half_extents=(0.25, 0.03, 0.35)),
+        Sphere(center=(0.35, 0.3, 0.5), radius=0.18)))
+
+
+def scenes_phase(dev, smi, camera, voxel: float, world):
+    """bench.py's large and sparse scenes at its own settings: the
+    16-frame VGA orbit 4x over through `replay_frames`, then ESDF every
+    frame over `esdf_region(0, 1)` with the scene's slot bucket; the TSDF
+    and ESDF ms per frame by bench.py's paired differences (TSDF: the
+    replay minus an empty loop over the same frames; ESDF: the replay
+    with an ESDF every frame minus the plain replay), wall and device;
+    blocks and both errors of a fresh map of the 64 frames against the
+    reference's CPU run (`--scenes`);
+    tsdf_fuse and the EDT passes against their plain versions at these
+    shapes. Returns their kernels rows (path `scenes/<name>`). Launch
+    counts `scenes`."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch import kernels
+    from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
+    from isaac_ros_nvblox_tpu_torch.core.types import voxel_centers_for_blocks
+    from isaac_ros_nvblox_tpu_torch.mapper.device_mapper import DeviceMapper
+    from isaac_ros_nvblox_tpu_torch.mapper.params import MapperParams
+    from isaac_ros_nvblox_tpu_torch.models.scene import (orbit_pose,
+                                                         render_depth)
+    from isaac_ros_nvblox_tpu_torch.ops import esdf as esdf_ops
+    from isaac_ros_nvblox_tpu_torch.ops import view as view_ops
+    from isaac_ros_nvblox_tpu_torch.ops.tsdf import (TsdfIntegratorParams,
+                                                     integrate_tsdf)
+    from isaac_ros_nvblox_tpu_torch.ops.tsdf_cuda import integrate_tsdf_cuda
+
+    results, launches_all = [], {}
+    for name, radius, max_d, slot_bucket in SCENES:
+        t_start = time.perf_counter()
+        scene = bench_scene(name)
+        poses = torch.stack([torch.as_tensor(
+            orbit_pose(2 * np.pi * k / 16, radius=radius), device=dev)
+            for k in range(16)])
+        depths = torch.stack([render_depth(scene, camera, poses[k],
+                                           device=dev) for k in range(16)])
+        params = MapperParams(projective=TsdfIntegratorParams(
+            max_integration_distance_m=max_d))
+        pp = params.projective
+        grid_kw = dict(camera=camera, voxel_size_m=voxel,
+                       max_distance_m=max_d, truncation_m=pp.truncation_m(voxel))
+        worst = max(int(view_ops.touched_block_grid(
+            depths[k], poses[k], **grid_kw)[0].sum()) for k in range(16))
+        # bench.py's pick_max_blocks: buckets up to 4096.
+        mb = next((b for b in (512, 1024, 2048, 4096) if worst <= b - 64),
+                  4096)
+        m = DeviceMapper(voxel, params=params, world=world,
+                         enable_color=False, max_blocks_per_frame=mb,
+                         device=dev)
+        depths_r, poses_r = torch.cat([depths] * 4), torch.cat([poses] * 4)
+        n_steps = depths_r.shape[0]
+        m.replay_frames(depths_r, poses_r, camera)
+        region = m.esdf_region(margin_blocks=0, mult=1)
+        esdf_kw = dict(esdf_every=1, esdf_region=region,
+                       slot_bucket=slot_bucket)
+        m.replay_frames(depths_r, poses_r, camera, **esdf_kw)
+
+        def replay(**kw):
+            m.replay_frames(depths_r, poses_r, camera, **kw)
+
+        def empty():
+            # bench.py's empty scan: a step per frame over the same inputs.
+            acc = torch.zeros((), device=dev)
+            for k in range(n_steps):
+                acc = acc + depths_r[k, 0, 0] + poses_r[k, 0, 0]
+            return acc
+
+        def timed(fn, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(**kw)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        def paired(base_fn, var_fn, reps=3):
+            """bench.py's `paired`: the median of back-to-back (variant -
+            base) differences, ms per frame; the base's best, ms per
+            frame."""
+            diffs, bases = [], []
+            for _ in range(reps):
+                bases.append(base_fn())
+                diffs.append(var_fn() - bases[-1])
+            return (max(float(np.median(diffs)) * 1e3 / n_steps, 0.0),
+                    min(bases) * 1e3 / n_steps)
+
+        timed(empty)
+        kernels.reset_launch_counts()
+        tsdf_ms, floor_ms = paired(lambda: timed(empty),
+                                   lambda: timed(replay))
+        esdf_ms, replay_ms = paired(lambda: timed(replay),
+                                    lambda: timed(replay, **esdf_kw))
+        launches = dict(kernels.LAUNCHES)
+        for k, c in launches.items():
+            launches_all[k] = launches_all.get(k, 0) + c
+        dev_empty = device_ms(empty)[0]
+        dev_tsdf = device_ms(replay)[0]
+        # Last: an ESDF update after the last frame, as the checks expect.
+        dev_esdf = device_ms(lambda: replay(**esdf_kw))[0]
+        # The scored map is the reference's: a fresh map of the 64 frames,
+        # its ESDF solved after the last one (the timed map has taken the
+        # orbit many times over, which raises its weights).
+        scored = DeviceMapper(voxel, params=params, world=world,
+                              enable_color=False, max_blocks_per_frame=mb,
+                              device=dev)
+        scored.replay_frames(depths_r, poses_r, camera, esdf_every=n_steps,
+                             esdf_region=region, slot_bucket=slot_bucket)
+        bucket_ok = True
+        for mapper in (m, scored):
+            try:
+                mapper.check_slot_bucket()
+            except AssertionError as e:
+                bucket_ok = str(e)
+        overflow = int(m.state.overflow_count) + int(
+            scored.state.overflow_count)
+        n_blocks = scored.block_count()
+        sch = scored.channels
+        bidx = scored.state.block_index_of_slot[:n_blocks]
+        gt = scene.sdf(voxel_centers_for_blocks(bidx, voxel))
+        w = sch["tsdf_weight"][:n_blocks]
+        near = (gt.abs() < 0.1) & (w > 0.5)
+        tsdf_mae = float((sch["tsdf_distance"][:n_blocks] - gt).abs()[near]
+                         .mean())
+        sq = sch["esdf_sq_dist"][:n_blocks]
+        est = torch.clamp_max(torch.sqrt(torch.clamp_max(
+            sq, esdf_ops.INF_SQ)) * voxel, 2.0)
+        est = torch.where(sch["esdf_is_inside"][:n_blocks], -est, est)
+        emask = (gt > 3 * voxel) & (gt < 1.0) & (sq < 1e11)
+        esdf_mae = float((est - gt).abs()[emask].mean())
+        del scored, sch, sq, est, gt
+        ch = m.channels
+        ref = SCENES_REF[name]
+        row = {"phase": "scenes", "scene": name, "frames": n_steps,
+               "config": f"bench.py {name} scene: {max_d} m, orbit radius "
+                         f"{radius}, 640x480, 0.05 m, slot_bucket "
+                         f"{slot_bucket}, ESDF every frame",
+               "max_blocks_per_frame": mb, "worst_frame_blocks": worst,
+               "slot_bucket": slot_bucket,
+               "esdf_region_origin": [int(v) for v in region[0]],
+               "esdf_region_dims_blocks": [int(v) for v in region[1]],
+               "tsdf_ms": tsdf_ms, "esdf_ms": esdf_ms,
+               "empty_loop_ms": floor_ms, "replay_ms": replay_ms,
+               "tsdf_device_ms": (dev_tsdf - dev_empty) / n_steps,
+               "esdf_device_ms": (dev_esdf - dev_tsdf) / n_steps,
+               "allocated_blocks": n_blocks,
+               "timed_map_blocks": m.block_count(),
+               "overflow_count": overflow,
+               "check_slot_bucket": bucket_ok, "tsdf_mae_m": tsdf_mae,
+               "esdf_mae_m": esdf_mae, "tsdf_voxels_scored": int(near.sum()),
+               "esdf_voxels_scored": int(emask.sum()), "reference": ref,
+               "launches": launches, "nvidia_smi": smi}
+        if overflow or bucket_ok is not True:
+            emit(row)
+            fail(f"scene {name}: overflow_count {overflow}, "
+                 f"check_slot_bucket {bucket_ok}")
+        if (n_blocks != m.block_count()
+                or abs(n_blocks - ref["allocated_blocks"])
+                > SCENES_BLOCK_TOL * ref["allocated_blocks"]
+                or any(abs(x - ref[k]) > SCENES_MAE_TOL * ref[k] for k, x in
+                       (("tsdf_mae_m", tsdf_mae),
+                        ("esdf_mae_m", esdf_mae)))):
+            emit(row)
+            fail(f"scene {name} differs from the reference's CPU run")
+
+        # tsdf_fuse on frame 0's batch of the converged map.
+        st = wg.WorldGridState(**{a: v.clone()
+                                  for a, v in vars(m.state).items()})
+        grid, origin = view_ops.touched_block_grid(depths[0], poses[0],
+                                                   **grid_kw)
+        st, slots, bidx0, _ = wg.allocate_and_batch(st, grid, origin,
+                                                    max_blocks=mb)
+        base = (ch["tsdf_distance"], ch["tsdf_weight"])
+        got, want = [b.clone() for b in base], [b.clone() for b in base]
+        kw = dict(camera=camera, voxel_size_m=voxel, params=pp)
+        real = (slots >= 0) & (slots < m.capacity)
+        p_C = centers_in_sensor(poses[0], bidx0, voxel)
+        uv, ok = camera.project(p_C)
+        n_view, n_upd = tsdf_reads_writes(uv, p_C[..., 2],
+                                          ok & real[:, None], depths[0], pp,
+                                          voxel)
+        H, W = depths.shape[1:]
+        trow = plain_check(
+            "tsdf_fuse", f"scenes/{name}", lambda: integrate_tsdf_cuda(
+                *got, slots, bidx0, depths[0], poses[0], **kw),
+            lambda: integrate_tsdf(*want, slots, bidx0, depths[0], poses[0],
+                                   **kw),
+            got, want, base=base, rows=slots[real].long(),
+            match="tsdf_fuse_kernel",
+            n_bytes=(n_view * 8 + n_upd * 8 + H * W * 4 + slots.numel() * 16
+                     + 64),
+            n_ops=int(real.sum()) * 512 * 30 + n_upd * 15,
+            batch_blocks=int(real.sum()), in_view_voxels=n_view,
+            updated_voxels=n_upd, launches=launches["tsdf_fuse"])
+        del got, want, st
+        results.append({"name": "tsdf_fuse", "path": f"scenes/{name}",
+                        "route": "cuda",
+                        "source": "isaac_ros_nvblox_tpu_torch/csrc/"
+                                  "tsdf_fuse.cu",
+                        "replaces": "isaac_ros_nvblox_tpu/ops/"
+                                    "tsdf_pallas.py:100",
+                        "launches": launches["tsdf_fuse"],
+                        "max_abs_err": trow["max_abs_err"], "ms": trow["ms"],
+                        "plain_ms": trow["plain_ms"],
+                        "bound_ms": trow["bound_ms"],
+                        "bound_by": trow["bound_by"], "library_ms": None})
+
+        # edt_pass1 / edt_pass on the scene's ESDF region, seeded from the
+        # map (the last update came after the last frame).
+        is_site, _, _ = esdf_ops.esdf_sites_from_tsdf(
+            ch["tsdf_distance"], ch["tsdf_weight"], voxel_size_m=voxel,
+            max_site_distance_vox=params.esdf.max_site_distance_vox,
+            min_weight=params.esdf.min_weight)
+        origin_t = torch.as_tensor(np.asarray(region[0]), dtype=torch.int32,
+                                   device=dev)
+        edt_rows = edt_check(m.state, is_site, ch["esdf_sq_dist"], origin_t,
+                             tuple(int(d) for d in region[1]),
+                             m.esdf_band_vox, f"scenes/{name}")
+        del is_site
+        for kname, src_line in (("edt_pass1", 260), ("edt_pass", 113)):
+            rs = edt_rows[kname]
+            results.append({
+                "name": kname, "path": f"scenes/{name}", "route": "cuda",
+                "source": "isaac_ros_nvblox_tpu_torch/csrc/edt.cu",
+                "replaces": f"isaac_ros_nvblox_tpu/ops/esdf_dense.py:"
+                            f"{src_line}",
+                "launches": launches[kname],
+                "max_abs_err": max(r["max_abs_err"] for r in rs),
+                "ms": sum(r["ms"] for r in rs) / len(rs),
+                "plain_ms": sum(r["plain_ms"] for r in rs) / len(rs),
+                "bound_ms": sum(r["bound_ms"] for r in rs) / len(rs),
+                "bound_by": rs[-1]["bound_by"], "library_ms": None})
+        row["seconds"] = time.perf_counter() - t_start
+        emit(row)
+        for kname in ("tsdf_fuse", "edt_pass1", "edt_pass"):
+            if launches[kname] <= 0:
+                fail(f"kernel {kname} was not launched on the {name} scene")
+        del m, ch, depths_r, poses_r
+        torch.cuda.empty_cache()
+    PATH_LAUNCHES["scenes"] = launches_all
+    return results
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3794,6 +4744,12 @@ def main() -> None:
     # ---- the sharded mapper, submaps and two processes --------------------
     sharded_phase(dev, smi, camera, scene, depths, colors, voxel, params,
                   max_blocks, world, path, pipe)
+
+    # ---- the people-segmentation modes and the ground plane --------------
+    human_phase(dev, smi, camera, voxel, world)
+
+    # ---- bench.py's large and sparse scenes -------------------------------
+    results.extend(scenes_phase(dev, smi, camera, voxel, world))
 
     flush_checks()
     emit({"kernels": results})

@@ -25,6 +25,9 @@ port's steps exactly on the card.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Tuple
+
 import numpy as np
 import torch
 
@@ -35,6 +38,26 @@ VOXELS_PER_BLOCK: int = VOXELS_PER_SIDE ** 3  # 512
 
 def block_size_m(voxel_size_m: float) -> float:
     return VOXELS_PER_SIDE * voxel_size_m
+
+
+@dataclasses.dataclass(frozen=True)
+class AABB:
+    """Axis-aligned bounding box in meters (nvblox's
+    AxisAlignedBoundingBox)."""
+
+    min_m: Tuple[float, float, float]
+    max_m: Tuple[float, float, float]
+
+    def contains(self, p) -> torch.Tensor:
+        """bool[...]: whether each point `f32[..., 3]` lies in the box
+        (faces included)."""
+        lo = torch.tensor(self.min_m, dtype=torch.float32, device=p.device)
+        hi = torch.tensor(self.max_m, dtype=torch.float32, device=p.device)
+        return ((p >= lo) & (p <= hi)).all(dim=-1)
+
+    def size(self) -> np.ndarray:
+        return (np.asarray(self.max_m, np.float64)
+                - np.asarray(self.min_m, np.float64))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -276,3 +299,8 @@ def block_index_of_position(p_m, voxel_size_m: float) -> torch.Tensor:
     """Position `f32[..., 3]` -> containing block index `i32[..., 3]`."""
     bs = block_size_m(voxel_size_m)
     return torch.floor(p_m / bs).to(torch.int32)
+
+
+def global_voxel_index_of_position(p_m, voxel_size_m: float) -> torch.Tensor:
+    """Position `f32[..., 3]` -> global voxel index `i32[..., 3]`."""
+    return torch.floor(p_m / voxel_size_m).to(torch.int32)

@@ -350,6 +350,14 @@ def neighbor_slots8_of(state: WorldGridState, block_indices) -> torch.Tensor:
     return _slots_at(state, cells)
 
 
+def allocated_batch(state: WorldGridState, *, max_blocks: int):
+    """All allocated slots as a static-size batch, as full-map passes take
+    them: `allocated_batch_range` from slot 0 (slots at or beyond
+    alloc_count carry slot == capacity, block index 0; n is
+    min(alloc_count, max_blocks))."""
+    return allocated_batch_range(state, 0, max_blocks=max_blocks)
+
+
 def allocated_batch_range(state: WorldGridState, start: int, *,
                           max_blocks: int):
     """Allocated slots [start, start + max_blocks) as a static-size batch:

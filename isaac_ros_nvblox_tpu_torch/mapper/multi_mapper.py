@@ -129,6 +129,12 @@ class MultiMapper:
         self._last_camera: Optional[Camera] = None
 
     # -------------------------------------------------------------- helpers
+    def background_mapper(self) -> dm.DeviceMapper:
+        return self.static_mapper
+
+    def foreground_mapper(self) -> Optional[dm.DeviceMapper]:
+        return self.dynamic_mapper
+
     def _depth(self, depth) -> torch.Tensor:
         d = self.static_mapper._tensor(depth, torch.float32)
         sp = self.params.static_mapper

@@ -22,6 +22,11 @@ class Camera:
     width: int
     height: int
 
+    def intrinsics(self, device=None) -> torch.Tensor:
+        """`f32[4]`: (fx, fy, cx, cy)."""
+        return torch.tensor([self.fx, self.fy, self.cx, self.cy],
+                            dtype=torch.float32, device=device)
+
     def project(self, p_C):
         """Project camera-frame points `f32[..., 3]` to pixels.
 
@@ -57,6 +62,26 @@ class Camera:
                          torch.ones_like(uu)], dim=-1)
         return d / norm3(d)[..., None]
 
+    def frustum_corner_directions(self, max_depth: float,
+                                  device=None) -> torch.Tensor:
+        """The 4 far-plane corners in the camera frame, `f32[4, 3]`
+        (pixels (0, 0), (W-1, 0), (0, H-1), (W-1, H-1) at `max_depth`)."""
+        uv = torch.tensor([[0.0, 0.0], [self.width - 1.0, 0.0],
+                           [0.0, self.height - 1.0],
+                           [self.width - 1.0, self.height - 1.0]],
+                          dtype=torch.float32, device=device)
+        return self.unproject(uv[:, 0], uv[:, 1],
+                              torch.full((4,), max_depth, dtype=torch.float32,
+                                         device=device))
+
+    def scaled(self, factor: float) -> "Camera":
+        """The camera of an image scaled by `factor` (a mask at half
+        resolution: `scaled(0.5)`); width and height rounded."""
+        return Camera(self.fx * factor, self.fy * factor,
+                      self.cx * factor, self.cy * factor,
+                      int(round(self.width * factor)),
+                      int(round(self.height * factor)))
+
 
 def sample_image_nearest(image, uv):
     """Nearest-neighbor sample `image[H, W, ...]` at pixel coords `uv[..., 2]`.
@@ -69,3 +94,21 @@ def sample_image_nearest(image, uv):
     u = torch.round(uv[..., 0]).clamp(-1.0, float(W)).long().clamp(0, W - 1)
     v = torch.round(uv[..., 1]).clamp(-1.0, float(H)).long().clamp(0, H - 1)
     return image[v, u]
+
+
+def sample_image_bilinear(image, uv):
+    """Bilinear sample of a single-channel `image[H, W]` at pixel coords
+    `uv[..., 2]`, clamped to the image (border pixels repeat)."""
+    H, W = image.shape[0], image.shape[1]
+    u = uv[..., 0].clamp(0.0, W - 1.0)
+    v = uv[..., 1].clamp(0.0, H - 1.0)
+    u0 = torch.floor(u).long()
+    v0 = torch.floor(v).long()
+    u1 = (u0 + 1).clamp_max(W - 1)
+    v1 = (v0 + 1).clamp_max(H - 1)
+    fu = u - u0.float()
+    fv = v - v0.float()
+    i00, i01 = image[v0, u0], image[v0, u1]
+    i10, i11 = image[v1, u0], image[v1, u1]
+    return ((i00 * (1 - fu) + i01 * fu) * (1 - fv)
+            + (i10 * (1 - fu) + i11 * fu) * fv)

@@ -124,8 +124,13 @@ def ransac_plane_fit(points, valid, *, params: GroundPlaneEstimatorParams,
     z = tri[..., 2]
     det_ok = torch.linalg.det(A).abs() > 1e-9
     eye = torch.eye(3, device=dev).expand(n_hyp, 3, 3)
-    coeffs = torch.linalg.solve(torch.where(det_ok[:, None, None], A, eye),
-                                z[..., None])[..., 0]     # [H, 3]
+    # `solve_ex` without its error check: a hypothesis whose determinant
+    # passes the test but whose LU meets a zero pivot gives non-finite
+    # coefficients and no inliers, as in the reference, instead of raising
+    # (and reading the solver's status back to the host).
+    coeffs = torch.linalg.solve_ex(
+        torch.where(det_ok[:, None, None], A, eye),
+        z[..., None])[0][..., 0]                           # [H, 3]
     pred_z = (points[None, :, 0] * coeffs[:, 0:1]
               + points[None, :, 1] * coeffs[:, 1:2] + coeffs[:, 2:3])
     resid = (points[None, :, 2] - pred_z).abs()
@@ -138,18 +143,38 @@ def ransac_plane_fit(points, valid, *, params: GroundPlaneEstimatorParams,
     X = torch.cat([points[:, :2], torch.ones((N, 1), device=dev)], -1)
     XtX = (X * wgt[:, None]).T @ X + 1e-6 * torch.eye(3, device=dev)
     Xtz = (X * wgt[:, None]).T @ points[:, 2]
-    refit = torch.linalg.solve(XtX, Xtz)
+    refit = torch.linalg.solve_ex(XtX, Xtz)[0]
     return refit, scores[best], scores[best] > 10
 
 
 class GroundPlaneEstimator:
-    """Candidate extraction and RANSAC over a DeviceMapper's TSDF."""
+    """Candidate extraction and RANSAC over a mapper's TSDF: a DeviceMapper
+    (`estimate_device`) or the host-table Mapper (`estimate`)."""
 
     def __init__(self, params: Optional[GroundPlaneEstimatorParams] = None,
                  seed: int = 0):
         self.params = params or GroundPlaneEstimatorParams()
         self._generator = torch.Generator().manual_seed(seed)
         self.last_plane: Optional[Plane] = None
+        # The valid candidates of the last `estimate`, `f32[K, 3]` (numpy).
+        self.last_candidates: Optional[np.ndarray] = None
+
+    def _fit(self, d_pad, w_pad, bidx, valid_blocks, voxel_size_m: float):
+        """Candidates of the halo grids, then RANSAC: (plane or None,
+        points f32[N * 64, 3], valid bool[N * 64])."""
+        p = self.params
+        pts, valid = tsdf_zero_crossings_ground_candidates(
+            d_pad, w_pad, bidx, valid_blocks, voxel_size_m=voxel_size_m,
+            min_z_m=p.ground_points_candidates_min_z_m,
+            max_z_m=p.ground_points_candidates_max_z_m)
+        pts, valid = pts.reshape(-1, 3), valid.reshape(-1)
+        coeffs, _, ok = ransac_plane_fit(pts, valid, params=p,
+                                         generator=self._generator)
+        if not bool(ok):
+            return None, pts, valid
+        c = coeffs.cpu().numpy()
+        self.last_plane = Plane(a=float(c[0]), b=float(c[1]), c=float(c[2]))
+        return self.last_plane, pts, valid
 
     @torch.no_grad()
     def estimate_device(self, m) -> Optional[Plane]:
@@ -166,17 +191,33 @@ class GroundPlaneEstimator:
                             lo=0, hi=1)
         w_pad = gather_halo(m.channels["tsdf_weight"].reshape(grid), nbrs,
                             lo=0, hi=1)
-        p = self.params
-        pts, valid = tsdf_zero_crossings_ground_candidates(
-            d_pad, w_pad, bidx, wg.live_slot_mask(m.state),
-            voxel_size_m=m.voxel_size_m,
-            min_z_m=p.ground_points_candidates_min_z_m,
-            max_z_m=p.ground_points_candidates_max_z_m)
-        coeffs, _, ok = ransac_plane_fit(pts.reshape(-1, 3),
-                                         valid.reshape(-1), params=p,
-                                         generator=self._generator)
-        if not bool(ok):
+        return self._fit(d_pad, w_pad, bidx, wg.live_slot_mask(m.state),
+                         m.voxel_size_m)[0]
+
+    @torch.no_grad()
+    def estimate(self, mapper) -> Optional[Plane]:
+        """Estimate from the host-table `Mapper`: the halo of its allocated
+        slots through the table's neighbour rows; keeps the valid
+        candidates in `last_candidates`. None without a TSDF, without
+        blocks or without enough inliers."""
+        pool = mapper.pool
+        if "tsdf_distance" not in pool.channels:
             return None
-        c = coeffs.cpu().numpy()
-        self.last_plane = Plane(a=float(c[0]), b=float(c[1]), c=float(c[2]))
-        return self.last_plane
+        slots = mapper.table.allocated_slots()
+        if slots.size == 0:
+            return None
+        nbrs = torch.as_tensor(mapper.table.neighbors[slots],
+                               device=pool.device)
+        d_pad = gather_halo(pool.voxel_grid_view("tsdf_distance"), nbrs,
+                            lo=0, hi=1)
+        w_pad = gather_halo(pool.voxel_grid_view("tsdf_weight"), nbrs,
+                            lo=0, hi=1)
+        bidx = torch.as_tensor(mapper.table.block_indices[slots],
+                               device=pool.device)
+        plane, pts, valid = self._fit(
+            d_pad, w_pad, bidx,
+            torch.ones(slots.size, dtype=torch.bool, device=pool.device),
+            mapper.voxel_size_m)
+        if plane is not None:
+            self.last_candidates = pts[valid].cpu().numpy()
+        return plane

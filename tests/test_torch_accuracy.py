@@ -16,7 +16,11 @@ chip_smoke.py's occupancy and lidar paths (its XLA integrators; the
 sources of those paths' limits); with `--dynamics` its figures for the
 scored part of chip_smoke.py's `dynamic_frames` phase; with `--node` its
 node's figures for chip_smoke.py's `node_ticks` phase; with `--fuser` its
-figures for chip_smoke.py's `fuser` phase (a).
+figures for chip_smoke.py's `fuser` phase (a); with `--human` its figures
+for chip_smoke.py's `human_frames` phase (the people-segmentation modes,
+a person walking through the bench room, the mask from a separate
+camera); with `--scenes` its figures for chip_smoke.py's `scenes` phase
+(bench.py's large and sparse scenes).
 """
 
 import json
@@ -611,6 +615,163 @@ def fuser_reference():
             "esdf_mae_m": esdf_mae}
 
 
+def _human_frames(n_frames=64):
+    """chip_smoke.py's human_frames inputs, rendered by the reference: the
+    bench orbit 4x over, the person at its place in each frame; (depth,
+    mask in the mask camera, pose) per frame."""
+    from test_torch_human import VGA, human_frame
+    jcam = jc.Camera(**VGA)
+    render = lambda sc, c, T: np.asarray(js.render_depth(sc, c,
+                                                         jnp.asarray(T)))
+    poses = [js.orbit_pose(2 * np.pi * k / 16, radius=1.5)
+             for k in range(16)]
+    out = []
+    for k in range(n_frames):
+        T = poses[k % 16]
+        depth, mask, _ = human_frame(render, js, jcam, jcam.scaled(0.5), T, k,
+                                     n_frames)
+        out.append((depth, mask, T))
+    return jcam, out
+
+
+def _person_voxels(centers, keep):
+    """Voxels of the person's swept box above the floor band (z >= 2
+    voxels) where `keep` holds."""
+    from test_torch_human import person_swept_box
+    lo, hi = person_swept_box()
+    lo[2] = 2 * VOXEL
+    inside = np.all((centers >= lo) & (centers <= hi), axis=-1)
+    return int((inside & keep).sum())
+
+
+def human_reference():
+    """The reference's CPU run of chip_smoke.py's human_frames (a) and
+    (b): its MultiMapper from nvblox_base.yaml + nvblox_segmentation.yaml
+    (human_with_static_tsdf, the 2000 px connected-component filter; (b)
+    the same with human_with_static_occupancy) on the bench world; the 64
+    VGA frames through `integrate_depth(depth, T, camera, mask,
+    mask_camera, T_CM_CD)` with the 320 x 240 mask camera, the dynamic
+    layer's decay every 4th frame. Figures: the blocks of both mappers;
+    the static TSDF's error against the room without the person; the
+    static map's person voxels (in the person's swept box above the floor
+    band: TSDF weight > 0.5 and distance < 1 voxel, or occupied); the
+    dynamic map's occupied voxels; the masked pixels after the filter."""
+    from isaac_ros_nvblox_tpu.mapper.multi_mapper import MultiMapper
+    from isaac_ros_nvblox_tpu.runtime.config_loader import load_config
+    from test_torch_human import ROOM, t_cm_cd
+    from pathlib import Path
+    jcam, frames = _human_frames()
+    cfg = Path(__file__).resolve().parent.parent / "examples/config/nvblox"
+    _, params = load_config([cfg / "nvblox_base.yaml",
+                             cfg / "specializations/nvblox_segmentation.yaml"])
+    room = js.Scene(primitives=(js.RoomBox(**ROOM[0]), js.Sphere(**ROOM[1]),
+                                js.Box(**ROOM[2])))
+    out = {"config": params.mapping_type.value,
+           "cc_threshold_px": params.static_mapper
+           .connected_mask_component_size_threshold}
+    for mode in ("human_with_static_tsdf", "human_with_static_occupancy"):
+        from isaac_ros_nvblox_tpu.mapper.params import apply_overlay
+        mm = MultiMapper(apply_overlay(params, {"mapping_type": mode}),
+                         world=jwg.WorldGridConfig(**WORLD))
+        masked = []
+        for k, (depth, mask, T) in enumerate(frames):
+            mm.integrate_depth(depth, T, jcam, mask=mask,
+                               mask_camera=jcam.scaled(0.5),
+                               T_CM_CD=t_cm_cd())
+            masked.append(int((np.asarray(mm.last_dynamic_mask) > 0).sum()))
+            if k % 4 == 3:
+                mm.decay_dynamic()
+        sm, dm = mm.static_mapper, mm.dynamic_mapper
+        n = int(sm.state.alloc_count)
+        bidx = np.asarray(sm.state.block_index_of_slot)[:n]
+        centers = np.asarray(voxel_centers_for_blocks(jnp.asarray(bidx),
+                                                      VOXEL))
+        row = {"static_blocks": sm.block_count(),
+               "dynamic_blocks": dm.block_count(),
+               "static_overflow": int(sm.state.overflow_count),
+               "dynamic_overflow": int(dm.state.overflow_count),
+               "masked_pixels": masked,
+               "dynamic_occupied_voxels": int((np.asarray(
+                   dm.channels["occupancy_log_odds"]) > 0).sum())}
+        if "tsdf_distance" in sm.channels:
+            d = np.asarray(sm.channels["tsdf_distance"])[:n]
+            w = np.asarray(sm.channels["tsdf_weight"])[:n]
+            gt = np.asarray(room.sdf(centers))
+            near = (np.abs(gt) < 0.1) & (w > 0.5)
+            row["tsdf_mae_m"] = float(np.mean(np.abs(d[near] - gt[near])))
+            row["tsdf_voxels_scored"] = int(near.sum())
+            row["static_person_voxels"] = _person_voxels(
+                centers, (w > 0.5) & (d < VOXEL))
+        else:
+            lo = np.asarray(sm.channels["occupancy_log_odds"])[:n]
+            obs = np.asarray(sm.channels["occupancy_observed"])[:n] > 0
+            row["static_occupied_voxels"] = int((obs & (lo > 0)).sum())
+            row["static_person_voxels"] = _person_voxels(centers,
+                                                         obs & (lo > 0))
+        out[mode] = row
+    return out
+
+
+def scenes_reference():
+    """The reference's CPU run of chip_smoke.py's `scenes` phase:
+    bench.py:464-575's large scene (a 10 x 7.2 x 3.2 m room, its three
+    primitives, 7 m, the radius-2.0 orbit) and sparse scene (a floor slab
+    and an object cluster, 5 m, the radius-1.8 orbit), each 16 VGA frames
+    4x over through its XLA TSDF path with bench.py's batch rule, then the
+    ESDF of the final map over its allocated region (the numpy EDT, equal
+    to the reference's kernels); blocks, `tsdf_mae_m`, `esdf_mae_m`
+    (bench.py:628-646)."""
+    jcam = jc.Camera(**ARGS)
+    large = js.Scene(primitives=(
+        js.RoomBox(center=(0.0, 0.0, 1.6), half_extents=(5.0, 3.6, 1.6)),
+        js.Sphere(center=(1.2, 0.8, 1.0), radius=0.5),
+        js.Box(center=(-1.5, -1.0, 0.4), half_extents=(0.4, 0.4, 0.4)),
+        js.Box(center=(2.8, -1.8, 0.6), half_extents=(0.5, 0.3, 0.6))))
+    sparse = js.Scene(primitives=(
+        js.Box(center=(0.0, 0.0, -0.1), half_extents=(3.0, 3.0, 0.1)),
+        js.Box(center=(0.0, 0.0, 0.45), half_extents=(0.25, 0.25, 0.45)),
+        js.Box(center=(0.0, -0.22, 1.1), half_extents=(0.25, 0.03, 0.35)),
+        js.Sphere(center=(0.35, 0.3, 0.5), radius=0.18)))
+    out = {}
+    for name, scene, radius, max_d in (("large", large, 2.0, 7.0),
+                                       ("sparse", sparse, 1.8, 5.0)):
+        poses = [js.orbit_pose(2 * np.pi * k / 16, radius=radius)
+                 for k in range(16)]
+        depths = [np.asarray(js.render_depth(scene, jcam, jnp.asarray(T)))
+                  for T in poses]
+        trunc = JTsdf(max_integration_distance_m=max_d).truncation_m(VOXEL)
+        worst = max(int(np.asarray(jv.touched_block_grid(
+            jnp.asarray(d), jnp.asarray(T), camera=jcam, voxel_size_m=VOXEL,
+            max_distance_m=max_d, truncation_m=trunc, subsample=1)[0]).sum())
+            for d, T in zip(depths, poses))
+        # bench.py's pick_max_blocks: buckets up to 4096.
+        mb = next((b for b in (512, 1024, 2048, 4096) if worst <= b - 64),
+                  4096)
+        jm = JMapper(VOXEL, params=JParams(projective=JTsdf(
+            max_integration_distance_m=max_d)),
+            world=jwg.WorldGridConfig(**WORLD), enable_color=False,
+            enable_esdf=False, max_blocks_per_frame=mb)
+        for depth, T in list(zip(depths, poses)) * 4:
+            jm.integrate_depth(depth, jnp.asarray(T), jcam)
+        n = jm.block_count()
+        bidx = np.asarray(jm.state.block_index_of_slot)
+        d_j = np.asarray(jm.channels["tsdf_distance"])
+        w_j = np.asarray(jm.channels["tsdf_weight"])
+        origin, dims = _live_region(jm.state)
+        _, inside, sq = _reference_esdf(d_j, w_j, bidx, n, origin, dims)
+        centers = np.asarray(voxel_centers_for_blocks(jnp.asarray(bidx[:n]),
+                                                      VOXEL))
+        tsdf_mae, esdf_mae = _scores(np.asarray(scene.sdf(centers)), d_j[:n],
+                                     w_j[:n], sq[:n], inside[:n])
+        out[name] = {"max_blocks_per_frame": mb, "worst_frame_blocks": worst,
+                     "allocated_blocks": int(n),
+                     "overflow_count": int(jm.state.overflow_count),
+                     "esdf_region_origin": [int(v) for v in origin],
+                     "esdf_region_dims_blocks": list(dims),
+                     "tsdf_mae_m": tsdf_mae, "esdf_mae_m": esdf_mae}
+    return out
+
+
 def main():
     import sys
     for flag, fn, config in (
@@ -629,6 +790,18 @@ def main():
              "chip_smoke fuser phase (a): bench room, SyntheticDataLoader's "
              "64-frame orbit at Replica's default 1200x680 camera, fuser "
              "world 128x128x32 blocks, 16384 slots, 0.05 m, 7 m, band 40"),
+            ("--human", human_reference,
+             "chip_smoke human_frames (a), (b): nvblox_base.yaml + "
+             "nvblox_segmentation.yaml on the bench world (64x64x32 blocks, "
+             "16384 slots) and room with a 0.5x0.3x1.7 m person walking "
+             "along y = -1.85 m; the 16-frame 640x480 orbit x4; the mask "
+             "at 320x240 from a camera 4 cm and 2 degrees off; decay of "
+             "the dynamic layer every 4th frame"),
+            ("--scenes", scenes_reference,
+             "chip_smoke scenes: bench.py's large (10x7.2x3.2 m room, 7 m, "
+             "orbit radius 2.0) and sparse (floor slab + object cluster, "
+             "5 m, radius 1.8) scenes, 16-frame 640x480 orbit x4, 0.05 m, "
+             "band 40"),
             ("--node", node_reference,
              "chip_smoke node_ticks: NvbloxNode defaults (static tsdf, "
              "esdf 2d, 16384 slots) on the bench world and room; 161 ticks "

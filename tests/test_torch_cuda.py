@@ -1718,3 +1718,136 @@ def test_fused_submap_cuda_equals_cpu(dev):
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     assert (a["tsdf_weight"] > 0).sum() > 10000
+
+
+# ---------------------------------------------------------------------------
+# The people-segmentation modes and the ground plane
+# ---------------------------------------------------------------------------
+
+def _human_frames(n=4):
+    """A person (a 0.5 x 0.3 x 1.7 m box) in a room at 160 x 120, seen
+    from 4 poses; its mask in a 80 x 60 camera 4 cm and 2 degrees off the
+    depth camera (T_CM_CD), and in the depth camera: (depth, mask, color
+    mask, color, pose) per frame, on the CPU."""
+    from isaac_ros_nvblox_tpu_torch.models.scene import (Box, RoomBox, Scene,
+                                                         Sphere)
+    room = (RoomBox(center=(0.0, 0.0, 1.5), half_extents=(3.0, 2.2, 1.5)),
+            Sphere(center=(1.2, 0.8, 1.0), radius=0.5))
+    full = Scene(primitives=room + (Box(center=(0.3, -1.85, 0.85),
+                                        half_extents=(0.25, 0.15, 0.85)),))
+    static = Scene(primitives=room)
+    c, s = np.cos(np.deg2rad(2.0)), np.sin(np.deg2rad(2.0))
+    T_CM_CD = np.eye(4, dtype=np.float32)
+    T_CM_CD[:3, :3] = [[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]]
+    T_CM_CD[:3, 3] = (-0.04, 0.0, 0.0)
+    mask_cam = CAM.scaled(0.5)
+
+    def truth(cam, T):
+        d = render_depth(full, cam, T, device="cpu")
+        e = render_depth(static, cam, T, device="cpu")
+        return d, ((d > 0) & (d < e - 0.1)).to(torch.uint8) * 255
+
+    out = []
+    for k in range(n):
+        T = orbit_pose(np.deg2rad(70.0 + 10.0 * k), radius=1.5)
+        depth, cmask = truth(CAM, T)
+        _, mask = truth(mask_cam, (T @ np.linalg.inv(T_CM_CD)).astype(
+            np.float32))
+        out.append((depth, mask, cmask,
+                    render_color(full, CAM, T, device="cpu"), T))
+    return out, mask_cam, T_CM_CD
+
+
+def _human_mapper(mode, d):
+    from isaac_ros_nvblox_tpu_torch.mapper.params import make_params
+    return MultiMapper(make_params(overlay={
+        "mapping_type": mode, "block_capacity": 4096,
+        "static_mapper": {"connected_mask_component_size_threshold": 125}}),
+        world=wg.WorldGridConfig(dims=(48, 48, 24), capacity=4096,
+                                 origin_block=(-24, -24, -6)), device=d)
+
+
+@pytest.mark.parametrize("mode", ["human_with_static_tsdf",
+                                  "human_with_static_occupancy"])
+def test_human_modes_cuda_equal_cpu(dev, mode):
+    """Masked frames with a separate mask camera (reprojection, the
+    component filter, the masked static and dynamic integrations), the
+    masked color, the dynamic decay and the 2-D ESDF on the card equal
+    the plain path on the CPU in every array."""
+    frames, mask_cam, T_CM_CD = _human_frames()
+    out = []
+    for d in ("cpu", dev):
+        mm = _human_mapper(mode, d)
+        for depth, mask, cmask, color, T in frames:
+            mm.integrate_depth(depth, T, CAM, mask=mask, mask_camera=mask_cam,
+                               T_CM_CD=T_CM_CD)
+            mm.integrate_color(color, T, CAM, mask=cmask)
+            mm.decay_dynamic()
+        mm.update_esdf()
+        out.append(mm.state_arrays())
+    a, b = out
+    assert a.keys() == b.keys()
+    assert (a["dynamic_mapper/occupancy_log_odds"] > 0).sum() > 50
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_human_tick_makes_no_host_sync(dev):
+    """A masked depth frame from the mask camera (reprojection, the
+    component filter, both masked integrations) never waits on the
+    device."""
+    frames, mask_cam, T_CM_CD = _human_frames()
+    mm = _human_mapper("human_with_static_tsdf", dev)
+    depth, mask, _, _, T = frames[0]
+    depth, mask = depth.to(dev), mask.to(dev)
+    T_t = torch.as_tensor(T, device=dev)
+    cmcd = torch.as_tensor(T_CM_CD, device=dev)
+    mm.integrate_depth(depth, T_t, CAM, mask=mask, mask_camera=mask_cam,
+                       T_CM_CD=cmcd)                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            mm.integrate_depth(depth, T_t, CAM, mask=mask,
+                               mask_camera=mask_cam, T_CM_CD=cmcd)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert mm.dynamic_mapper.block_count() > 0
+
+
+def test_ground_plane_cuda_equals_cpu(dev):
+    """The ground plane of a floor seen from above (both mappers' forms)
+    on the card: the floor (tests/test_multi_mapper.py:98-116's bounds),
+    within 1e-5 of the CPU's estimate with the same draws; the host
+    Mapper's candidates equal."""
+    from isaac_ros_nvblox_tpu_torch.mapper.mapper import Mapper
+    from isaac_ros_nvblox_tpu_torch.models.scene import Plane, Scene
+    from isaac_ros_nvblox_tpu_torch.ops.ground_plane import (
+        GroundPlaneEstimator)
+    scene = Scene(primitives=(Plane(normal=(0, 0, 1), offset=0.0),))
+    frames = []
+    for k in range(2):
+        T = orbit_pose(0.3 * k, radius=1.5, height=1.2, target=(0.5, 0, 0))
+        frames.append((render_depth(scene, CAM, T, device="cpu"), T))
+    planes, cands = [], []
+    for d in ("cpu", dev):
+        dm = DeviceMapper(VOXEL, world=wg.WorldGridConfig(
+            dims=(48, 48, 24), capacity=2048, origin_block=(-24, -24, -6)),
+            enable_color=False, max_blocks_per_frame=2048, device=d)
+        hm = Mapper(VOXEL, capacity=4096, enable_color=False,
+                    enable_esdf=False, device=d)
+        for depth, T in frames:
+            dm.integrate_depth(depth, T, CAM)
+            hm.integrate_depth(depth, T, CAM)
+        est = GroundPlaneEstimator()
+        planes.append([est.estimate_device(dm), est.estimate(hm)])
+        cands.append(est.last_candidates)
+    for p_cpu, p_card in zip(*planes):
+        assert p_card is not None and p_cpu is not None
+        assert abs(p_card.height_at(0.5, 0.0)) < 0.08
+        assert p_card.normal()[2] > 0.95
+        np.testing.assert_allclose([p_card.a, p_card.b, p_card.c],
+                                   [p_cpu.a, p_cpu.b, p_cpu.c], rtol=0,
+                                   atol=1e-5)
+    np.testing.assert_array_equal(cands[1], cands[0])

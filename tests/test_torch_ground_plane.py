@@ -118,3 +118,84 @@ def test_estimate_device_finds_the_floor(floor):
                            projective_layer=tdm.ProjectiveLayerType.OCCUPANCY,
                            device="cpu")
     assert est.estimate_device(occ) is None
+
+
+# ------------------------------------------- the host-table Mapper backend
+@pytest.fixture(scope="module")
+def host_floor(tmp_path_factory):
+    """tests/test_multi_mapper.py:98-116 on the reference's host-table
+    Mapper (a floor at z = 0, two views from above), saved as a map file
+    and loaded into the port's Mapper (the files cross-load)."""
+    from isaac_ros_nvblox_tpu.io import serialization as jser
+    from isaac_ros_nvblox_tpu.mapper.mapper import Mapper as JMapper
+    from isaac_ros_nvblox_tpu_torch.io import serialization as tser
+    from isaac_ros_nvblox_tpu_torch.mapper.mapper import Mapper as TMapper
+    jcam = jc.Camera(**CAM)
+    scene = js.Scene(primitives=(js.Plane(normal=(0, 0, 1), offset=0.0),))
+    jm = JMapper(voxel_size_m=VOXEL, capacity=4096, enable_color=False,
+                 enable_esdf=False)
+    for k in range(2):
+        T = js.orbit_pose(0.3 * k, radius=1.5, height=1.2, target=(0.5, 0, 0))
+        jm.integrate_depth(js.render_depth(scene, jcam, jnp.asarray(T)), T,
+                           jcam)
+    path = tmp_path_factory.mktemp("floor") / "floor.nvblx"
+    jser.save_map(jm, path)
+    tm = TMapper(voxel_size_m=VOXEL, capacity=4096, enable_color=False,
+                 enable_esdf=False, device="cpu")
+    assert tser.load_map(tm, path) == jm.table.num_allocated > 50
+    return jm, tm
+
+
+def test_estimate_on_host_mapper_finds_the_floor():
+    """tests/test_multi_mapper.py:98-116 through the port's host-table
+    Mapper and GroundPlaneEstimator.estimate: height within 0.08 m at
+    (0.5, 0), normal z > 0.95."""
+    from isaac_ros_nvblox_tpu_torch.mapper.mapper import Mapper as TMapper
+    from isaac_ros_nvblox_tpu_torch.models import scene as ts
+    tcam = tc.Camera(**CAM)
+    scene = ts.Scene(primitives=(ts.Plane(normal=(0, 0, 1), offset=0.0),))
+    m = TMapper(voxel_size_m=VOXEL, capacity=4096, enable_color=False,
+                enable_esdf=False, device="cpu")
+    for k in range(2):
+        T = ts.orbit_pose(0.3 * k, radius=1.5, height=1.2, target=(0.5, 0, 0))
+        m.integrate_depth(ts.render_depth(scene, tcam, torch.from_numpy(T),
+                                          device="cpu"), T, tcam)
+    est = tgp.GroundPlaneEstimator()
+    plane = est.estimate(m)
+    assert plane is not None and est.last_plane is plane
+    assert abs(plane.height_at(0.5, 0.0)) < 0.08
+    assert plane.normal()[2] > 0.95
+    assert est.last_candidates.shape[1] == 3
+    assert len(est.last_candidates) > 1000
+    # No blocks or no TSDF: no plane.
+    assert tgp.GroundPlaneEstimator().estimate(TMapper(
+        voxel_size_m=VOXEL, capacity=64, enable_color=False,
+        device="cpu")) is None
+    occ = TMapper(voxel_size_m=VOXEL, capacity=64, device="cpu",
+                  projective_layer=tdm.ProjectiveLayerType.OCCUPANCY)
+    assert tgp.GroundPlaneEstimator().estimate(occ) is None
+
+
+def test_estimate_on_host_mapper_matches_reference(host_floor, monkeypatch):
+    """On one map (the reference's, loaded into the port): the valid
+    candidates equal the reference's exactly; with the reference's own
+    draws (its estimator's first split of PRNGKey(0)) the plane agrees
+    within 1e-5."""
+    jm, tm = host_floor
+    jest = jgp.GroundPlaneEstimator()
+    jplane = jest.estimate(jm)
+    _, sub = jax.random.split(jax.random.PRNGKey(0))
+    n = len(tm.table.allocated_slots()) * 64
+    draw = np.array(jax.random.randint(
+        sub, (jest.params.num_ransac_iterations, 3), 0, min(n, 16384)))
+    fit = tgp.ransac_plane_fit
+    monkeypatch.setattr(tgp, "ransac_plane_fit", lambda *a, **kw: fit(
+        *a, **{**kw, "draw": torch.from_numpy(draw)}))
+    test = tgp.GroundPlaneEstimator()
+    plane = test.estimate(tm)
+    assert jplane is not None and plane is not None
+    assert len(test.last_candidates) > 1000
+    np.testing.assert_array_equal(test.last_candidates, jest.last_candidates)
+    np.testing.assert_allclose([plane.a, plane.b, plane.c],
+                               [jplane.a, jplane.b, jplane.c], rtol=0,
+                               atol=1e-5)
