@@ -122,6 +122,14 @@ voxels, a 64x64x32-block world with 16384 pool slots.
     slot bucket checked; tsdf_fuse, edt_pass1 and edt_pass at these shapes
     against their plain versions, their rows appended to `kernels` (path
     `scenes/<name>`). Launch counts `scenes`.
+  * esdf_less: the main path on `DeviceMapper(enable_esdf=False)`: the
+    64 frames through `replay_frames` at the main path's ESDF cadence
+    beside an ESDF-ful mapper of the same frames (kernel tsdf_fuse, no
+    EDT pass): TSDF and weight equal bit for bit, the card memory the
+    three ESDF channels take (16384 x 512 x 6 bytes), `update_esdf` a
+    no-op, a map file round trip; tsdf_fuse against its plain version on
+    the phase's batch, its row appended to `kernels` (path `esdf_less`).
+    Launch counts `esdf_less`.
 
 It builds every CUDA kernel from `isaac_ros_nvblox_tpu_torch/csrc/`, checks
 that each path went through its kernels (launch counts set to 0 just before
@@ -4004,6 +4012,157 @@ def scenes_phase(dev, smi, camera, voxel: float, world):
     return results
 
 
+def esdf_less_phase(dev, smi, camera, depths_r, poses_r, params,
+                    max_blocks: int, esdf_kw: dict, voxel: float, world):
+    """`DeviceMapper(enable_esdf=False)` on the main path: the bench's 64
+    frames through `replay_frames` with the main path's ESDF cadence,
+    region and slot bucket (`esdf_kw`), beside an ESDF-ful mapper fed the
+    same frames. Checks: the TSDF, its weight and the allocator equal bit
+    for bit; tsdf_fuse launched and no EDT pass; the card memory the three
+    ESDF channels take at construction, capacity x 512 x (4 + 1 + 1)
+    bytes; `update_esdf` a no-op; a `save_map_device` / `load_map_device`
+    round trip of every channel; tsdf_fuse against its plain version on
+    frame 0's batch. Returns its kernels row (path `esdf_less`). Launch
+    counts `esdf_less`."""
+    import tempfile
+    from pathlib import Path
+    import torch
+    from isaac_ros_nvblox_tpu_torch import kernels
+    from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
+    from isaac_ros_nvblox_tpu_torch.mapper import device_io
+    from isaac_ros_nvblox_tpu_torch.mapper.device_mapper import DeviceMapper
+    from isaac_ros_nvblox_tpu_torch.ops import view as view_ops
+    from isaac_ros_nvblox_tpu_torch.ops.tsdf import integrate_tsdf
+    from isaac_ros_nvblox_tpu_torch.ops.tsdf_cuda import integrate_tsdf_cuda
+
+    t_start = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    def make(enable_esdf):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        m = DeviceMapper(voxel, params=params, world=world,
+                         max_blocks_per_frame=max_blocks,
+                         enable_esdf=enable_esdf, device=dev)
+        torch.cuda.synchronize()
+        return m, torch.cuda.memory_allocated() - before
+
+    less, less_bytes = make(False)
+    full, full_bytes = make(True)
+    esdf_bytes = world.capacity * 512 * (4 + 1 + 1)
+
+    def replay(m):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m.replay_frames(depths_r, poses_r, camera, **esdf_kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    full_s = replay(full)
+    kernels.reset_launch_counts()
+    less_s = replay(less)
+    launches = dict(kernels.LAUNCHES)
+    PATH_LAUNCHES["esdf_less"] = launches
+    full.check_slot_bucket()
+    less.check_slot_bucket()
+    ch, fch = less.channels, full.channels
+    same_tsdf = all(torch.equal(ch[k], fch[k])
+                    for k in ("tsdf_distance", "tsdf_weight"))
+    same_state = all(torch.equal(a, b) for a, b in zip(
+        vars(less.state).values(), vars(full.state).values()))
+    no_esdf = not any(k.startswith("esdf_") for k in ch)
+    before = dict(kernels.LAUNCHES)
+    kept = {k: v.clone() for k, v in ch.items()}
+    less.update_esdf()
+    torch.cuda.synchronize()
+    update_noop = (dict(kernels.LAUNCHES) == before
+                   and all(torch.equal(kept[k], v) for k, v in ch.items()))
+    del kept
+    n_blocks = less.block_count()
+    rows = torch.nonzero(wg.live_slot_mask(less.state)).squeeze(1)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = Path(tmp) / "esdf_less.nvblx"
+        device_io.save_map_device(less, path)
+        with np.load(path) as f:
+            file_channels = sorted(k[len("channel__"):] for k in f.files
+                                   if k.startswith("channel__"))
+        back = DeviceMapper(voxel, params=params, world=world,
+                            max_blocks_per_frame=max_blocks,
+                            enable_esdf=False, device=dev)
+        n_loaded = device_io.load_map_device(back, path)
+    round_trip = (n_loaded == n_blocks == rows.numel()
+                  and file_channels == sorted(ch)
+                  and all(torch.equal(back.channels[k][:n_loaded], v[rows])
+                          for k, v in ch.items()))
+    del back, full, fch
+    torch.cuda.empty_cache()
+    row = {"phase": "esdf_less", "frames": int(depths_r.shape[0]),
+           "esdf_every": esdf_kw["esdf_every"],
+           "slot_bucket": esdf_kw.get("slot_bucket", 0),
+           "capacity": world.capacity, "allocated_blocks": n_blocks,
+           "memory_allocated_bytes": {"enable_esdf": full_bytes,
+                                      "esdf_less": less_bytes},
+           "esdf_channel_bytes": full_bytes - less_bytes,
+           "esdf_channel_bytes_expected": esdf_bytes,
+           "replay_s": {"enable_esdf": full_s, "esdf_less": less_s},
+           "tsdf_bit_equal": same_tsdf, "state_bit_equal": same_state,
+           "esdf_channels_absent": no_esdf, "update_esdf_noop": update_noop,
+           "map_round_trip": round_trip, "map_file_channels": file_channels,
+           "launches": launches, "nvidia_smi": smi}
+    if not (same_tsdf and same_state and no_esdf and update_noop
+            and round_trip and full_bytes - less_bytes == esdf_bytes
+            and launches["tsdf_fuse"] > 0 and launches["edt_pass1"] == 0
+            and launches["edt_pass"] == 0):
+        emit(row)
+        fail(f"the ESDF-less mapper's checks failed: {row}")
+
+    # tsdf_fuse on frame 0's batch of the ESDF-less map.
+    pp = params.projective
+    st = wg.WorldGridState(**{a: v.clone() for a, v in vars(less.state)
+                              .items()})
+    grid, origin = view_ops.touched_block_grid(
+        depths_r[0], poses_r[0], camera=camera, voxel_size_m=voxel,
+        max_distance_m=pp.max_integration_distance_m,
+        truncation_m=pp.truncation_m(voxel))
+    st, slots, bidx0, _ = wg.allocate_and_batch(st, grid, origin,
+                                                max_blocks=max_blocks)
+    base = (ch["tsdf_distance"], ch["tsdf_weight"])
+    got, want = [b.clone() for b in base], [b.clone() for b in base]
+    kw = dict(camera=camera, voxel_size_m=voxel, params=pp)
+    real = (slots >= 0) & (slots < less.capacity)
+    p_C = centers_in_sensor(poses_r[0], bidx0, voxel)
+    uv, ok = camera.project(p_C)
+    n_view, n_upd = tsdf_reads_writes(uv, p_C[..., 2], ok & real[:, None],
+                                      depths_r[0], pp, voxel)
+    H, W = depths_r.shape[1:]
+    trow = plain_check(
+        "tsdf_fuse", "esdf_less", lambda: integrate_tsdf_cuda(
+            *got, slots, bidx0, depths_r[0], poses_r[0], **kw),
+        lambda: integrate_tsdf(*want, slots, bidx0, depths_r[0],
+                               poses_r[0], **kw),
+        got, want, base=base, rows=slots[real].long(),
+        match="tsdf_fuse_kernel",
+        n_bytes=(n_view * 8 + n_upd * 8 + H * W * 4 + slots.numel() * 16
+                 + 64),
+        n_ops=int(real.sum()) * 512 * 30 + n_upd * 15,
+        batch_blocks=int(real.sum()), in_view_voxels=n_view,
+        updated_voxels=n_upd, launches=launches["tsdf_fuse"])
+    del got, want, st, less, ch
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t_start
+    emit(row)
+    return {"name": "tsdf_fuse", "path": "esdf_less", "route": "cuda",
+            "source": "isaac_ros_nvblox_tpu_torch/csrc/tsdf_fuse.cu",
+            "replaces": "isaac_ros_nvblox_tpu/ops/tsdf_pallas.py:100",
+            "launches": launches["tsdf_fuse"],
+            "max_abs_err": trow["max_abs_err"], "ms": trow["ms"],
+            "plain_ms": trow["plain_ms"], "bound_ms": trow["bound_ms"],
+            "bound_by": trow["bound_by"], "library_ms": None}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -4750,6 +4909,12 @@ def main() -> None:
 
     # ---- bench.py's large and sparse scenes -------------------------------
     results.extend(scenes_phase(dev, smi, camera, voxel, world))
+
+    # ---- the main path on a mapper without ESDF channels -----------------
+    results.append(esdf_less_phase(dev, smi, camera, depths_r, poses_r,
+                                   params, max_blocks, dict(
+                                       esdf_kw, esdf_region=region),
+                                   voxel, world))
 
     flush_checks()
     emit({"kernels": results})

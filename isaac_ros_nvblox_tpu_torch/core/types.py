@@ -219,9 +219,10 @@ def sqrt32(x) -> torch.Tensor:
 
 
 def norm3(v) -> torch.Tensor:
-    """Euclidean norm over the last axis (size 3), in XLA's order."""
+    """Euclidean norm over the last axis (size 3), in XLA's order and
+    correctly rounded (`sqrt32`)."""
     x, y, z = v[..., 0], v[..., 1], v[..., 2]
-    return torch.sqrt(fma(z, z, fma(y, y, x * x)))
+    return sqrt32(fma(z, z, fma(y, y, x * x)))
 
 
 def local_voxel_offsets() -> np.ndarray:

@@ -759,11 +759,17 @@ class DeviceMapper:
                  projective_layer: Optional[ProjectiveLayerType] = None,
                  max_blocks_per_frame: int = 4096,
                  enable_freespace: bool = False,
-                 device=None):
+                 device=None,
+                 enable_esdf: bool = True,
+                 name: str = "device_mapper"):
         """`projective_layer` OCCUPANCY keeps a log-odds occupancy layer
         (f32 log-odds, u8 observed) in place of the TSDF, and no color.
         `enable_freespace` (TSDF layer only) adds the freespace channels
-        that `update_freespace` keeps and dynamic detection reads."""
+        that `update_freespace` keeps and dynamic detection reads.
+        `enable_esdf=False` allocates no ESDF channels: `update_esdf`
+        returns at once, `replay_frames` solves no ESDF, and the map's
+        state and files carry only the channels it has."""
+        self.name = name
         self.device = resolve_device(device)
         self.voxel_size_m = float(voxel_size_m)
         self.params = params or MapperParams()
@@ -797,11 +803,15 @@ class DeviceMapper:
                         shape, bool(self.params.freespace
                                     .initialize_to_high_confidence_freespace),
                         dtype=torch.bool, device=dev)})
-        self.channels.update({
-            "esdf_sq_dist": torch.full(shape, esdf_ops.INF_SQ, device=dev),
-            "esdf_is_inside": torch.zeros(shape, dtype=torch.bool, device=dev),
-            "esdf_observed": torch.zeros(shape, dtype=torch.bool, device=dev),
-        })
+        if enable_esdf:
+            self.channels.update({
+                "esdf_sq_dist": torch.full(shape, esdf_ops.INF_SQ,
+                                           device=dev),
+                "esdf_is_inside": torch.zeros(shape, dtype=torch.bool,
+                                              device=dev),
+                "esdf_observed": torch.zeros(shape, dtype=torch.bool,
+                                             device=dev),
+            })
         if enable_color:
             # Planar r/g/b (0-255) and weight: the mesh kernel reads each
             # channel's pool rows directly.
@@ -1160,7 +1170,10 @@ class DeviceMapper:
         AABB; later updates solve only the dirty-block AABB + band margin
         (exact — a distance can only change within `band` of a changed
         site) and splice the result. full=True forces a whole-map solve.
+        A mapper without ESDF channels returns at once.
         """
+        if "esdf_sq_dist" not in self.channels:
+            return
         band = self.esdf_band_vox
         mb = (band + 7) // 8  # band margin in blocks
         if self._region_unknown and not self._refresh_region_from_device():
@@ -1323,11 +1336,11 @@ class DeviceMapper:
         pass over the depth frame's batch (kernel tsdf_color_fuse) when the
         color and depth frames are aligned, otherwise over the color
         frustum's batch after the TSDF step (kernel color_fuse, the depth
-        frame as occlusion depth). Every `esdf_every` frames the ESDF is
-        re-solved over a fixed region, `esdf_region=(origin_blocks,
-        dims_blocks)` or by default the current AABB + margin. Every
-        `mesh_every` frames the dirty blocks are meshed
-        (`_mesh_dirty_fused` with `mesh_max_blocks` /
+        frame as occlusion depth). Every `esdf_every` frames (never on a
+        mapper without ESDF channels) the ESDF is re-solved over a fixed
+        region, `esdf_region=(origin_blocks, dims_blocks)` or by default
+        the current AABB + margin. Every `mesh_every` frames the dirty
+        blocks are meshed (`_mesh_dirty_fused` with `mesh_max_blocks` /
         `mesh_surface_blocks`); the soup is dropped, the dirty and pending
         bookkeeping kept. The loop makes no host sync once the frames are
         on the device.
@@ -1350,7 +1363,7 @@ class DeviceMapper:
         if run_color:
             colors = self._image(colors)
             fuse_color = tuple(colors.shape[1:3]) == tuple(depths.shape[1:3])
-        run_esdf = esdf_every > 0
+        run_esdf = esdf_every > 0 and "esdf_sq_dist" in self.channels
         if run_esdf:
             origin, dims = (self.esdf_region() if esdf_region is None
                             else esdf_region)

@@ -104,7 +104,8 @@ class MultiMapper:
             projective_layer=static_layer,
             enable_color=static_layer == ProjectiveLayerType.TSDF,
             enable_freespace=self.uses_freespace,
-            max_blocks_per_frame=p.max_blocks_per_frame, device=device)
+            max_blocks_per_frame=p.max_blocks_per_frame, device=device,
+            name="static_mapper")
         self.device = self.static_mapper.device
         self.dynamic_mapper: Optional[dm.DeviceMapper] = None
         if self.is_dynamic_mode:
@@ -116,7 +117,7 @@ class MultiMapper:
                     origin_block=world.origin_block),
                 projective_layer=ProjectiveLayerType.OCCUPANCY,
                 max_blocks_per_frame=p.dynamic_max_blocks_per_frame,
-                device=self.device)
+                device=self.device, name="dynamic_mapper")
         self.default_lidar = Lidar.equal_vertical_fov(
             num_azimuth=1024, num_elevation=64,
             vertical_fov_rad=float(np.deg2rad(45.0)))

@@ -335,7 +335,7 @@ class SubmapCollection:
         dev = self.mappers[0].device
         fused = DeviceMapper(
             voxel_size_m=vs, params=self.mappers[0].params, world=world,
-            enable_color=False, device=dev)
+            enable_color=False, enable_esdf=True, device=dev)
 
         def block_rows(a):
             return a.reshape(world.dims[0], 8, world.dims[1], 8,

@@ -83,13 +83,16 @@ class Camera:
                       int(round(self.height * factor)))
 
 
-def sample_image_nearest(image, uv):
+def sample_image_nearest(image, uv, fill=0.0):
     """Nearest-neighbor sample `image[H, W, ...]` at pixel coords `uv[..., 2]`.
 
     Rounds half to even (as `jnp.round` does); coordinates are clamped to
     the image before the integer conversion, which leaves every in-range
-    result as it is and keeps far-out-of-view values defined.
+    result as it is and keeps far-out-of-view values defined. `fill` is
+    accepted and unused, as in the reference: no pixel is out of range
+    after the clamp.
     """
+    del fill
     H, W = image.shape[0], image.shape[1]
     u = torch.round(uv[..., 0]).clamp(-1.0, float(W)).long().clamp(0, W - 1)
     v = torch.round(uv[..., 1]).clamp(-1.0, float(H)).long().clamp(0, H - 1)

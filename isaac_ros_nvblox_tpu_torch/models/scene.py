@@ -75,6 +75,14 @@ class Scene:
         vals = torch.stack([prim.sdf(p) for prim in self.primitives], dim=0)
         return torch.amin(vals, dim=0)
 
+    def normal(self, p, eps: float = 1e-3):
+        """Unit SDF gradient at `p[..., 3]`: central differences with step
+        `eps` along each axis, the norm clamped below at 1e-9."""
+        e = torch.eye(3, device=p.device) * eps
+        g = torch.stack([self.sdf(p + e[i]) - self.sdf(p - e[i])
+                         for i in range(3)], dim=-1)
+        return g / torch.clamp_min(norm3(g)[..., None], 1e-9)
+
 
 def cluttered_multi_room_scene() -> Scene:
     """Two connected rooms with a doorway and furniture-scale clutter: a

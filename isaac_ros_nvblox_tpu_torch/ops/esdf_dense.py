@@ -76,14 +76,23 @@ def _prune(out, needed):
                        torch.full((), float(INF), device=out.device))
 
 
+def _banded_min(grid, axis: int, band: int, cost) -> torch.Tensor:
+    """min_{|k|<=band} in[i+k] + cost(k) along `axis`, with lines along the
+    last dim; the two buffers are reused across the 2*band+1 shifts."""
+    g, S, pad = _shifted_views(grid, axis, band)
+    acc = torch.full_like(g, float(INF))
+    term = torch.empty_like(g)
+    for k in range(-band, band + 1):
+        torch.add(pad[..., k + band:k + band + S], float(cost(k)), out=term)
+        torch.minimum(acc, term, out=acc)
+    return acc
+
+
 def edt_pass1_plain(grid, axis: int, band: int, needed=None) -> torch.Tensor:
     """First pass on non-negative input ({0, INF} seeds in a solve): d =
     min_k in[i+k] + |k|, then d*d where d <= band, else INF; INF in the
     blocks that `needed` marks 0."""
-    g, S, pad = _shifted_views(grid, axis, band)
-    acc = torch.full_like(g, float(INF))
-    for k in range(-band, band + 1):
-        acc = torch.minimum(acc, pad[..., k + band:k + band + S] + float(abs(k)))
+    acc = _banded_min(grid, axis, band, abs)
     out = torch.where(acc <= float(band), acc * acc,
                       torch.full_like(acc, float(INF)))
     return _prune(out.movedim(-1, axis).contiguous(), needed)
@@ -92,10 +101,7 @@ def edt_pass1_plain(grid, axis: int, band: int, needed=None) -> torch.Tensor:
 def edt_pass_plain(grid, axis: int, band: int, needed=None) -> torch.Tensor:
     """Banded 1-D min-plus: out[i] = min_{|k|<=band} in[i+k] + k^2; INF in
     the blocks that `needed` marks 0."""
-    g, S, pad = _shifted_views(grid, axis, band)
-    acc = torch.full_like(g, float(INF))
-    for k in range(-band, band + 1):
-        acc = torch.minimum(acc, pad[..., k + band:k + band + S] + float(k * k))
+    acc = _banded_min(grid, axis, band, lambda k: k * k)
     return _prune(acc.movedim(-1, axis).contiguous(), needed)
 
 

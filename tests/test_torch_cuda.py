@@ -726,6 +726,68 @@ def test_replay_makes_no_host_sync(dev):
     assert mesh[0].shape[1:] == (3, 16, 512)
 
 
+def test_esdf_less_mapper_cuda_equals_cpu_without_host_sync(dev):
+    """DeviceMapper(enable_esdf=False): a replay at the benchmark's cadence
+    (color, ESDF and mesh cadences set) and frame steps on the card equal
+    the CPU run on every array, with no ESDF channel and no EDT launch; the
+    card's frame steps never wait on the device."""
+    scene = default_test_scene()
+    poses = np.stack([orbit_pose(2 * np.pi * k / 12, radius=1.8)
+                      for k in range(6)]).astype(np.float32)
+    depths = torch.stack([render_depth(scene, CAM, T, device="cpu")
+                          for T in poses])
+    colors = torch.stack([render_color(scene, CAM, T, device="cpu")
+                          for T in poses])
+    params = MapperParams(
+        projective=TsdfIntegratorParams(max_integration_distance_m=3.0),
+        esdf=EsdfIntegratorParams(max_esdf_distance_m=0.6))
+    cfg = wg.WorldGridConfig(dims=(48, 48, 24), capacity=4096,
+                             origin_block=(-24, -24, -6))
+    maps = [DeviceMapper(VOXEL, params=params, world=cfg, enable_esdf=False,
+                         max_blocks_per_frame=1024, device=d)
+            for d in ("cpu", dev)]
+    cpu, card = maps
+    frames = {cpu: (depths, torch.from_numpy(poses), colors),
+              card: (depths.to(dev), torch.from_numpy(poses).to(dev),
+                     colors.to(dev))}
+
+    def replay(m, lo, hi):
+        d, T, c = frames[m]
+        m.replay_frames(d[lo:hi], T[lo:hi], CAM, colors=c[lo:hi],
+                        color_every=2, esdf_every=2, mesh_every=3,
+                        mesh_max_blocks=512, mesh_surface_blocks=64)
+
+    def step(m):
+        d, T, _ = frames[m]
+        m.integrate_depth(d[5], T[5], CAM)
+        m.update_esdf()
+
+    replay(card, 0, 4)
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        replay(card, 4, 6)
+        step(card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tsdf_color_fuse"] > before["tsdf_color_fuse"]
+    for name in ("edt_pass1", "edt_pass"):
+        assert kernels.LAUNCHES[name] == before[name], name
+    replay(cpu, 0, 4)
+    replay(cpu, 4, 6)
+    step(cpu)
+    a, b = cpu.state_arrays(), card.state_arrays()
+    assert a.keys() == b.keys()
+    assert not any(k.startswith("esdf_") for k in a)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    np.testing.assert_array_equal(cpu.dirty.numpy(), card.dirty.cpu().numpy())
+    np.testing.assert_array_equal(cpu.esdf_dirty.numpy(),
+                                  card.esdf_dirty.cpu().numpy())
+
+
 # ---------------------------------------------------------------------------
 # Occupancy and lidar (slice 3)
 # ---------------------------------------------------------------------------

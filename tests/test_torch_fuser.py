@@ -1,15 +1,15 @@
-"""The offline Fuser, both backends, against the reference's Fuser on the
-same Replica-format files (CPU): test_dataset_replay.py's sequence (12
+"""The offline Fuser's device backend against the reference's Fuser on
+the same Replica-format files (CPU): test_dataset_replay.py's sequence (12
 frames, 160x120), written by the reference's writer.
 
-Device backend: the port runs the plain versions of its kernels; the
-reference its XLA TSDF and color paths and its EDT in interpret mode, and
-on the CPU its mesh layer takes an f32 XLA branch where the port runs the
-bf16 marching-cubes kernel's plain version (the reference's TPU branch).
-TSDF and color are held to the rule of slices 1-4 (>= 99.9% of voxels
-within 1e-5), the ESDF bit for bit, the mesh triangle for triangle within
-the bf16 branch's interpolation error. Host backend: the reference's
-functions on both sides, all equal."""
+The port runs the plain versions of its kernels; the reference its XLA
+TSDF and color paths and its EDT in interpret mode, and on the CPU its
+mesh layer takes an f32 XLA branch where the port runs the bf16
+marching-cubes kernel's plain version (the reference's TPU branch). TSDF
+and color are held to the rule of slices 1-4 (>= 99.9% of voxels within
+1e-5), the ESDF bit for bit, the mesh triangle for triangle within the
+bf16 branch's interpolation error. The host backend's tests are in
+test_torch_fuser_host.py, so that a second worker runs them."""
 
 import numpy as np
 import pytest
@@ -32,7 +32,6 @@ torch.set_num_threads(2)
 
 VOXEL = 0.05
 N_FRAMES = 12
-HOST_FRAMES = 6
 CAM_ARGS = dict(fx=160.0, fy=160.0, cx=79.5, cy=59.5, width=160, height=120)
 TSDF = ("tsdf_distance", "tsdf_weight")
 
@@ -63,17 +62,6 @@ def device_runs(replica_root):
     Timing.reset()
     n_j, n_t = j.run(), t.run()
     assert n_j == n_t == N_FRAMES
-    return j, t
-
-
-@pytest.fixture(scope="module")
-def host_runs(replica_root):
-    cfg = dict(voxel_size_m=VOXEL, capacity=8192)
-    j = jfuser.Fuser(jrep.ReplicaDataLoader(replica_root),
-                     jfuser.FuserConfig(**cfg), backend="host")
-    t = tfuser.Fuser(trep.ReplicaDataLoader(replica_root),
-                     tfuser.FuserConfig(**cfg), backend="host", device="cpu")
-    assert j.run(max_frames=HOST_FRAMES) == t.run(max_frames=HOST_FRAMES)
     return j, t
 
 
@@ -150,50 +138,6 @@ def test_output_mesh_ply_matches_reference_writer(device_runs, tmp_path):
     jwrite_mesh_ply(tmp_path / "ref.ply", v, tri, c)
     assert (tmp_path / "port.ply").read_bytes() == \
         (tmp_path / "ref.ply").read_bytes()
-
-
-def test_host_fuser_matches_reference(host_runs):
-    """Both host-table Mappers on the first 6 frames: the same table, every
-    channel and the mesh layer equal."""
-    j, t = host_runs
-    jt, tt = j.mapper.table, t.mapper.table
-    assert tt.num_allocated == jt.num_allocated > 300
-    np.testing.assert_array_equal(tt.block_indices, jt.block_indices)
-    np.testing.assert_array_equal(tt.neighbors, jt.neighbors)
-    assert t.mapper.pool.channels.keys() == j.mapper.pool.channels.keys()
-    for k, ch in j.mapper.pool.channels.items():
-        got, want = t.mapper.pool[k].numpy(), np.asarray(ch)
-        if k in TSDF + ("color_rgb", "color_weight"):
-            assert _agree(got, want) >= 0.999, k
-        else:
-            np.testing.assert_array_equal(got, want, k)
-    got, want = t.mapper.mesh_layer.blocks, j.mapper.mesh_layer.blocks
-    assert got.keys() == want.keys() and len(got) > 100
-    for k, b in want.items():
-        for f in ("vertices", "colors", "triangles"):
-            np.testing.assert_array_equal(getattr(got[k], f),
-                                          getattr(b, f), f)
-
-
-def test_host_backend_allocates_the_device_backends_blocks(replica_root,
-                                                           host_runs):
-    """On the same frames the two backends allocate the same blocks and
-    fuse the same TSDF (test_world_grid.py's device-vs-host check)."""
-    _, h = host_runs
-    d = tfuser.Fuser(trep.ReplicaDataLoader(replica_root, HOST_FRAMES),
-                     tfuser.FuserConfig(voxel_size_m=VOXEL, capacity=8192),
-                     device="cpu")
-    for frame in d.loader:
-        d.mapper.integrate_depth(frame.depth, frame.T_L_C, frame.camera)
-    n = d.mapper.block_count()
-    assert n == h.mapper.table.num_allocated
-    bidx = d.mapper.state.block_index_of_slot[:n].numpy()
-    slots = np.asarray([h.mapper.table.slot_of(tuple(b)) for b in bidx])
-    assert (slots >= 0).all()
-    for k in TSDF:
-        np.testing.assert_allclose(d.mapper.channels[k][:n].numpy(),
-                                   h.mapper.pool[k].numpy()[slots],
-                                   atol=1e-5, err_msg=k)
 
 
 def test_fuser_rejects_unknown_backend(replica_root):

@@ -37,8 +37,8 @@ STATE = ("slot_grid", "block_index_of_slot", "alloc_count", "overflow_count",
 def _make_mapper():
     return DeviceMapper(voxel_size_m=0.05,
                         world=twg.WorldGridConfig(**WORLD),
-                        enable_color=False, max_blocks_per_frame=1024,
-                        device="cpu")
+                        enable_color=False, enable_esdf=False,
+                        max_blocks_per_frame=1024, device="cpu")
 
 
 def _make_jax_mapper():
