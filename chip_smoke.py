@@ -58,6 +58,21 @@ voxels, a 64x64x32-block world with 16384 pool slots.
     get_esdf_and_gradients, save_ply, shutdown) and a dynamic-mode node
     on the 8 intruder frames, its two slices combined (kernels
     detect_dynamic, occupancy_fuse, dilate_dense). Launch counts `node`.
+  * node_modes: the node's other documented configurations (params.py's
+    MODE_OVERLAYS and EsdfMode) over node_ticks' clock, frames, scans,
+    world and subscribers: (a) `static_occupancy` (`use_lidar=False`, no
+    scans: kernel occupancy_fuse, the 2-D ESDF from occupied voxels, the
+    occupancy decay, `~/occupancy_layer`), (b) `dynamic` with the intruder
+    sphere crossing the room every 8 frames (kernels detect_dynamic,
+    tsdf_fuse, occupancy_fuse, dilate_dense; the dynamic decay,
+    `~/freespace_layer`, `~/combined_map_slice`), (c) static TSDF with
+    `esdf_mode: 3d` (the 3-D ESDF every ESDF tick, the slice cut from
+    it). Each as node_ticks is timed, traced and printed; its map against
+    the reference's CPU run (`tests/test_torch_accuracy.py
+    --node-modes`); occupancy_fuse, detect_dynamic, dilate_dense and the
+    EDT passes (on the node's 3-D region, rows appended to `kernels` with
+    path `node_3d`) against their plain versions on the parts' inputs.
+    Launch counts `node_occupancy`, `node_dynamic`, `node_3d`.
   * fuser: the offline fuser at the width of the dataset users replay,
     Replica's default 1200 x 680 camera: (a) 64 frames of the bench room
     rendered by `SyntheticDataLoader` through `Fuser(FuserConfig())` on
@@ -1903,6 +1918,10 @@ NODE_POSE_TOLERANCE_S = 0.001
 NODE_TOPICS = ("~/mesh", "~/mesh_serialized", "~/static_map_slice",
                "~/map_slice_occupancy_grid", "~/tsdf_layer",
                "~/back_projected_depth")
+# The `last_host_bytes` kind each topic's publish records (the voxel-layer
+# topics, "~/..._layer", all record "layers").
+NODE_BYTES_KIND = {"~/mesh": "mesh", "~/static_map_slice": "slice",
+                   "~/back_projected_depth": "back_projected_depth"}
 # The node's map, from the reference's own CPU run of the same inputs (its
 # node over the same frames, scans, poses and clock, its XLA integrators,
 # which the port mirrors; `tests/test_torch_accuracy.py --node`): TSDF
@@ -1960,6 +1979,131 @@ def gate_admits(arrivals_ms, rate_hz: float) -> int:
     return n
 
 
+def orbit_pose_at(k: int) -> np.ndarray:
+    """Frame k's camera pose in node_ticks' inputs (the 16-frame orbit)."""
+    from isaac_ros_nvblox_tpu_torch.models.scene import orbit_pose
+    return orbit_pose(2 * np.pi * (k % 16) / 16, radius=1.5)
+
+
+def node_inputs(scene, camera, depths, dev, intruder: bool = False,
+                scans=None):
+    """node_ticks' host inputs: 64 depth and 64 color frames (the 16-frame
+    orbit 4x over; with `intruder`, frame k shows dynamic_frames' intruder
+    sphere at intruder_center(k % 8), so that it crosses the room every 8
+    frames, 0.2 s: 16 frames rendered, since k % 8 follows from k % 16)
+    and the moving 1800 x 16 scans (`node_scan`), one every 100 ms up to
+    1.6 s (`scans`, where given)."""
+    from isaac_ros_nvblox_tpu_torch.models.lidar import Lidar
+    from isaac_ros_nvblox_tpu_torch.models.scene import (Scene, Sphere,
+                                                         render_color,
+                                                         render_depth)
+    from isaac_ros_nvblox_tpu_torch.runtime.node import NodeParams
+    n_orbit = depths.shape[0]
+    orbit = []
+    for k in range(n_orbit):
+        T = orbit_pose_at(k)
+        sc = (Scene(primitives=scene.primitives + (Sphere(
+            center=intruder_center(k % 8), radius=0.25),)) if intruder
+            else scene)
+        orbit.append((render_depth(sc, camera, T, device=dev).cpu().numpy()
+                      if intruder else depths[k].cpu().numpy(),
+                      render_color(sc, camera, T, device=dev).cpu().numpy()))
+    frames = [orbit[k % n_orbit] for k in range(4 * n_orbit)]
+    if scans is None:
+        p = NodeParams()
+        lidar = Lidar.equal_vertical_fov(
+            p.lidar_width, p.lidar_height, p.lidar_vertical_fov_rad,
+            min_range_m=p.lidar_min_valid_range_m)
+        n_scans = (NODE_TICKS - 1) * NODE_TICK_MS // NODE_SCAN_MS
+        scans = [node_scan(scene, lidar, m * NODE_SCAN_MS / 1e3, dev)
+                 for m in range(n_scans)]
+    return {"depths": [d for d, _ in frames], "colors": [c for _, c in frames],
+            "scans": scans, "n_orbit": n_orbit}
+
+
+def drive_node(node, clock, camera, inputs, scans: bool = True):
+    """node_ticks' clock and inputs into `node`: a tick every 10 ms for
+    1.6 s of simulated time; camera poses on the orbit and lidar and
+    base_link poses (`node_lidar_pose`) at 100 Hz; depth and color frame k
+    stamped k * 25 ms, queued on the first tick at or after it; with
+    `scans`, scan m (stamped m * 100 ms, per-point times) on the tick at
+    (m + 1) * 100 ms. Returns the host wall of each tick (ms)."""
+    from isaac_ros_nvblox_tpu_torch.models.scene import orbit_pose
+    n_frames, n_orbit = len(inputs["depths"]), inputs["n_orbit"]
+    tick_ms, next_frame = [], 0
+    for i in range(NODE_TICKS):
+        ms = i * NODE_TICK_MS
+        now = ms / 1e3
+        node.add_pose("cam", now, orbit_pose(
+            2 * np.pi * (ms / NODE_FRAME_MS) / n_orbit, radius=1.5))
+        node.add_pose("lidar", now, node_lidar_pose(now))
+        node.add_pose("base_link", now, node_lidar_pose(now))
+        while next_frame < n_frames and next_frame * NODE_FRAME_MS <= ms:
+            k = next_frame
+            stamp = k * NODE_FRAME_MS / 1e3
+            node.add_depth_image(inputs["depths"][k], camera, "cam", stamp)
+            node.add_color_image(inputs["colors"][k], camera, "cam", stamp)
+            next_frame += 1
+        if scans and ms >= NODE_SCAN_MS and ms % NODE_SCAN_MS == 0:
+            m = ms // NODE_SCAN_MS - 1
+            node.add_pointcloud(inputs["scans"][m][0], "lidar",
+                                m * NODE_SCAN_MS / 1e3,
+                                timestamps_s=inputs["scans"][m][1])
+        clock[0] = now
+        t0 = time.perf_counter()
+        node.tick()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    return tick_ms
+
+
+def subscribe_node(node, topics):
+    """node_ticks' subscribers on `node`: the mesh layer adapter (where the
+    mesh is subscribed), a costmap layer, the 2-D slices kept, and a
+    counter on each topic that also keeps the bytes its publish kind
+    copied to the host (`last_host_bytes`)."""
+    from isaac_ros_nvblox_tpu_torch.runtime.adapters import MeshLayerAdapter
+    from isaac_ros_nvblox_tpu_torch.runtime.costmap import (
+        NvbloxCostmapLayer)
+    subs = {"counts": {t: 0 for t in topics}, "host_bytes": {},
+            "slices": []}
+
+    def counter(topic):
+        kind = ("layers" if topic.endswith("_layer")
+                else NODE_BYTES_KIND.get(topic))
+
+        def cb(msg):
+            subs["counts"][topic] += 1
+            if kind:
+                subs["host_bytes"].setdefault(kind, []).append(
+                    node.last_host_bytes[kind])
+        return cb
+
+    if "~/mesh" in topics:
+        MeshLayerAdapter(node.bus)
+    subs["costmap"] = NvbloxCostmapLayer(node.bus)
+    node.bus.subscribe("~/static_map_slice", subs["slices"].append)
+    for topic in topics:
+        node.bus.subscribe(topic, counter(topic))
+    return subs
+
+
+def node_run_figures(node, subs, tick_ms) -> dict:
+    """What a node run's subscribers and Timing spans saw."""
+    from isaac_ros_nvblox_tpu_torch.utils.timing import Timing
+    last = subs["slices"][-1] if subs["slices"] else None
+    return {"counts": subs["counts"], "host_bytes": subs["host_bytes"],
+            "tick_ms": tick_ms, "costmap": subs["costmap"].has_data,
+            "timing": Timing.to_string(),
+            "slices_published": len(subs["slices"]),
+            "last_slice_shape": (None if last is None
+                                 else [int(last.height), int(last.width)]),
+            "last_slice_known_cells": (None if last is None else int(
+                (last.data != last.unknown_value).sum())),
+            "integrated": Timing.get("node/depth/integrate").count,
+            "colors": Timing.get("node/color/integrate").count,
+            "scans": Timing.get("node/lidar/integrate").count}
+
+
 def node_phase(dev, smi, camera, scene, voxel, world, depths, intr):
     """The online node (`NvbloxNode` with the node's and the mapper's
     defaults) ticking every 10 ms for 1.6 s of simulated time: the main
@@ -1970,7 +2114,7 @@ def node_phase(dev, smi, camera, scene, voxel, world, depths, intr):
     adapter), the 2-D slice, its occupancy grid, the TSDF layer, the
     back-projected depth and a costmap layer. Then the services, and a
     short dynamic-mode node on the scored intruder frames. Launch counts
-    `node`."""
+    `node`. Returns the inputs (`node_inputs`) for node_modes_phase."""
     import tempfile
     from pathlib import Path
     import torch
@@ -1978,29 +2122,13 @@ def node_phase(dev, smi, camera, scene, voxel, world, depths, intr):
     from isaac_ros_nvblox_tpu_torch.core.types import voxel_centers_for_blocks
     from isaac_ros_nvblox_tpu_torch.mapper.params import (MultiMapperParams,
                                                           make_params)
-    from isaac_ros_nvblox_tpu_torch.models.lidar import Lidar
-    from isaac_ros_nvblox_tpu_torch.models.scene import (orbit_pose,
-                                                         render_color)
-    from isaac_ros_nvblox_tpu_torch.runtime.adapters import MeshLayerAdapter
-    from isaac_ros_nvblox_tpu_torch.runtime.costmap import (
-        NvbloxCostmapLayer)
     from isaac_ros_nvblox_tpu_torch.runtime.node import (NodeParams,
                                                          NvbloxNode)
     from isaac_ros_nvblox_tpu_torch.utils.timing import Rates, Timing
 
-    n_orbit = depths.shape[0]
-    depth_np = [d.cpu().numpy() for d in depths]
-    color_np = [render_color(scene, camera, orbit_pose(
-        2 * np.pi * k / n_orbit, radius=1.5), device=dev).cpu().numpy()
-        for k in range(n_orbit)]
-    n_frames = 4 * n_orbit
-    p = NodeParams()
-    lidar = Lidar.equal_vertical_fov(p.lidar_width, p.lidar_height,
-                                     p.lidar_vertical_fov_rad,
-                                     min_range_m=p.lidar_min_valid_range_m)
-    n_scans = (NODE_TICKS - 1) * NODE_TICK_MS // NODE_SCAN_MS
-    scans = [node_scan(scene, lidar, m * NODE_SCAN_MS / 1e3, dev)
-             for m in range(n_scans)]
+    inputs = node_inputs(scene, camera, depths, dev)
+    n_frames = len(inputs["depths"])
+    n_scans = len(inputs["scans"])
 
     def make_node(params=None, mapper_params=None):
         node = NvbloxNode(params or NodeParams(),
@@ -2013,62 +2141,11 @@ def node_phase(dev, smi, camera, scene, voxel, world, depths, intr):
 
     def run():
         node, clock = make_node()
-        counts = {t: 0 for t in NODE_TOPICS}
-        host_bytes = {}
-
-        def counter(topic, kind=None):
-            def cb(msg):
-                counts[topic] += 1
-                if kind:
-                    host_bytes.setdefault(kind, []).append(
-                        node.last_host_bytes[kind])
-            return cb
-
-        MeshLayerAdapter(node.bus)
-        costmap = NvbloxCostmapLayer(node.bus)
-        slices = []
-        node.bus.subscribe("~/static_map_slice", slices.append)
-        for topic, kind in zip(NODE_TOPICS, ("mesh", None, "slice", None,
-                                             "layers",
-                                             "back_projected_depth")):
-            node.bus.subscribe(topic, counter(topic, kind))
+        subs = subscribe_node(node, NODE_TOPICS)
         Timing.reset()
         Rates.reset()
-        tick_ms = []
-        next_frame = 0
-        for i in range(NODE_TICKS):
-            ms = i * NODE_TICK_MS
-            now = ms / 1e3
-            node.add_pose("cam", now, orbit_pose(
-                2 * np.pi * (ms / NODE_FRAME_MS) / n_orbit, radius=1.5))
-            node.add_pose("lidar", now, node_lidar_pose(now))
-            node.add_pose("base_link", now, node_lidar_pose(now))
-            while next_frame < n_frames \
-                    and next_frame * NODE_FRAME_MS <= ms:
-                k = next_frame
-                stamp = k * NODE_FRAME_MS / 1e3
-                node.add_depth_image(depth_np[k % n_orbit], camera, "cam",
-                                     stamp)
-                node.add_color_image(color_np[k % n_orbit], camera, "cam",
-                                     stamp)
-                next_frame += 1
-            if ms >= NODE_SCAN_MS and ms % NODE_SCAN_MS == 0:
-                m = ms // NODE_SCAN_MS - 1
-                node.add_pointcloud(scans[m][0], "lidar",
-                                    m * NODE_SCAN_MS / 1e3,
-                                    timestamps_s=scans[m][1])
-            clock[0] = now
-            t0 = time.perf_counter()
-            node.tick()
-            tick_ms.append((time.perf_counter() - t0) * 1e3)
-        return node, {"counts": counts, "host_bytes": host_bytes,
-                      "tick_ms": tick_ms, "costmap": costmap.has_data,
-                      "timing": Timing.to_string(),
-                      "last_slice_known_cells": int(
-                          (slices[-1].data != slices[-1].unknown_value).sum()),
-                      "integrated": Timing.get("node/depth/integrate").count,
-                      "colors": Timing.get("node/color/integrate").count,
-                      "scans": Timing.get("node/lidar/integrate").count}
+        tick_ms = drive_node(node, clock, camera, inputs)
+        return node, node_run_figures(node, subs, tick_ms)
 
     run()                                   # warm-up
     (node, st), launches, times = timed_run(run, NODE_TICKS)
@@ -2253,6 +2330,411 @@ def node_phase(dev, smi, camera, scene, voxel, world, depths, intr):
         fail(f"the dynamic node published no combined slice: {dcounts}")
     del dnode, dyn
     torch.cuda.empty_cache()
+    return inputs
+
+
+# ---- the node's other documented modes -----------------------------------
+# params.py's MODE_OVERLAYS and EsdfMode, each built as a user builds it
+# (`make_params(mode, overlay)`, `NodeParams()` changed only where the
+# reference requires it), over node_ticks' clock, frames, scans, world and
+# subscribers: part -> (launch-count path, mode, user overlay, NodeParams
+# changes, intruder, scans, topics). `intruder`: frame k shows
+# dynamic_frames' intruder sphere at intruder_center(k % 8). `scans`: the
+# part feeds node_ticks' scans. Lidar cannot integrate into an occupancy
+# layer (both packages raise NotImplementedError), so (a) runs with
+# `use_lidar=False` and is fed no scan; its static mapper has no TSDF, so
+# it has no mesh (a `~/mesh` subscriber makes both packages raise) and no
+# `~/tsdf_layer`. (b)'s dynamic mapper integrates to its default 4 m, so
+# its 2-D frame differs from the static mapper's and the node publishes no
+# `~/combined_map_slice` (subscribed, and counted, all the same).
+NODE_MODES = {
+    "a": ("node_occupancy", "static_occupancy", {}, {"use_lidar": False},
+          False, False,
+          tuple(t for t in NODE_TOPICS if t not in (
+              "~/mesh", "~/mesh_serialized", "~/tsdf_layer"))
+          + ("~/occupancy_layer",)),
+    "b": ("node_dynamic", "dynamic", {}, {}, True, True,
+          NODE_TOPICS + ("~/combined_map_slice", "~/freespace_layer")),
+    "c": ("node_3d", "static", {"esdf_mode": "3d"}, {}, False, True,
+          NODE_TOPICS + ("~/esdf_layer",)),
+}
+# Each part's figures from the reference's own CPU run of the same inputs
+# (its NvbloxNode in the part's configuration over the same frames, scans,
+# poses, clock and subscribers, rendered by the reference;
+# `tests/test_torch_accuracy.py --node-modes`). The port's CPU run of the
+# same inputs (the same script) gives the same counts and `tsdf_mae_m`
+# 0.035493620 (b), 0.034859288 (c), `esdf_mae_m` 0.096362919 (c), the
+# float32 means summed in another order. The limits are node_ticks':
+# errors within 3%, counts within 1%, integration and message counts
+# equal, overflow 0. `depth_frames_integrated` counts the node's
+# `node/depth/integrate` spans, which also time a fused 2-D tick that the
+# mapper declines (occupancy, dynamic).
+NODE_MODES_REF = {
+    "a": {"allocated_blocks": 1166, "depth_frames_integrated": 34,
+          "color_frames_integrated": 8, "scans_integrated": 0,
+          "slices_published": 17, "last_slice_shape": [384, 384],
+          "last_slice_known_cells": 10388,
+          "messages": {"~/static_map_slice": 17,
+                       "~/map_slice_occupancy_grid": 17,
+                       "~/back_projected_depth": 33,
+                       "~/occupancy_layer": 17},
+          "occupied_voxels": 81796, "occupied_near_surface_share": 1.0},
+    "b": {"allocated_blocks": 1912, "depth_frames_integrated": 34,
+          "color_frames_integrated": 8, "scans_integrated": 16,
+          "slices_published": 17, "last_slice_shape": [384, 384],
+          "last_slice_known_cells": 11067,
+          "messages": {"~/mesh": 9, "~/mesh_serialized": 9,
+                       "~/static_map_slice": 17,
+                       "~/map_slice_occupancy_grid": 17,
+                       "~/tsdf_layer": 17, "~/back_projected_depth": 33,
+                       "~/combined_map_slice": 0, "~/freespace_layer": 17},
+          "tsdf_mae_m": 0.035493597, "dynamic_blocks": 53,
+          "dynamic_occupied_voxels": 443},
+    "c": {"allocated_blocks": 2887, "depth_frames_integrated": 33,
+          "color_frames_integrated": 8, "scans_integrated": 16,
+          "slices_published": 17, "last_slice_shape": [98, 129],
+          "last_slice_known_cells": 10990,
+          "messages": {"~/mesh": 9, "~/mesh_serialized": 9,
+                       "~/static_map_slice": 17,
+                       "~/map_slice_occupancy_grid": 17,
+                       "~/tsdf_layer": 17, "~/back_projected_depth": 33,
+                       "~/esdf_layer": 17},
+          "tsdf_mae_m": 0.034859251, "esdf_mae_m": 0.096362911}}
+NODE_MODES_MAE_TOL = 0.03
+# The figures held equal to the reference's.
+NODE_MODES_EQUAL = ("depth_frames_integrated", "color_frames_integrated",
+                    "scans_integrated", "slices_published", "messages")
+
+
+def node_mode_figures(node, st, scene, voxel: float) -> dict:
+    """The --node-modes figures of a node run (`st`, node_run_figures) and
+    its maps, on the static mapper's live slots: blocks and overflow; the
+    integration, slice and message counts; the last slice's shape and
+    known cells; `tsdf_mae_m` (bench.py:628-646) of a TSDF map, or the
+    occupied voxels (observed, log-odds > 0) and the share of them within
+    half width + voxel * sqrt(3) / 2 of the surface; the dynamic map's
+    blocks and occupied voxels; in EsdfMode 3d the 3-D field's
+    `esdf_mae_m`."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
+    from isaac_ros_nvblox_tpu_torch.core.types import voxel_centers_for_blocks
+    from isaac_ros_nvblox_tpu_torch.mapper.params import EsdfMode
+    from isaac_ros_nvblox_tpu_torch.ops import esdf as esdf_ops
+    mm = node.multi_mapper
+    sm, dm = mm.static_mapper, mm.dynamic_mapper
+    n = int(sm.state.alloc_count)
+    live = wg.live_slot_mask(sm.state)[:n]
+    bidx = torch.where(live[:, None], sm.state.block_index_of_slot[:n], 0)
+    gt = scene.sdf(voxel_centers_for_blocks(bidx, voxel))
+    live = live[:, None]
+    ch = {k: v[:n] for k, v in sm.channels.items()}
+    out = {"allocated_blocks": sm.block_count(),
+           "overflow_count": int(sm.state.overflow_count),
+           "depth_frames_integrated": st["integrated"],
+           "color_frames_integrated": st["colors"],
+           "scans_integrated": st["scans"],
+           "slices_published": st["slices_published"],
+           "last_slice_shape": st["last_slice_shape"],
+           "last_slice_known_cells": st["last_slice_known_cells"],
+           "messages": st["counts"]}
+    if "tsdf_distance" in ch:
+        near = live & (gt.abs() < 0.1) & (ch["tsdf_weight"] > 0.5)
+        out["tsdf_mae_m"] = float((ch["tsdf_distance"] - gt).abs()[near]
+                                  .mean())
+    else:
+        half = sm.params.occupancy.occupied_region_half_width_m
+        occupied = (live & (ch["occupancy_observed"] > 0)
+                    & (ch["occupancy_log_odds"] > 0))
+        near = gt.abs() <= half + voxel * np.sqrt(3.0) / 2
+        out["occupied_voxels"] = int(occupied.sum())
+        out["occupied_near_surface_share"] = (
+            int((occupied & near).sum()) / max(int(occupied.sum()), 1))
+    if dm is not None:
+        out["dynamic_blocks"] = dm.block_count()
+        out["dynamic_overflow_count"] = int(dm.state.overflow_count)
+        out["dynamic_occupied_voxels"] = int(
+            (dm.channels["occupancy_log_odds"] > 0).sum())
+    if mm.params.esdf_mode == EsdfMode.K3D:
+        sq = ch["esdf_sq_dist"]
+        est = torch.clamp_max(torch.sqrt(torch.clamp_max(
+            sq, esdf_ops.INF_SQ)) * voxel, 2.0)
+        est = torch.where(ch["esdf_is_inside"], -est, est)
+        emask = live & (gt > 3 * voxel) & (gt < 1.0) & (sq < 1e11)
+        out["esdf_mae_m"] = float((est - gt).abs()[emask].mean())
+    return out
+
+
+def node_mode_failures(ref: dict, got: dict) -> list:
+    """The figures of `got` outside their agreement with `ref`: errors
+    within 3%, counts (and the last slice's sides) within 1%, the
+    near-surface share at least OCC_NEAR_SHARE_MIN and within 1%, the
+    integration and message counts equal, no overflow."""
+    bad = [f"{k} {got.get(k)}" for k in ("overflow_count",
+                                          "dynamic_overflow_count")
+           if got.get(k)]
+    for k, r in ref.items():
+        x = got.get(k)
+        if k in NODE_MODES_EQUAL:
+            ok = x == r
+        elif k in ("tsdf_mae_m", "esdf_mae_m"):
+            ok = x is not None and abs(x - r) <= NODE_MODES_MAE_TOL * r
+        elif k == "last_slice_shape":
+            ok = x is not None and all(abs(a - b) <= NODE_COUNT_TOL * b
+                                       for a, b in zip(x, r))
+        elif k == "occupied_near_surface_share":
+            ok = (x is not None and x >= OCC_NEAR_SHARE_MIN
+                  and abs(x - r) <= NODE_COUNT_TOL * r)
+        else:
+            ok = x is not None and abs(x - r) <= NODE_COUNT_TOL * r
+        if not ok:
+            bad.append(f"{k} {x} (reference {r})")
+    return bad
+
+
+def node_modes_phase(dev, smi, camera, scene, voxel, world, depths, inputs):
+    """The node's other documented modes (NODE_MODES) at node_ticks' full
+    width: (a) static_occupancy, (b) dynamic with the intruder crossing
+    the room, (c) static TSDF with the 3-D ESDF, each `NvbloxNode` ticking
+    every 10 ms over 1.6 s of node_ticks' inputs (`inputs`, node_phase's),
+    timed and traced as node_ticks is, its map against the reference's CPU
+    run (NODE_MODES_REF), its mode's kernels required; then (a)
+    occupancy_fuse on the node's batch of frame 0, (b) detect_dynamic on
+    the last crossing's frames and dilate_dense on the node's freespace
+    region, (c) edt_pass1 / edt_pass on the node's whole-map 3-D region,
+    each against its plain version. Launch counts `node_occupancy`,
+    `node_dynamic`, `node_3d`. Returns the EDT passes' kernels rows."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
+    from isaac_ros_nvblox_tpu_torch.mapper.params import make_params
+    from isaac_ros_nvblox_tpu_torch.ops import esdf as esdf_ops
+    from isaac_ros_nvblox_tpu_torch.ops import halo
+    from isaac_ros_nvblox_tpu_torch.ops.detect import detect_dynamic_plain
+    from isaac_ros_nvblox_tpu_torch.ops.detect_cuda import detect_dynamic
+    from isaac_ros_nvblox_tpu_torch.ops.occupancy import integrate_occupancy
+    from isaac_ros_nvblox_tpu_torch.ops.occupancy_cuda import (
+        integrate_occupancy_cuda)
+    from isaac_ros_nvblox_tpu_torch.runtime.node import (NodeParams,
+                                                         NvbloxNode)
+    from isaac_ros_nvblox_tpu_torch.utils.timing import Rates, Timing
+
+    sim_s = (NODE_TICKS - 1) * NODE_TICK_MS / 1e3
+    n_frames = len(inputs["depths"])
+    arrivals = [-(-k * NODE_FRAME_MS // NODE_TICK_MS) * NODE_TICK_MS
+                for k in range(n_frames)]
+    results = []
+    for part, (path, mode, overlay, node_kw, intruder, scans,
+               topics) in NODE_MODES.items():
+        t_part = time.perf_counter()
+        inp = (node_inputs(scene, camera, depths, dev, intruder=True,
+                           scans=inputs["scans"]) if intruder else inputs)
+        inputs_s = time.perf_counter() - t_part
+        mparams = make_params(mode, overlay)
+
+        def run():
+            node = NvbloxNode(NodeParams(**node_kw), mparams, world=world,
+                              device=dev)
+            node.transformer.timestamp_tolerance_s = NODE_POSE_TOLERANCE_S
+            clock = [0.0]
+            node.clock = lambda: clock[0]
+            subs = subscribe_node(node, topics)
+            Timing.reset()
+            Rates.reset()
+            tick_ms = drive_node(node, clock, camera, inp, scans=scans)
+            return node, node_run_figures(node, subs, tick_ms)
+
+        t0 = time.perf_counter()
+        run()                                   # warm-up
+        (node, st), launches, times = timed_run(run, NODE_TICKS)
+        runs_s = time.perf_counter() - t0
+        PATH_LAUNCHES[path] = launches
+        mm = node.multi_mapper
+        sm = mm.static_mapper
+        figs = node_mode_figures(node, st, scene, voxel)
+        admitted = gate_admits(arrivals, node.params.integrate_depth_rate_hz)
+        ticks = np.asarray(st["tick_ms"])
+        ref = NODE_MODES_REF.get(part, {})
+        bad = node_mode_failures(ref, figs) if ref else ["no reference"]
+        row = {"phase": "node_modes", "part": part, "mode": mode,
+               "overlay": overlay, "node_params": node_kw,
+               "intruder": intruder, "scans_fed": scans,
+               "ticks": NODE_TICKS, "simulated_s": sim_s,
+               "tick_wall_ms": {"mean": float(ticks.mean()),
+                                "p50": float(np.percentile(ticks, 50)),
+                                "p99": float(np.percentile(ticks, 99)),
+                                "max": float(ticks.max())},
+               **times,
+               "wall_ms_per_simulated_s":
+                   times["ms_per_step"] * NODE_TICKS / sim_s,
+               "device_ms_per_simulated_s":
+                   times["device_ms_per_step"] * NODE_TICKS / sim_s,
+               "host_bytes_per_publish": {
+                   k: {"mean": float(np.mean(v)), "max": int(np.max(v)),
+                       "publishes": len(v)}
+                   for k, v in st["host_bytes"].items()},
+               "queue_drops": {q.name: q.dropped_count for q in (
+                   node.depth_queue, node.color_queue,
+                   node.pointcloud_queue)},
+               "depth_frames_admitted": admitted, **figs,
+               "launches": launches, "reference": ref,
+               "differs_from_reference": bad, "inputs_s": inputs_s,
+               "runs_s": runs_s,
+               "limits": {"mae_tolerance": NODE_MODES_MAE_TOL,
+                          "count_tolerance": NODE_COUNT_TOL},
+               "nvidia_smi": smi}
+        emit(row)
+        print(st["timing"], flush=True)
+        if bad:
+            fail(f"node_modes ({part}) differs from the reference's CPU "
+                 f"run: {bad}")
+        # The mode's kernels: each admitted depth frame launches its
+        # per-frame kernel once (the `node/depth/integrate` span also
+        # counts a fused 2-D tick the mapper declines, as the reference's
+        # does), and the others run.
+        per_frame, need = {
+            "a": ("occupancy_fuse", ("edt_pass1", "edt_pass")),
+            "b": ("detect_dynamic", ("dilate_dense", "occupancy_fuse",
+                                     "tsdf_fuse", "tsdf_lidar_fuse",
+                                     "color_fuse", "marching_cubes",
+                                     "edt_pass1", "edt_pass")),
+            "c": ("tsdf_fuse", ("tsdf_lidar_fuse", "color_fuse",
+                                "marching_cubes", "edt_pass1",
+                                "edt_pass"))}[part]
+        if launches[per_frame] != admitted or not st["costmap"]:
+            fail(f"node_modes ({part}): {admitted} depth frames admitted, "
+                 f"{launches[per_frame]} {per_frame} launches; costmap "
+                 f"{st['costmap']}")
+        for name in need:
+            if launches[name] <= 0:
+                fail(f"kernel {name} was not launched on node_modes ({part})")
+        T0 = torch.as_tensor(orbit_pose_at(0), device=dev)
+        d0 = torch.as_tensor(inp["depths"][0], device=dev)
+        H, W = d0.shape
+        if part == "a":
+            if launches["tsdf_fuse"] or launches["tsdf_lidar_fuse"]:
+                fail(f"the occupancy node ran a TSDF kernel: {launches}")
+            occ = sm.params.occupancy
+            slots, bidx = view_batch_of(
+                sm, d0, T0, camera, voxel,
+                float(occ.max_integration_distance_m),
+                float(occ.occupied_region_half_width_m),
+                sm.max_blocks_per_frame)
+            base = (sm.channels["occupancy_log_odds"],
+                    sm.channels["occupancy_observed"])
+            got, want = [b.clone() for b in base], [b.clone() for b in base]
+            okw = dict(camera=camera, voxel_size_m=voxel, params=occ)
+            real = (slots >= 0) & (slots < sm.capacity)
+            n_view = in_view_voxels(slots, bidx, T0, camera, voxel,
+                                    sm.capacity)
+            plain_check(
+                "occupancy_fuse", path, lambda: integrate_occupancy_cuda(
+                    *got, slots, bidx, d0, T0, **okw),
+                lambda: integrate_occupancy(*want, slots, bidx, d0, T0,
+                                            **okw),
+                got, want, base=base, rows=slots[real].long(),
+                match="occupancy_fuse_kernel",
+                n_bytes=lambda n_upd: (n_view * 5 + n_upd * 5 + H * W * 4
+                                       + slots.numel() * 16),
+                n_ops=lambda n_upd: n_view * 40, frame=0,
+                batch_blocks=int(real.sum()), in_view_voxels=n_view,
+                launches=launches["occupancy_fuse"])
+            del got, want
+        elif part == "b":
+            hc = sm.channels["freespace_high_confidence"]
+            det_kw = dict(camera=camera, voxel_size_m=voxel,
+                          max_depth_m=float(sm.params.projective
+                                            .max_integration_distance_m),
+                          subsample=int(mm.params.dynamic_detection_subsample))
+            # The last crossing's frames on the final map; the one with
+            # the most dynamic pixels is timed.
+            last = [(torch.as_tensor(inp["depths"][k], device=dev),
+                     torch.as_tensor(orbit_pose_at(k), device=dev))
+                    for k in range(n_frames - 8, n_frames)]
+            found = [int((detect_dynamic(sm.state, hc, d, T, **det_kw) > 0)
+                         .sum()) for d, T in last]
+            d_big, T_big = last[int(np.argmax(found))]
+            outs = {}
+            _, p_L = detect_dynamic_plain(sm.state, hc, d_big, T_big,
+                                          **det_kw)
+            n_cells, n_bytes = detect_reads(sm.state, p_L, d_big, voxel,
+                                            det_kw["max_depth_m"])
+            exact = all(torch.equal(
+                detect_dynamic(sm.state, hc, d, T, **det_kw),
+                detect_dynamic_plain(sm.state, hc, d, T, **det_kw)[0]
+                .to(torch.uint8)) for d, T in last)
+            plain_check(
+                "detect_dynamic", path,
+                lambda: outs.__setitem__("k", detect_dynamic(
+                    sm.state, hc, d_big, T_big, **det_kw)),
+                lambda: outs.__setitem__("p", detect_dynamic_plain(
+                    sm.state, hc, d_big, T_big, **det_kw)[0]
+                    .to(torch.uint8)),
+                lambda: [outs["k"]], lambda: [outs["p"]],
+                match="detect_dynamic_kernel",
+                n_bytes=H * W * 5 + n_cells * 4 + n_bytes, n_ops=30 * H * W,
+                frames=len(last), all_frames_bit_exact=exact,
+                dynamic_pixels=found, launches=launches["detect_dynamic"])
+            if not exact:
+                fail("detect_dynamic differs from its plain version on the "
+                     "dynamic node's frames")
+            # dilate_dense on the occupancy indicator of the node's map
+            # over its freespace region (update_freespace's full-pool form).
+            fs = sm.params.freespace
+            ch = sm.channels
+            origin, dims = sm.esdf_region(margin_blocks=0)
+            dims = tuple(int(d) for d in dims)
+            dense, _, _ = halo.assemble_dense_grid(
+                ((ch["tsdf_distance"] < fs.max_tsdf_distance_for_occupancy_m)
+                 & (ch["tsdf_weight"] > 1e-6)).float(),
+                sm.state.block_index_of_slot, sm.state.alloc_count,
+                torch.as_tensor(np.asarray(origin), dtype=torch.int32,
+                                device=dev), dims)
+            nvox = dense.numel()
+            plain_check(
+                "dilate_dense", path,
+                lambda: outs.__setitem__("dk", halo.dilate_dense_grid(dense)),
+                lambda: outs.__setitem__("dp", halo.dilate_dense_grid_plain(
+                    dense)), lambda: [outs["dk"]], lambda: [outs["dp"]],
+                match="dilate_dense_kernel", n_bytes=2 * nvox * 4,
+                n_ops=26 * nvox, grid_blocks=list(dims),
+                occupied_voxels=int(dense.sum()),
+                launches=launches["dilate_dense"])
+            del dense, outs
+        else:
+            if launches["edt_pass"] != 2 * launches["edt_pass1"] \
+                    or sm.esdf_2d is not None:
+                fail(f"the 3-D node solved a 2-D field: {launches}, "
+                     f"esdf_2d {sm.esdf_2d is not None}")
+            # The passes on the node's whole-map 3-D region: a full update,
+            # then the plain chain over the same region.
+            sm.update_esdf(full=True)
+            ch = sm.channels
+            ep = sm.params.esdf
+            is_site, _, _ = esdf_ops.esdf_sites_from_tsdf(
+                ch["tsdf_distance"], ch["tsdf_weight"], voxel_size_m=voxel,
+                max_site_distance_vox=ep.max_site_distance_vox,
+                min_weight=ep.min_weight)
+            edt_rows = edt_check(sm.state, is_site, ch["esdf_sq_dist"],
+                                 *whole_map_region(sm, dev), sm.esdf_band_vox,
+                                 path)
+            del is_site
+            for kname, src_line in (("edt_pass1", 260), ("edt_pass", 113)):
+                rs = edt_rows[kname]
+                results.append({
+                    "name": kname, "path": path, "route": "cuda",
+                    "source": "isaac_ros_nvblox_tpu_torch/csrc/edt.cu",
+                    "replaces": f"isaac_ros_nvblox_tpu/ops/esdf_dense.py:"
+                                f"{src_line}",
+                    "launches": launches[kname],
+                    "max_abs_err": max(r["max_abs_err"] for r in rs),
+                    "ms": sum(r["ms"] for r in rs) / len(rs),
+                    "plain_ms": sum(r["plain_ms"] for r in rs) / len(rs),
+                    "bound_ms": sum(r["bound_ms"] for r in rs) / len(rs),
+                    "bound_by": rs[-1]["bound_by"], "library_ms": None})
+        emit({"phase": "node_modes", "part": part, "checks": "done",
+              "seconds": time.perf_counter() - t_part})
+        del node, mm, sm, inp
+        torch.cuda.empty_cache()
+    return results
 
 
 # ---- the offline fuser ---------------------------------------------------
@@ -3296,6 +3778,22 @@ def plain_check(name: str, path: str, run_k, run_p, outs_k, outs_p, *,
     return row
 
 
+def view_batch_of(m, depth, T, camera, voxel, max_d, trunc, max_blocks):
+    """(slots, block indices) of the batch a frame's integration builds on
+    mapper `m` (its view grid allocated on a copy of the allocator)."""
+    from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
+    from isaac_ros_nvblox_tpu_torch.mapper import device_mapper as dmod
+    from isaac_ros_nvblox_tpu_torch.ops import view as view_ops
+    st = wg.WorldGridState(**{a: v.clone() for a, v in vars(m.state).items()})
+    _, slots, bidx = dmod._allocate_view(
+        st, view_ops.touched_block_grid(
+            depth, T, camera=camera, voxel_size_m=voxel,
+            max_distance_m=max_d, truncation_m=trunc),
+        voxel_size_m=voxel, max_blocks=max_blocks,
+        view_params=m._view_bounds())
+    return slots, bidx
+
+
 def human_kernel_checks(dev, camera, voxel, inp, mm_tsdf, mm_occ, params):
     """Each kernel the human path launches, against its plain version on
     the path's own batches of a frame with the person in view: tsdf_fuse
@@ -3336,15 +3834,8 @@ def human_kernel_checks(dev, camera, voxel, inp, mm_tsdf, mm_occ, params):
     rows = []
 
     def batch(m, masked, max_d, trunc, max_blocks):
-        st = wg.WorldGridState(**{a: v.clone()
-                                  for a, v in vars(m.state).items()})
-        st, slots, bidx = dmod._allocate_view(
-            st, view_ops.touched_block_grid(
-                masked, T, camera=camera, voxel_size_m=voxel,
-                max_distance_m=max_d, truncation_m=trunc),
-            voxel_size_m=voxel, max_blocks=max_blocks,
-            view_params=m._view_bounds())
-        return slots, bidx
+        return view_batch_of(m, masked, T, camera, voxel, max_d, trunc,
+                             max_blocks)
 
     # tsdf_fuse on the background depth, (a)'s static map.
     sm = mm_tsdf.static_mapper
@@ -4169,6 +4660,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
 
     from isaac_ros_nvblox_tpu_torch import kernels, native
+    from isaac_ros_nvblox_tpu_torch.core import types
     from isaac_ros_nvblox_tpu_torch.core.types import (
         Transform, voxel_centers_for_blocks)
     from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
@@ -4204,7 +4696,9 @@ def main() -> None:
     emit({"phase": "gpu", "nvidia_smi": smi, "kind": kind,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "build_s_per_source": built,
-          "native_build_s": time.perf_counter() - t0})
+          "native_build_s": time.perf_counter() - t0,
+          # Whether `core/types.py::fma` takes float32 torch.addcmul here.
+          "addcmul_is_fma": types._addcmul_is_fma(dev)})
 
     # ---- phase 2: the main path at the benchmark's size ------------------
     camera = Camera(fx=500.0, fy=500.0, cx=319.5, cy=239.5, width=640,
@@ -4893,9 +5387,14 @@ def main() -> None:
     del scored
 
     # ---- the online node: the runtime over the publish path --------------
-    node_phase(dev, smi, camera, scene, voxel, world, depths, intr)
+    node_in = node_phase(dev, smi, camera, scene, voxel, world, depths, intr)
     del intr
     torch.cuda.empty_cache()
+
+    # ---- the node's other documented modes --------------------------------
+    results.extend(node_modes_phase(dev, smi, camera, scene, voxel, world,
+                                    depths, node_in))
+    del node_in
 
     # ---- the offline fuser and the host-table backend ---------------------
     fuser_phase(dev, smi, scene, voxel)

@@ -12,10 +12,12 @@ pool rows compare one for one).
 
 Rounding. The reference's float32 arithmetic is what XLA's CPU backend
 emits, and that backend contracts `a*b + c` into one fused multiply-add
-(one rounding). `fma` below reproduces that rounding on any device (the
-product is exact in float64; the float64 sum is rounded once more to
-float32, which differs from a true fused multiply-add only at exact
-float32 ties). XLA also turns a division by a constant into a product
+(one rounding). `fma` below reproduces that rounding on any device: the
+product is exact in float64, the float64 sum is rounded to odd, and the
+conversion to float32 then rounds it once, correctly (a float64 sum
+rounded to nearest would round a second time where it lands on a
+float32 tie); on a card, float32 `torch.addcmul` where it is one fused
+multiply-add. XLA also turns a division by a constant into a product
 with the constant's float32 reciprocal (`recip32`). The port follows both
 in XLA's accumulation order, so its float32 results equal the reference's
 on the CPU (up to rare last-bit differences where XLA orders a product
@@ -78,10 +80,96 @@ def _f64(x):
     return x.double() if isinstance(x, torch.Tensor) else float(np.float32(x))
 
 
+# float64 bits below float32's last mantissa bit, and their value at a
+# float32 tie; float32's smallest normal magnitude.
+_BELOW_F32 = (1 << 29) - 1
+_F32_TIE = 1 << 28
+_F32_MIN_NORMAL = 2.0 ** -126
+# Per CUDA device: whether float32 `torch.addcmul` is one fused
+# multiply-add there (`_addcmul_is_fma`).
+_ADDCMUL_FMA = {}
+
+
+def _fma_round_to_odd(p, c, s) -> torch.Tensor:
+    """float32 of the exact p + c (p, c float64; s = p + c rounded to
+    nearest): s rounded to odd (TwoSum's error e, s + e == p + c; where e
+    is not 0, the neighbour of s toward it whose last bit is odd), which
+    the conversion then rounds once."""
+    pp = s - c
+    e = (p - pp) + (c - (s - pp))
+    odd_step = (e != 0) & ((s.view(torch.int64) & 1) == 0)
+    inf = torch.full((), float("inf"), dtype=torch.float64, device=s.device)
+    return torch.where(odd_step, torch.nextafter(s, torch.copysign(inf, e)),
+                       s).float()
+
+
+def _fma_f64(a, b, c) -> torch.Tensor:
+    """`fma` through float64 on any device."""
+    p = _f64(a) * _f64(b)
+    c = _f64(c)
+    s = p + c
+    if s.device.type != "cpu" or s.dim() == 0:
+        return _fma_round_to_odd(p, c, s)
+    # Only a float64 sum on a float32 tie (or below float32's normal
+    # range) can round twice; elsewhere its float32 rounding is the exact
+    # value's. So on the CPU only those sums are rounded to odd (on a card
+    # the selection would cost a host sync).
+    r = s.float()
+    bits = s.view(torch.int64)
+    idx = torch.nonzero(((bits & _BELOW_F32) == _F32_TIE)
+                        | (s.abs() < _F32_MIN_NORMAL), as_tuple=True)
+    if idx[0].numel():
+        p, c = (torch.broadcast_to(torch.as_tensor(x, dtype=torch.float64),
+                                   s.shape)[idx] for x in (p, c))
+        r[idx] = _fma_round_to_odd(p, c, s[idx])
+    return r
+
+
+def _addcmul_is_fma(device) -> bool:
+    """Whether float32 `torch.addcmul(c, a, b)` rounds a*b + c once on this
+    CUDA device (ATen's `a + alpha * b * c`, which nvcc contracts into one
+    fused multiply-add): held against `_fma_f64` once, on operands whose
+    float64 sums land on float32 ties and on random ones of wide range.
+    The check syncs with the host, so it runs outside any sync debug
+    mode."""
+    key = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if key not in _ADDCMUL_FMA:
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            g = torch.Generator(device="cpu").manual_seed(0)
+            n = 1 << 16
+            ops = [torch.randn(n, generator=g) * torch.exp2(
+                torch.randint(lo, 30, (n,), generator=g).float())
+                for lo in (-30, -30, -60)]
+            tie = ((1 - 2 ** -20, 2 ** -24 * (1 + 2 ** -20), 1 + 2 ** -23),
+                   (-(1 - 2 ** -20), 2 ** -24 * (1 + 2 ** -20),
+                    -(1 + 2 ** -23)))
+            a, b, c = (torch.cat([x, torch.tensor([t[i] for t in tie])])
+                       .to(device) for i, x in enumerate(ops))
+            _ADDCMUL_FMA[key] = bool(torch.equal(
+                torch.addcmul(c, a, b), _fma_f64(a, b, c)))
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    return _ADDCMUL_FMA[key]
+
+
 def fma(a, b, c) -> torch.Tensor:
     """float32 `a*b + c` with a single rounding of the product-sum (see
-    the module docstring). At least one of `a`, `b` is a tensor."""
-    return (_f64(a) * _f64(b) + _f64(c)).float()
+    the module docstring). At least one of `a`, `b` is a tensor. On a card
+    whose float32 `torch.addcmul` is one fused multiply-add, that op for
+    float32 operands; elsewhere float64 with the sum rounded to odd."""
+    t = a if isinstance(a, torch.Tensor) else b
+    if (t.device.type == "cuda"
+            and all(x.dtype == torch.float32 for x in (a, b, c)
+                    if isinstance(x, torch.Tensor))
+            and _addcmul_is_fma(t.device)):
+        def f32(x):
+            return (x.float() if isinstance(x, torch.Tensor) else torch.full(
+                (), float(np.float32(x)), device=t.device))
+        return torch.addcmul(f32(c), f32(a), f32(b))
+    return _fma_f64(a, b, c)
 
 
 def recip32(c: float) -> float:

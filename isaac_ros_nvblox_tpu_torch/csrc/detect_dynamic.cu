@@ -41,8 +41,8 @@
 // pose, the stores). 4 pixels a thread (16-byte loads, 32-bit stores; 18
 // warps an SM) took 4.1 us, 1 pixel a thread 3.6.
 //
-// Rounding: built with -fmad=false; the transform's multiply-adds are the
-// plain version's float64 form (projective.cuh fma_d).
+// Rounding: built with -fmad=false; the transform's multiply-adds round
+// once, as the plain version's (projective.cuh fma_d).
 
 #include <climits>
 

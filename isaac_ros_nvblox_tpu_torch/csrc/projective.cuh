@@ -10,8 +10,9 @@
 // ops/occupancy.py, models/lidar.py), whose float32 roundings follow the
 // reference's XLA path (core/types.py): every source that includes this
 // header is built with -fmad=false, and the one contraction the plain
-// versions perform, fma_emul, is spelled out here in the same float64
-// form, so kernels and plain versions agree bit for bit. On sm_90 a
+// versions perform, a multiply-add rounded once (fma_d, fma_emul), is
+// spelled out here in float64, so kernels and plain versions agree bit
+// for bit. On sm_90 a
 // conversion to or from float64 issues at 16 per clock per SM, an eighth
 // of the float32 rate, so the sensor pose (Pose: the rotation in float32
 // and float64, the translation of the inverse) is computed once per CTA
@@ -77,11 +78,16 @@ inline Params make_params(const float* s, int H, int W, int cap) {
   return p;
 }
 
-// a*b + c with one rounding to float32 (the product is exact in float64,
-// so the float64 fma rounds only the sum, as the plain version's float64
-// product-sum does).
-__device__ __forceinline__ float fma_d(double a, double b, float c) {
-  return (float)__fma_rn(a, b, (double)c);
+// a*b + c with one rounding to float32, for float32 values a, b, c (held
+// in float64): the product is exact in float64; the float64 sum is rounded
+// to odd (toward zero, its last bit set where it is inexact), which the
+// conversion then rounds to float32 correctly, as the plain version's
+// fma (core/types.py) does. A sum rounded to nearest would round twice.
+__device__ __forceinline__ float fma_d(double a, double b, double c) {
+  const double lo = __fma_rd(a, b, c), hi = __fma_ru(a, b, c);
+  long long bits = __double_as_longlong(hi <= 0.0 ? hi : lo);
+  bits |= (long long)(lo != hi);
+  return (float)__longlong_as_double(bits);
 }
 
 __device__ __forceinline__ float fma_emul(float a, float b, float c) {
@@ -278,8 +284,8 @@ __device__ __forceinline__ Pixel project_block_voxel(const Pose& P,
   float pc[3];
 #pragma unroll
   for (int r = 0; r < 3; ++r)
-    pc[r] = (float)__fma_rn(rows.z[lane & 7], P.Rd[6 + r],
-                            rows.xy[r][lane >> 3]) + P.t[r];
+    pc[r] = fma_d(rows.z[lane & 7], P.Rd[6 + r], rows.xy[r][lane >> 3]) +
+            P.t[r];
   return pinhole(pc, p);
 }
 
@@ -331,8 +337,7 @@ __device__ __forceinline__ Pixel project_warp_voxel(const Pose& P,
   float pc[3];
 #pragma unroll
   for (int r = 0; r < 3; ++r)
-    pc[r] = (float)__fma_rn(wr.z[l & 7], P.Rd[6 + r], wr.xy[r][l >> 3]) +
-            P.t[r];
+    pc[r] = fma_d(wr.z[l & 7], P.Rd[6 + r], wr.xy[r][l >> 3]) + P.t[r];
   return pinhole(pc, p);
 }
 

@@ -15,11 +15,12 @@ with `--occupancy` and `--lidar` the reference's own figures for
 chip_smoke.py's occupancy and lidar paths (its XLA integrators; the
 sources of those paths' limits); with `--dynamics` its figures for the
 scored part of chip_smoke.py's `dynamic_frames` phase; with `--node` its
-node's figures for chip_smoke.py's `node_ticks` phase; with `--fuser` its
-figures for chip_smoke.py's `fuser` phase (a); with `--human` its figures
-for chip_smoke.py's `human_frames` phase (the people-segmentation modes,
-a person walking through the bench room, the mask from a separate
-camera); with `--scenes` its figures for chip_smoke.py's `scenes` phase
+node's figures for chip_smoke.py's `node_ticks` phase; with `--node-modes`
+its node's figures (and the port's CPU run's) for the `node_modes` phase;
+with `--fuser` its figures for chip_smoke.py's `fuser` phase (a); with
+`--human` its figures for chip_smoke.py's `human_frames` phase (the
+people-segmentation modes, a person walking through the bench room, the
+mask from a separate camera); with `--scenes` its figures for chip_smoke.py's `scenes` phase
 (bench.py's large and sparse scenes).
 """
 
@@ -578,6 +579,174 @@ def node_reference():
                 (np.asarray(last.data) != last.unknown_value).sum())}
 
 
+def _node_subscribers(node, topics, adapter, costmap):
+    """chip_smoke.py's `subscribe_node` on a reference node, with the
+    reference's mesh layer adapter and costmap layer: a counter on each
+    topic and the 2-D slices kept."""
+    subs = {"counts": {t: 0 for t in topics}, "slices": []}
+    if "~/mesh" in topics:
+        adapter(node.bus)
+    subs["costmap"] = costmap(node.bus)
+    node.bus.subscribe("~/static_map_slice", subs["slices"].append)
+    for topic in topics:
+        node.bus.subscribe(topic, lambda msg, topic=topic: subs[
+            "counts"].__setitem__(topic, subs["counts"][topic] + 1))
+    return subs
+
+
+def _jax_node_mode_figures(node, subs, scene):
+    """chip_smoke.py's `node_mode_figures` of a reference node."""
+    from isaac_ros_nvblox_tpu.mapper.params import EsdfMode
+    from isaac_ros_nvblox_tpu.utils.timing import Timing
+    mm = node.multi_mapper
+    sm, dm = mm.static_mapper, mm.dynamic_mapper
+    n = int(sm.state.alloc_count)
+    live = np.asarray(jwg.live_slot_mask(sm.state))[:n]
+    bidx = np.where(live[:, None],
+                    np.asarray(sm.state.block_index_of_slot)[:n], 0)
+    gt = np.asarray(scene.sdf(voxel_centers_for_blocks(jnp.asarray(bidx),
+                                                       VOXEL)))
+    live = live[:, None]
+    ch = {k: np.asarray(v)[:n] for k, v in sm.channels.items()}
+    last = subs["slices"][-1] if subs["slices"] else None
+    out = {"allocated_blocks": sm.block_count(),
+           "overflow_count": int(sm.state.overflow_count),
+           "depth_frames_integrated": Timing.get(
+               "node/depth/integrate").count,
+           "color_frames_integrated": Timing.get(
+               "node/color/integrate").count,
+           "scans_integrated": Timing.get("node/lidar/integrate").count,
+           "slices_published": len(subs["slices"]),
+           "last_slice_shape": (None if last is None
+                                else [int(last.height), int(last.width)]),
+           "last_slice_known_cells": (None if last is None else int(
+               (np.asarray(last.data) != last.unknown_value).sum())),
+           "messages": subs["counts"], "costmap": subs["costmap"].has_data}
+    if "tsdf_distance" in ch:
+        near = live & (np.abs(gt) < 0.1) & (ch["tsdf_weight"] > 0.5)
+        out["tsdf_mae_m"] = float(np.mean(np.abs(ch["tsdf_distance"]
+                                                 - gt)[near]))
+    else:
+        half = sm.params.occupancy.occupied_region_half_width_m
+        occupied = (live & (ch["occupancy_observed"] > 0)
+                    & (ch["occupancy_log_odds"] > 0))
+        near = np.abs(gt) <= half + VOXEL * np.sqrt(3.0) / 2
+        out["occupied_voxels"] = int(occupied.sum())
+        out["occupied_near_surface_share"] = (
+            int((occupied & near).sum()) / max(int(occupied.sum()), 1))
+    if dm is not None:
+        out["dynamic_blocks"] = dm.block_count()
+        out["dynamic_overflow_count"] = int(dm.state.overflow_count)
+        out["dynamic_occupied_voxels"] = int(
+            (np.asarray(dm.channels["occupancy_log_odds"]) > 0).sum())
+    if mm.params.esdf_mode == EsdfMode.K3D:
+        sq = ch["esdf_sq_dist"]
+        est = np.minimum(np.sqrt(np.minimum(sq, 1e12)) * VOXEL, 2.0)
+        est = np.where(ch["esdf_is_inside"], -est, est)
+        emask = live & (gt > 3 * VOXEL) & (gt < 1.0) & (sq < 1e11)
+        out["esdf_mae_m"] = float(np.mean(np.abs(est - gt)[emask]))
+    return out
+
+
+def _numpy_dense_edt(is_site, block_index_of_slot, alloc_count, origin_b, *,
+                     dims_b, band, interpret=False):
+    """The reference's dense EDT through its numpy twin
+    (`esdf_from_sites_reference`, which tests/test_esdf_dense.py holds
+    equal to it bit for bit): on the CPU the reference runs its EDT
+    kernels in interpret mode, hours for the 3-D node's regions."""
+    cap = is_site.shape[0]
+
+    def solve(site, bidx, n, origin):
+        return jed.esdf_from_sites_reference(
+            np.asarray(site), np.asarray(bidx) - np.asarray(origin), int(n),
+            tuple(dims_b), band).astype(np.float32)
+
+    return jax.pure_callback(
+        solve, jax.ShapeDtypeStruct((cap, 512), jnp.float32), is_site,
+        block_index_of_slot, alloc_count, origin_b)
+
+
+def node_modes_reference():
+    """The reference's CPU run of chip_smoke.py's node_modes phase, and the
+    port's CPU run (`device="cpu"`) of the same inputs: for each part of
+    chip_smoke.NODE_MODES the package's `NvbloxNode` built as the part
+    builds it, on the bench world, over node_ticks' clock and inputs
+    (chip_smoke.drive_node; the frames, scans and intruder rendered by the
+    reference, host arrays for both) with the part's subscribers; then
+    chip_smoke.node_mode_figures of each. The reference's dense EDT runs
+    through its numpy twin (`_numpy_dense_edt`)."""
+    import chip_smoke as cs
+    from isaac_ros_nvblox_tpu.mapper import params as jp
+    from isaac_ros_nvblox_tpu.runtime import adapters as ja
+    from isaac_ros_nvblox_tpu.runtime import costmap as jcm
+    from isaac_ros_nvblox_tpu.runtime import node as jn
+    from isaac_ros_nvblox_tpu.utils.timing import Timing as JTiming
+    from isaac_ros_nvblox_tpu_torch.mapper import params as tp
+    from isaac_ros_nvblox_tpu_torch.models import scene as ts
+    from isaac_ros_nvblox_tpu_torch.runtime import node as tn
+    from isaac_ros_nvblox_tpu_torch.utils.timing import Rates, Timing
+    jcam, tcam = jc.Camera(**ARGS), tc.Camera(**ARGS)
+    poses, depths = _frames(jcam)
+    colors = [np.array(js.render_color(SCENE, jcam, jnp.asarray(T)))
+              for T in poses]
+    base = {"depths": [depths[k % 16] for k in range(64)],
+            "colors": [colors[k % 16] for k in range(64)], "n_orbit": 16}
+    orbit = []
+    for k in range(16):
+        sc = js.Scene(primitives=SCENE.primitives + (js.Sphere(
+            center=intruder_center(k % 8), radius=0.25),))
+        T = jnp.asarray(poses[k])
+        orbit.append((np.array(js.render_depth(sc, jcam, T)),
+                      np.array(js.render_color(sc, jcam, T))))
+    intr = {"depths": [orbit[k % 16][0] for k in range(64)],
+            "colors": [orbit[k % 16][1] for k in range(64)], "n_orbit": 16}
+    from isaac_ros_nvblox_tpu.models.lidar import Lidar
+    p = jn.NodeParams()
+    lidar = Lidar.equal_vertical_fov(p.lidar_width, p.lidar_height,
+                                     p.lidar_vertical_fov_rad,
+                                     min_range_m=p.lidar_min_valid_range_m)
+    scans = [_jax_node_scan(SCENE, lidar, m * NODE_SCAN_MS / 1e3)
+             for m in range((NODE_TICKS - 1) * NODE_TICK_MS // NODE_SCAN_MS)]
+    tscene = ts.Scene(primitives=(
+        ts.RoomBox(center=(0.0, 0.0, 1.5), half_extents=(3.0, 2.2, 1.5)),
+        ts.Sphere(center=(1.2, 0.8, 1.0), radius=0.5),
+        ts.Box(center=(-1.5, -1.0, 0.4), half_extents=(0.4, 0.4, 0.4))))
+    jed.esdf_from_sites_dense = _numpy_dense_edt
+    out = {}
+    for part, (path, mode, overlay, node_kw, intruder, with_scans,
+               topics) in cs.NODE_MODES.items():
+        inp = dict(intr if intruder else base, scans=scans)
+        row = {"path": path, "mode": mode, "overlay": overlay,
+               "node_params": node_kw}
+        node = jn.NvbloxNode(jn.NodeParams(**node_kw),
+                             jp.make_params(mode, overlay),
+                             world=jwg.WorldGridConfig(**WORLD))
+        node.transformer.timestamp_tolerance_s = cs.NODE_POSE_TOLERANCE_S
+        clock = [0.0]
+        node.clock = lambda: clock[0]
+        subs = _node_subscribers(node, topics, ja.MeshLayerAdapter,
+                                 jcm.NvbloxCostmapLayer)
+        JTiming.reset()
+        cs.drive_node(node, clock, jcam, inp, scans=with_scans)
+        row["reference"] = _jax_node_mode_figures(node, subs, SCENE)
+        del node
+        node = tn.NvbloxNode(tn.NodeParams(**node_kw),
+                             tp.make_params(mode, overlay),
+                             world=twg.WorldGridConfig(**WORLD), device="cpu")
+        node.transformer.timestamp_tolerance_s = cs.NODE_POSE_TOLERANCE_S
+        node.clock = lambda: clock[0]
+        subs = cs.subscribe_node(node, topics)
+        Timing.reset()
+        Rates.reset()
+        ticks = cs.drive_node(node, clock, tcam, inp, scans=with_scans)
+        st = cs.node_run_figures(node, subs, ticks)
+        row["port_cpu"] = dict(cs.node_mode_figures(node, st, tscene, VOXEL),
+                               costmap=st["costmap"])
+        out[part] = row
+        print(json.dumps({part: row}), flush=True)
+    return out
+
+
 def fuser_reference():
     """The reference's figures for chip_smoke.py's `fuser` phase (a):
     `SyntheticDataLoader`'s 64-frame orbit (radius 2 m) of the bench room
@@ -712,6 +881,44 @@ def human_reference():
     return out
 
 
+def human_port_reference():
+    """The port's CPU run (`device="cpu"`) of chip_smoke.py's human_frames
+    (a) and (b) on two renders of the 64 frames: the reference's
+    (`_human_frames`, the inputs of `--human`) and the port's own
+    (chip_smoke.human_inputs on the CPU, the card's inputs rendered by the
+    CPU). Each mode's MultiMapper as `human_reference` drives it; figures
+    by chip_smoke.human_map_figures."""
+    from pathlib import Path
+    import chip_smoke as cs
+    from isaac_ros_nvblox_tpu_torch.mapper.multi_mapper import MultiMapper
+    from isaac_ros_nvblox_tpu_torch.mapper.params import apply_overlay
+    from isaac_ros_nvblox_tpu_torch.runtime.config_loader import load_config
+    from test_torch_human import VGA, t_cm_cd
+    cfg = Path(__file__).resolve().parent.parent / "examples/config/nvblox"
+    _, params = load_config([cfg / "nvblox_base.yaml",
+                             cfg / "specializations/nvblox_segmentation.yaml"])
+    tcam = tc.Camera(**VGA)
+    _, ref_frames = _human_frames()
+    static_scene, inp = cs.human_inputs("cpu", tcam, VOXEL)
+    sources = {"reference_render": ref_frames,
+               "port_render": [(d.numpy(), m.numpy(), T) for d, m, T in zip(
+                   inp["depths"], inp["masks"], inp["poses"])]}
+    out = {}
+    for src, frames in sources.items():
+        out[src] = {}
+        for mode in ("human_with_static_tsdf", "human_with_static_occupancy"):
+            mm = MultiMapper(apply_overlay(params, {"mapping_type": mode}),
+                             world=twg.WorldGridConfig(**WORLD), device="cpu")
+            for k, (depth, mask, T) in enumerate(frames):
+                mm.integrate_depth(depth, T, tcam, mask=mask,
+                                   mask_camera=tcam.scaled(0.5),
+                                   T_CM_CD=t_cm_cd())
+                if k % 4 == 3:
+                    mm.decay_dynamic()
+            out[src][mode] = cs.human_map_figures(mm, static_scene, VOXEL)
+    return out
+
+
 def scenes_reference():
     """The reference's CPU run of chip_smoke.py's `scenes` phase:
     bench.py:464-575's large scene (a 10 x 7.2 x 3.2 m room, its three
@@ -797,11 +1004,19 @@ def main():
              "along y = -1.85 m; the 16-frame 640x480 orbit x4; the mask "
              "at 320x240 from a camera 4 cm and 2 degrees off; decay of "
              "the dynamic layer every 4th frame"),
+            ("--human-port", human_port_reference,
+             "chip_smoke human_frames (a), (b) through the port on the CPU, "
+             "on the reference's render of the 64 frames and on the port's"),
             ("--scenes", scenes_reference,
              "chip_smoke scenes: bench.py's large (10x7.2x3.2 m room, 7 m, "
              "orbit radius 2.0) and sparse (floor slab + object cluster, "
              "5 m, radius 1.8) scenes, 16-frame 640x480 orbit x4, 0.05 m, "
              "band 40"),
+            ("--node-modes", node_modes_reference,
+             "chip_smoke node_modes: NvbloxNode in static_occupancy (no "
+             "scans, use_lidar false), dynamic (the intruder sphere crossing "
+             "the room every 8 frames) and static tsdf with esdf 3d, on "
+             "node_ticks' world, clock, frames, scans and subscribers"),
             ("--node", node_reference,
              "chip_smoke node_ticks: NvbloxNode defaults (static tsdf, "
              "esdf 2d, 16384 slots) on the bench world and room; 161 ticks "

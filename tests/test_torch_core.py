@@ -132,3 +132,56 @@ def test_fma_rounds_once():
     # (1 + 2^-12)^2 - 1 = 2^-11 + 2^-24: exact with one rounding, while
     # rounding the product first loses the 2^-24 term.
     assert got == 2.0 ** -11 + 2.0 ** -24
+
+
+def _fma_exact(a, b, c):
+    """float32 a*b + c rounded once (to nearest, ties to even), from the
+    exact rational value."""
+    from fractions import Fraction
+    r = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    f = np.float32(float(r))
+    near = [np.nextafter(f, np.float32(-np.inf)), f,
+            np.nextafter(f, np.float32(np.inf))]
+    return min(near, key=lambda x: (abs(Fraction(float(x)) - r),
+                                    int(np.asarray(x).view(np.uint32)) & 1))
+
+
+def test_fma_rounds_once_at_float64_ties():
+    """Where the float64 sum of the exact product and c rounds onto a
+    float32 tie, fma still rounds the exact value once: (1 - 2^-20) *
+    2^-24 (1 + 2^-20) + (1 + 2^-23) lies 2^-64 below the tie 1 + 3 * 2^-24,
+    so it rounds down, where the float64 sum (the tie itself) would round
+    to even, up. The same on random operands of wide range, against the
+    exact rational value."""
+    a = np.float32(1 - 2 ** -20)
+    b = np.float32(2 ** -24 * (1 + 2 ** -20))
+    c = np.float32(1 + 2 ** -23)
+    for sign in (1, -1):
+        got = tt.fma(torch.tensor([sign * a]), torch.tensor([b]),
+                     torch.tensor([sign * c])).item()
+        assert got == sign * (1 + 2 ** -23)
+    rng = np.random.default_rng(3)
+    n = 2000
+    A, B, C = ((rng.standard_normal(n) * np.exp2(rng.integers(lo, 30, n)))
+               .astype(np.float32) for lo in (-30, -30, -60))
+    got = tt.fma(torch.from_numpy(A), torch.from_numpy(B),
+                 torch.from_numpy(C)).numpy()
+    want = np.array([_fma_exact(*x) for x in zip(A, B, C)], np.float32)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_transform_inverse_matches_at_a_float64_tie():
+    """The orbit pose of human_frames' frame 12: a row of its inverse's
+    translation, -R^T t, meets a float32 tie in float64 (the fault that
+    left one voxel of the people-segmentation occupancy map unobserved);
+    the inverse and the voxels it moves equal XLA's bit for bit."""
+    T = js.orbit_pose(2 * np.pi * 12 / 16, radius=1.5)
+    inv_j = np.asarray(jax.jit(jt.Transform.inverse)(jnp.asarray(T)))
+    inv_t = tt.Transform.inverse(torch.from_numpy(T)).numpy()
+    np.testing.assert_array_equal(inv_t.view(np.uint32), inv_j.view(np.uint32))
+    pts = (np.random.RandomState(5).randn(4096, 3) * 3).astype(np.float32)
+    f = jax.jit(lambda T, p: jt.Transform.apply(jt.Transform.inverse(T), p))
+    np.testing.assert_array_equal(
+        tt.Transform.apply(tt.Transform.inverse(torch.from_numpy(T)),
+                           torch.from_numpy(pts)).numpy(),
+        np.asarray(f(jnp.asarray(T), jnp.asarray(pts))))

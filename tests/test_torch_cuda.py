@@ -1564,6 +1564,91 @@ def test_node_depth_tick_makes_no_host_sync(dev):
     assert node.multi_mapper.static_mapper.block_count() > 0
 
 
+# The node's other documented modes: (mode, user overlay, NodeParams
+# changes, whether the ring scan is fed, topics). An occupancy layer takes
+# no scan and has no mesh or TSDF layer.
+NODE_MODE_CASES = {
+    "static_occupancy": ("static_occupancy", {}, {"use_lidar": False},
+                         False, ("~/static_map_slice",
+                                 "~/map_slice_occupancy_grid",
+                                 "~/occupancy_layer", "~/esdf_layer")),
+    "dynamic": ("dynamic", {}, {}, True,
+                NODE_TOPICS + ("~/combined_map_slice", "~/freespace_layer")),
+    "esdf_3d": ("static", {"esdf_mode": "3d"}, {}, True, NODE_TOPICS),
+}
+# The float channels a card run may move in the last bits (the card's
+# fused multiply-adds); every other array is held bit for bit.
+NODE_LOOSE = ("tsdf_distance", "tsdf_weight", "color_r", "color_g",
+              "color_b", "color_weight", "occupancy_log_odds")
+
+
+@pytest.mark.parametrize("mode", list(NODE_MODE_CASES))
+def test_node_mode_cuda_equals_cpu(dev, mode):
+    """The node in static_occupancy, dynamic (a sphere crossing the room
+    from the fifth frame on) and 3-D ESDF mode ticks alike on the card and
+    on the CPU over the same frames, poses, scan and clock: the same
+    blocks in the same slots, TSDF or log-odds within 1e-5, every other
+    array of both mappers equal, and the same message counts on every
+    topic the mode publishes."""
+    from isaac_ros_nvblox_tpu_torch.mapper.params import make_params
+    from isaac_ros_nvblox_tpu_torch.models.scene import Scene, Sphere
+    from isaac_ros_nvblox_tpu_torch.runtime.node import NodeParams, NvbloxNode
+    name, overlay, node_kw, scan, topics = NODE_MODE_CASES[mode]
+    scene = default_test_scene()
+    poses = [orbit_pose(2 * np.pi * k / 16) for k in range(9)]
+    frames = []
+    for k, T in enumerate(poses):
+        sc = scene if k < 4 else Scene(primitives=scene.primitives + (
+            Sphere(center=(-0.8 + 0.3 * k, 0.6, 1.0), radius=0.25),))
+        frames.append((render_depth(sc, CAM, T, device="cpu").numpy(),
+                       render_color(sc, CAM, T, device="cpu").numpy()))
+    T_l = np.eye(4, dtype=np.float32)
+    T_l[:3, 3] = (0.3, -0.2, 1.2)
+    lidar = Lidar.equal_vertical_fov(1800, 16, float(np.radians(30.0)),
+                                     min_range_m=0.1)
+    ring = _lidar_points(scene, lidar, T_l, "cpu").numpy()
+    runs = []
+    for d in ("cpu", dev):
+        node = NvbloxNode(NodeParams(**node_kw),
+                          make_params(name, dict(overlay,
+                                                 block_capacity=4096)),
+                          world=wg.WorldGridConfig(
+                              dims=(48, 48, 24), capacity=4096,
+                              origin_block=(-24, -24, -6)), device=d)
+        clock = [0.0]
+        node.clock = lambda: clock[0]
+        counts = {t: 0 for t in topics}
+        for topic in topics:
+            node.bus.subscribe(topic, lambda msg, topic=topic:
+                               counts.__setitem__(topic, counts[topic] + 1))
+        for i in range(40):
+            now = i / 100.0
+            k = min(i // 5, len(poses) - 1)
+            node.add_pose("cam", now, poses[k])
+            node.add_pose("lidar", now, T_l)
+            node.add_pose("base_link", now, T_l)
+            if i % 5 == 0:
+                node.add_depth_image(frames[k][0], CAM, "cam", now)
+                node.add_color_image(frames[k][1], CAM, "cam", now)
+            if i == 17 and scan:
+                node.add_pointcloud(ring, "lidar", now)
+            clock[0] = now
+            node.tick()
+        runs.append((node.multi_mapper.state_arrays(), counts))
+    (a, ca), (b, cb) = runs
+    assert a.keys() == b.keys()
+    for k in a:
+        if k.split("/")[-1] in NODE_LOOSE:
+            np.testing.assert_allclose(a[k], b[k], rtol=0, atol=1e-5,
+                                       err_msg=k)
+        else:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert int(a["static_mapper/alloc_count"]) > 50
+    assert ca == cb
+    expected = {t for t in topics if t != "~/combined_map_slice"}
+    assert {t for t, n in ca.items() if n} == expected, ca
+
+
 # ------------------------------------------------ the offline fuser slice
 def test_native_png_unfilter_on_the_card_host(dev):
     """The host PNG library builds and equals its numpy version where the

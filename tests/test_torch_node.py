@@ -2,12 +2,13 @@
 
 Every case of tests/test_node_pipeline.py and tests/test_node_params.py
 runs on the port's node, with the frames rendered by the port's scene
-module at the same 120x90 camera. One test holds the slice as a whole:
-the reference's node and the port's take the same frames, poses, lidar
-scan and simulated clock; their maps agree within the TSDF tolerance
-(>= 99.9% of voxels within 1e-5); then the port's map goes into the
-reference's mapper and one tick of ESDF, mesh and layer publishing on
-both gives bit-equal messages."""
+module at the same 120x90 camera. One test holds the slice as a whole,
+in each of the node's documented configurations (static TSDF, static
+occupancy, dynamic, the 3-D ESDF): the reference's node and the port's
+take the same frames, poses, lidar scan and simulated clock; their maps
+agree within the TSDF tolerance (>= 99.9% of voxels within 1e-5); then
+the port's maps go into the reference's mappers and one tick of ESDF,
+mesh and layer publishing on both gives bit-equal messages."""
 
 import dataclasses
 
@@ -22,6 +23,7 @@ from isaac_ros_nvblox_tpu.mapper import device_io as jdio
 from isaac_ros_nvblox_tpu.mapper import params as jp
 from isaac_ros_nvblox_tpu.models import camera as jc
 from isaac_ros_nvblox_tpu.runtime import node as jnode
+from isaac_ros_nvblox_tpu_torch.core import world_grid as twg
 from isaac_ros_nvblox_tpu_torch.mapper.params import make_params
 from isaac_ros_nvblox_tpu_torch.models.camera import Camera
 from isaac_ros_nvblox_tpu_torch.models.lidar import Lidar
@@ -486,13 +488,38 @@ ROOM = Scene(primitives=(
     RoomBox(center=(0, 0, 1.5), half_extents=(2.0, 1.8, 1.5)),
     Sphere(center=(0.6, 0.4, 1.0), radius=0.4)))
 TOPICS = ("~/static_map_slice", "~/pessimistic_static_map_slice",
-          "~/map_slice_occupancy_grid", "~/mesh", "~/tsdf_layer",
-          "~/color_layer", "~/esdf_layer")
+          "~/combined_map_slice", "~/map_slice_occupancy_grid", "~/mesh",
+          "~/tsdf_layer", "~/color_layer", "~/occupancy_layer",
+          "~/esdf_layer", "~/freespace_layer")
+# The node's documented configurations (MODE_OVERLAYS and EsdfMode), each
+# built as a user builds it: the mode, the user overlay, the NodeParams
+# changes, the world (None: the node's default 128 x 128 x 32 blocks) and
+# the topics its publishing tick must send. Lidar cannot integrate into an
+# occupancy layer (both packages raise), so the occupancy node runs with
+# `use_lidar=False` and is fed no scan. The 3-D node's world bounds the
+# region each ESDF tick solves to the room (6.4 x 6.4 x 4 m): over the
+# default world the 7 m frustum's box holds ~16 M voxels, minutes for the
+# reference's EDT in interpret mode.
+LAYERS = ("~/static_map_slice", "~/pessimistic_static_map_slice",
+          "~/map_slice_occupancy_grid", "~/esdf_layer")
+NODE_MODES = {
+    "static_tsdf": ("static", {}, {}, None,
+                    LAYERS + ("~/mesh", "~/tsdf_layer", "~/color_layer")),
+    "static_occupancy": ("static_occupancy", {}, {"use_lidar": False}, None,
+                         LAYERS + ("~/occupancy_layer",)),
+    "dynamic": ("dynamic", {}, {}, None,
+                LAYERS + ("~/mesh", "~/tsdf_layer", "~/color_layer",
+                          "~/freespace_layer")),
+    "static_tsdf_esdf_3d": ("static", {"esdf_mode": "3d"}, {},
+                            dict(dims=(16, 16, 10), origin_block=(-8, -8, -2)),
+                            LAYERS + ("~/mesh", "~/tsdf_layer",
+                                      "~/color_layer")),
+}
 
 
 def _to_jax(t, j):
     """The port mapper's allocator, channels, flags, removal ring and
-    host-tracked regions into the reference mapper `j`."""
+    host-tracked regions and ESDF state into the reference mapper `j`."""
     a = t.state_arrays()
     j.state = jwg.WorldGridState(**{f: jnp.asarray(a[f]) for f in STATE})
     assert sorted(j.channels) == sorted(t.channels)
@@ -507,6 +534,29 @@ def _to_jax(t, j):
         setattr(j, k, None if v is None else np.array(v))
     j._region_unknown = t._region_unknown
     j._removed_read = t._removed_read
+    j._esdf_has_full = t._esdf_has_full
+    j._freespace_last_update_ms = float(t._freespace_last_update_ms)
+
+
+def _assert_same_mapper(tm, jm):
+    """The same blocks in the same slots, every channel within 1e-5 on at
+    least 99.9% of the live voxels, the same removal ring."""
+    a = tm.state_arrays()
+    b = {f: np.asarray(getattr(jm.state, f)) for f in STATE}
+    b.update({k: np.asarray(v) for k, v in jm.channels.items()})
+    for k in STATE:
+        np.testing.assert_array_equal(a[k], np.asarray(b[k]), err_msg=k)
+    assert sorted(tm.channels) == sorted(jm.channels)
+    n = int(a["alloc_count"])
+    for k in tm.channels:
+        x, y = a[k][:n].astype(np.float64), b[k][:n].astype(np.float64)
+        close = np.isclose(x, y, rtol=0, atol=1e-5)
+        assert close.mean() >= 0.999, (tm.name, k, close.mean())
+    np.testing.assert_array_equal(a["removed_count"],
+                                  np.asarray(jm.removed_count))
+    np.testing.assert_array_equal(a["removed_log"],
+                                  np.asarray(jm.removed_log))
+    return n
 
 
 def _lidar_scan(T_L_S, lidar, n_steps=64):
@@ -535,7 +585,8 @@ def _lidar_scan(T_L_S, lidar, n_steps=64):
 def _drive(node, t, frames, scan, cam):
     """Poses at 100 Hz for cam, lidar and base_link; depth and color
     (camera `cam`, the node's package's) every 50 ms; the scan (relative
-    per-point stamps over 50 ms) at 0.12 s; a tick every 10 ms."""
+    per-point stamps over 50 ms) at 0.12 s unless `scan` is None; a tick
+    every 10 ms."""
     poses_cam, poses_lidar = frames["cam"], frames["lidar"]
     for i in range(len(poses_cam)):
         now = i / 100.0
@@ -546,7 +597,7 @@ def _drive(node, t, frames, scan, cam):
             k = i // 5
             node.add_depth_image(frames["depth"][k], cam, "cam", now)
             node.add_color_image(frames["color"][k], cam, "cam", now)
-        if i == 12:
+        if i == 12 and scan is not None:
             node.add_pointcloud(scan[0], "lidar", now, timestamps_s=scan[1])
         t[0] = now
         node.tick()
@@ -623,60 +674,111 @@ def _kernel_branch_mesh(monkeypatch):
     monkeypatch.setattr(jdio, "update_mesh_layer", kernel_branch)
 
 
-def test_node_matches_reference(node_frames, monkeypatch):
+def _mode_nodes(mode):
+    """The port's node (on the CPU) and the reference's in one of
+    NODE_MODES' configurations, 8192 slots."""
+    name, overlay, node_kw, world, _ = NODE_MODES[mode]
+    overlay = dict(overlay, block_capacity=8192)
+    world = world and dict(world, capacity=8192)
+    return (
+        (NvbloxNode(NodeParams(**node_kw), make_params(name, overlay),
+                    world=world and twg.WorldGridConfig(**world),
+                    device="cpu"), CAM),
+        (jnode.NvbloxNode(jnode.NodeParams(**node_kw),
+                          jp.make_params(name, overlay),
+                          world=world and jwg.WorldGridConfig(**world)),
+         jc.Camera(**dataclasses.asdict(CAM))))
+
+
+@pytest.mark.parametrize("mode", list(NODE_MODES))
+def test_node_matches_reference(mode, node_frames, monkeypatch):
+    """Both nodes in one configuration over the same frames, poses, scan
+    and clock: the same maps (every mapper, every channel); then the
+    port's maps go into the reference's mappers and one publishing tick
+    gives the same messages on every topic."""
     _kernel_branch_mesh(monkeypatch)
     frames, scan = node_frames
+    expected = NODE_MODES[mode][4]
+    occupancy = mode == "static_occupancy"
     clock = [0.0]
     nodes = []
-    for node, cam in (
-            (NvbloxNode(NodeParams(),
-                        make_params(overlay={"block_capacity": 8192}),
-                        device="cpu"), CAM),
-            (jnode.NvbloxNode(
-                jnode.NodeParams(),
-                jp.make_params(overlay={"block_capacity": 8192})),
-             jc.Camera(**dataclasses.asdict(CAM)))):
+    for node, cam in _mode_nodes(mode):
         node.clock = lambda: clock[0]
         slices = []
         node.bus.subscribe("~/static_map_slice", slices.append)
-        _drive(node, clock, frames, scan, cam)
+        _drive(node, clock, frames, None if occupancy else scan, cam)
         nodes.append((node, slices))
     (tn, t_slices), (jn, j_slices) = nodes
-    tm, jm = tn.multi_mapper.static_mapper, jn.multi_mapper.static_mapper
     assert tn.depth_queue.dropped_count == jn.depth_queue.dropped_count == 0
     assert len(t_slices) == len(j_slices) >= 2
+    for a, b in zip(t_slices, j_slices):
+        _assert_same_message(a, b, "~/static_map_slice")
 
-    # The maps: the same blocks in the same slots, the TSDF within 1e-5.
-    a = tm.state_arrays()
-    b = {f: np.asarray(getattr(jm.state, f)) for f in STATE}
-    b.update({k: np.asarray(v) for k, v in jm.channels.items()})
-    for k in STATE:
-        np.testing.assert_array_equal(a[k], np.asarray(b[k]), err_msg=k)
-    n = int(a["alloc_count"])
-    assert n > 100 and int(a["overflow_count"]) == 0
-    for k in ("tsdf_distance", "tsdf_weight"):
-        close = np.isclose(a[k][:n], np.asarray(b[k])[:n], rtol=0,
-                           atol=1e-5)
-        assert close.mean() >= 0.999, (k, close.mean())
-    # The lidar scan reached the map above the camera's view.
-    assert tn.pointcloud_queue.dropped_count == 0
-    assert Timing.get("node/lidar/integrate").count >= 1
+    # The maps: the same blocks in the same slots, every channel within
+    # 1e-5 (TSDF or log-odds, freespace, ESDF).
+    tmm, jmm = tn.multi_mapper, jn.multi_mapper
+    pairs = [(tmm.static_mapper, jmm.static_mapper)]
+    assert (tmm.dynamic_mapper is None) == (jmm.dynamic_mapper is None)
+    assert (tmm.dynamic_mapper is not None) == (mode == "dynamic")
+    if tmm.dynamic_mapper is not None:
+        pairs.append((tmm.dynamic_mapper, jmm.dynamic_mapper))
+    n = _assert_same_mapper(*pairs[0])
+    assert n > 100 and int(tmm.static_mapper.state.overflow_count) == 0
+    for tm, jm in pairs[1:]:
+        _assert_same_mapper(tm, jm)
+    assert ("occupancy_log_odds" in tmm.static_mapper.channels) == occupancy
+    if not occupancy:
+        # The lidar scan reached the map above the camera's view.
+        assert tn.pointcloud_queue.dropped_count == 0
+        assert Timing.get("node/lidar/integrate").count >= 1
 
-    # The port's map into the reference's mapper, then one tick of ESDF,
-    # mesh and layer publishing on both (the 2-D frame forgotten on both
-    # sides, so that each solves the same map).
-    _to_jax(tm, jm)
-    tm._esdf2d_frame = jm._esdf2d_frame = None
+    # The port's maps into the reference's mappers, then one tick of ESDF,
+    # mesh and layer publishing on both (the ESDF frames forgotten on both
+    # sides, so that each solves the same map in full).
+    for tm, jm in pairs:
+        _to_jax(tm, jm)
+        tm._esdf2d_frame = jm._esdf2d_frame = None
+        tm._esdf_has_full = jm._esdf_has_full = False
     got = []
     for node in (tn, jn):
         msgs = {topic: [] for topic in TOPICS}
         for topic in TOPICS:
-            node.bus.subscribe(topic, msgs[topic].append)
+            # An occupancy node has no mesh (test_occupancy_node_raises).
+            if not (occupancy and topic == "~/mesh"):
+                node.bus.subscribe(topic, msgs[topic].append)
         got.append(msgs)
     clock[0] += 1.0
     for node in (tn, jn):
         node.tick()
+    sent = {topic for topic in TOPICS if got[0][topic]}
+    assert sent == set(expected), sent ^ set(expected)
     for topic in TOPICS:
-        assert len(got[0][topic]) == len(got[1][topic]) == 1, topic
-        _assert_same_message(got[0][topic][0], got[1][topic][0], topic)
+        assert len(got[0][topic]) == len(got[1][topic]), topic
+        if got[0][topic]:
+            _assert_same_message(got[0][topic][0], got[1][topic][0], topic)
+    for tm, jm in pairs:
+        _assert_same_mapper(tm, jm)
     assert tn.last_host_bytes["layers"] > 0
+
+
+@pytest.mark.parametrize("what", ["scan", "mesh"])
+def test_occupancy_node_raises(what, node_frames):
+    """What an occupancy mapper cannot do raises alike in both packages, on
+    the tick that tries it: a scan (static_occupancy keeps the default
+    `use_lidar=True`) raises NotImplementedError; a `~/mesh` subscriber
+    makes the mesh tick read the TSDF the layer lacks (KeyError)."""
+    _, scan = node_frames
+    for node in (NvbloxNode(NodeParams(), make_params("static_occupancy"),
+                            device="cpu"),
+                 jnode.NvbloxNode(jnode.NodeParams(),
+                                  jp.make_params("static_occupancy"))):
+        node.clock = lambda: 0.01
+        if what == "scan":
+            node.add_pose("lidar", 0.0, np.eye(4, dtype=np.float32))
+            node.add_pointcloud(scan[0], "lidar", 0.0)
+            with pytest.raises(NotImplementedError, match="TSDF"):
+                node.tick()
+        else:
+            node.bus.subscribe("~/mesh", lambda msg: None)
+            with pytest.raises(KeyError, match="tsdf_distance"):
+                node.tick()
