@@ -76,23 +76,26 @@ class Fuser:
             self.mapper.update_mesh()
 
     def integrate_frame(self, frame: Frame) -> None:
-        with Timer("fuser/depth"):
-            self.mapper.integrate_depth(frame.depth, frame.T_L_C, frame.camera)
-        Rates.tick("fuser/depth")
-        if (frame.color is not None
-                and self.frame_count % self.config.color_frame_subsampling == 0):
-            with Timer("fuser/color"):
-                self.mapper.integrate_color(frame.color, frame.T_L_C,
-                                            frame.camera, depth=frame.depth)
-            Rates.tick("fuser/color")
-        if self.frame_count % self.config.esdf_frame_subsampling == 0:
-            with Timer("fuser/esdf"):
-                self.mapper.update_esdf()
-            Rates.tick("fuser/esdf")
-        if self.frame_count % self.config.mesh_frame_subsampling == 0:
-            with Timer("fuser/mesh"):
-                self._update_mesh()
-            Rates.tick("fuser/mesh")
+        with Timer("fuser/frame"):
+            with Timer("fuser/depth"):
+                self.mapper.integrate_depth(frame.depth, frame.T_L_C,
+                                            frame.camera)
+            Rates.tick("fuser/depth")
+            if (frame.color is not None and self.frame_count
+                    % self.config.color_frame_subsampling == 0):
+                with Timer("fuser/color"):
+                    self.mapper.integrate_color(frame.color, frame.T_L_C,
+                                                frame.camera,
+                                                depth=frame.depth)
+                Rates.tick("fuser/color")
+            if self.frame_count % self.config.esdf_frame_subsampling == 0:
+                with Timer("fuser/esdf"):
+                    self.mapper.update_esdf()
+                Rates.tick("fuser/esdf")
+            if self.frame_count % self.config.mesh_frame_subsampling == 0:
+                with Timer("fuser/mesh"):
+                    self._update_mesh()
+                Rates.tick("fuser/mesh")
         self.frame_count += 1
 
     def run(self, max_frames: Optional[int] = None) -> int:

@@ -13,12 +13,16 @@ cadence (the reference serializes the same way, layer_publishing.cpp:
   * `esdf_and_gradients_device`: a dense signed ESDF grid over an AABB and
     its central-difference gradients.
   * `update_mesh_layer`: the dirty blocks through marching cubes (kernel
-    marching_cubes), one scalar readback to bound the live rows, then
-    meters, the native CSR compaction and the weld into the host
-    `MeshLayer`, with the no-crossing and removed blocks dropped.
+    marching_cubes), one readback of the live-row count and the deferred
+    count, then meters, the native CSR compaction and the weld into the
+    host `MeshLayer`, with the no-crossing and removed blocks dropped;
+    spans `mapper/mesh/march`, `mapper/mesh/readback`, `mapper/mesh/layer`.
   * `save_map_device` / `load_map_device`: the live blocks' channels in
     an npz file (format 2, the reference's keys and metadata: a map saved
     by either package loads in the other).
+
+Every read of the device goes through `utils/timing.to_host`, which
+counts it.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from isaac_ros_nvblox_tpu_torch.ops.dense_grid import (central_gradients,
                                                        gather_dense)
 from isaac_ros_nvblox_tpu_torch.ops.esdf_slicer import SliceSpec
 from isaac_ros_nvblox_tpu_torch.ops.mesh_cuda import local_to_world_verts
+from isaac_ros_nvblox_tpu_torch.utils.timing import Timer, Timing, to_host
 
 B = VOXELS_PER_SIDE
 FORMAT_VERSION = 2
@@ -49,13 +54,13 @@ def take_removed_blocks(m) -> List[Tuple[int, int, int]]:
     one ring readback). Where more were freed than the ring holds, the
     overwritten oldest ones are lost and the ring's newest `cap` come
     back."""
-    count = int(m.removed_count)
+    count = int(to_host(m.removed_count))
     K = m.removed_log.shape[0]
     new = count - m._removed_read
     if new <= 0:
         return []
     new = min(new, K)
-    log = m.removed_log.cpu().numpy()
+    log = to_host(m.removed_log)
     m._removed_read = count
     return [tuple(int(v) for v in row)
             for row in log[np.arange(count - new, count) % K]]
@@ -141,9 +146,9 @@ def slice_esdf_device(m, *, slice_height_m: float, max_distance_m: float,
     ox = int(np.floor(spec.origin_x_m / vs + 0.5))
     oy = int(np.floor(spec.origin_y_m / vs + 0.5))
     gz = int(np.floor(slice_height_m / vs))
-    img = _slice_gather(m, (ox, oy), gz, H=spec.height, W=spec.width,
-                        max_distance_m=float(max_distance_m),
-                        unknown_value=float(unknown_value)).cpu().numpy()
+    img = to_host(_slice_gather(m, (ox, oy), gz, H=spec.height, W=spec.width,
+                                max_distance_m=float(max_distance_m),
+                                unknown_value=float(unknown_value)))
     # The spec covers the frustum-union AABB; crop to the known content.
     known = img < unknown_value
     if known.any():
@@ -182,7 +187,7 @@ def slice_esdf_2d_device(m, *, max_distance_m: float,
     img = torch.where(observed2d, dist,
                       torch.full((), float(unknown_value),
                                  device=dist.device))
-    return spec, img.t().cpu().numpy()
+    return spec, to_host(img.t())
 
 
 # ----------------------------------------------------------- dense ESDF grid
@@ -215,7 +220,7 @@ def esdf_and_gradients_device(m, aabb_min_m, aabb_max_m,
     dims = tuple(int(d) for d in np.maximum(hi - lo, 1))
     grid = _dense_esdf_grid(m, lo, dims, float(default_value))
     grads = central_gradients(grid, vs)
-    return (grid.cpu().numpy(), grads.cpu().numpy(),
+    return (to_host(grid), to_host(grads),
             lo.astype(np.float64) * vs)
 
 
@@ -227,19 +232,38 @@ def update_mesh_layer(m, max_blocks: int = 2048) -> List[Tuple[int, int, int]]:
     the serialized mesh blocks + the cleared-block removals
     (layer_publishing.cpp:675-826).
 
-    Marching cubes runs on the device (kernel marching_cubes); one scalar
-    readback bounds the live rows, so that only they cross to the host."""
+    Marching cubes runs on the device (kernel marching_cubes); one small
+    readback gives the live rows, so that only they cross to the host, and
+    the blocks the budget left for a later update (dirty or pending after
+    this one), counted as `mapper/mesh/deferred_blocks`."""
     cap = m.capacity
-    verts, colors, _, bidx, slots = m.update_mesh_dirty_device(
-        max_blocks=max_blocks, return_slots=True)
-    # The dirty compaction puts the live rows first.
-    n_live = int((slots < cap).sum())
-    world, mask = local_to_world_verts(verts[:n_live], bidx[:n_live],
-                                       m.voxel_size_m)
-    host = [t.cpu().numpy() for t in (world, mask, bidx[:n_live])]
-    cols = (colors[:n_live].float().cpu().numpy() if colors is not None
-            else None)
-    world_np, mask_np, bidx_np = host
+    with Timer("mapper/mesh/march"):
+        verts, colors, _, bidx, slots = m.update_mesh_dirty_device(
+            max_blocks=max_blocks, return_slots=True)
+    with Timer("mapper/mesh/readback"):
+        # The dirty compaction puts the live rows first.
+        counts = to_host(torch.stack([(slots < cap).sum(),
+                                      (m.dirty | m.mesh_pending).sum()]))
+        n_live = int(counts[0])
+        Timing.add("mapper/mesh/deferred_blocks", int(counts[1]))
+        world, mask = local_to_world_verts(verts[:n_live], bidx[:n_live],
+                                           m.voxel_size_m)
+        host = [to_host(t) for t in (world, mask, bidx[:n_live])]
+        cols = (to_host(colors[:n_live].float()) if colors is not None
+                else None)
+    with Timer("mapper/mesh/layer"):
+        meshed = _weld_mesh_rows(m, n_live, *host, cols)
+    # The mesh rows' bytes this update copied to the host (the counts,
+    # soup, mask, colors, block indices; not the clear keys or the ring).
+    m.last_mesh_host_bytes = counts.nbytes + sum(a.nbytes for a in host) + (
+        0 if cols is None else cols.nbytes)
+    return meshed
+
+
+def _weld_mesh_rows(m, n_live: int, world_np, mask_np, bidx_np, cols):
+    """The host half of `update_mesh_layer`: the native CSR compaction of
+    the copied rows, each block into the `MeshLayer`, then the cleared
+    blocks and the removal ring. Returns the keys re-serialized."""
     offsets, v_flat, c_flat = native.compact_mesh_blocks(world_np, cols,
                                                          mask_np)
     meshed = []
@@ -265,10 +289,6 @@ def update_mesh_layer(m, max_blocks: int = 2048) -> List[Tuple[int, int, int]]:
     # The ring is read once: keep what this drain saw for other consumers.
     m.last_removed_keys = removed
     m.last_meshed_keys = meshed
-    # The mesh rows' bytes this update copied to the host (the row count,
-    # soup, mask, colors, block indices; not the clear keys or the ring).
-    m.last_mesh_host_bytes = 8 + sum(a.nbytes for a in host) + (
-        0 if cols is None else cols.nbytes)
     return meshed
 
 
@@ -280,9 +300,9 @@ def save_map_device(m, path) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     slots = torch.nonzero(wg.live_slot_mask(m.state)).squeeze(1)
     payload = {"block_indices":
-               m.state.block_index_of_slot[slots].cpu().numpy()}
+               to_host(m.state.block_index_of_slot[slots])}
     for name, arr in m.channels.items():
-        payload[f"channel__{name}"] = arr[slots].cpu().numpy()
+        payload[f"channel__{name}"] = to_host(arr[slots])
     meta = {
         "format_version": FORMAT_VERSION,
         "voxel_size_m": m.voxel_size_m,

@@ -49,10 +49,18 @@ the pool channels `f32/bool[cap, 512]`, which every step updates in place
 (the reference donates the same buffers). The host tracks block AABBs from
 the poses it is given, so the ESDF update needs no readback unless poses
 arrive as device tensors.
+
+Each step's phases are host spans (`utils/timing.Timer`, no sync):
+`mapper/<depth|lidar|color>/upload` (the inputs to the card),
+`mapper/<depth|lidar>/blocks` (view grid, workspace bounds, allocation
+and batch), `mapper/<depth|lidar|color>/fuse` (the fusion kernel and the
+dirty marks) and `mapper/esdf2d/solve`. Reads of the device go through
+`utils/timing.to_host`, which counts them.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -93,6 +101,7 @@ from isaac_ros_nvblox_tpu_torch.ops.mesh_cuda import (marching_cubes_fused,
 from isaac_ros_nvblox_tpu_torch.ops.tsdf_color_cuda import (
     integrate_tsdf_color_cuda)
 from isaac_ros_nvblox_tpu_torch.ops.tsdf_cuda import integrate_tsdf_cuda
+from isaac_ros_nvblox_tpu_torch.utils.timing import Timer, to_host
 
 B = VOXELS_PER_SIDE
 COLOR_CHANNELS = ("color_r", "color_g", "color_b", "color_weight")
@@ -133,6 +142,14 @@ def _to_device(x, device, dtype) -> torch.Tensor:
     if device.type == "cpu":
         return t
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def _upload_span(name: str, x):
+    """The span of a step's input moving to the card: `name` where `x`
+    comes from the host, none where it is on the device already (moved
+    under the caller's span, as MultiMapper's depth is)."""
+    return (contextlib.nullcontext() if isinstance(x, torch.Tensor)
+            else Timer(name))
 
 
 def _image_dtype(image) -> torch.dtype:
@@ -180,25 +197,28 @@ def _integrate_frame(state, distance, weight, dirty, esdf_dirty, depth,
     reference's color integrator takes its blocks from the depth frame the
     same way (nvblox_node.cpp:1260-1265).
     """
-    depth = _masked_depth(depth, mask, mask_mode)
-    state, slots, bidx = _allocate_view(
-        state, view_ops.touched_block_grid(
-            depth, T_L_C, camera=camera, voxel_size_m=voxel_size_m,
-            max_distance_m=params.max_integration_distance_m,
-            truncation_m=params.truncation_m(voxel_size_m)),
-        voxel_size_m=voxel_size_m, max_blocks=max_blocks,
-        view_params=view_params)
-    if color is None:
-        integrate_tsdf_cuda(distance, weight, slots, bidx, depth, T_L_C,
-                            camera=camera, voxel_size_m=voxel_size_m,
-                            params=params)
-    else:
-        image, chans = color
-        integrate_tsdf_color_cuda(distance, weight, *chans, slots, bidx,
-                                  depth, image, T_L_C, camera=camera,
-                                  voxel_size_m=voxel_size_m, params=params)
-    set_rows_drop(dirty, slots, True)
-    set_rows_drop(esdf_dirty, slots, True)
+    with Timer("mapper/depth/blocks"):
+        depth = _masked_depth(depth, mask, mask_mode)
+        state, slots, bidx = _allocate_view(
+            state, view_ops.touched_block_grid(
+                depth, T_L_C, camera=camera, voxel_size_m=voxel_size_m,
+                max_distance_m=params.max_integration_distance_m,
+                truncation_m=params.truncation_m(voxel_size_m)),
+            voxel_size_m=voxel_size_m, max_blocks=max_blocks,
+            view_params=view_params)
+    with Timer("mapper/depth/fuse"):
+        if color is None:
+            integrate_tsdf_cuda(distance, weight, slots, bidx, depth, T_L_C,
+                                camera=camera, voxel_size_m=voxel_size_m,
+                                params=params)
+        else:
+            image, chans = color
+            integrate_tsdf_color_cuda(distance, weight, *chans, slots, bidx,
+                                      depth, image, T_L_C, camera=camera,
+                                      voxel_size_m=voxel_size_m,
+                                      params=params)
+        set_rows_drop(dirty, slots, True)
+        set_rows_drop(esdf_dirty, slots, True)
     return state
 
 
@@ -210,18 +230,20 @@ def _integrate_color_frame(chans, dirty, tsdf_distance, tsdf_weight, state,
 
     The batch is the allocated blocks in the color frustum (no
     allocation): a max-distance pseudo-depth covers the whole view."""
-    grid, origin = view_ops.touched_block_grid(
-        torch.full((camera.height, camera.width),
-                   params.max_integration_distance_m, device=dirty.device),
-        T_L_C, camera=camera, voxel_size_m=voxel_size_m,
-        max_distance_m=params.max_integration_distance_m,
-        truncation_m=params.truncation_m(voxel_size_m))
-    slots, bidx, _ = wg.view_batch(state, grid, origin,
-                                   max_blocks=max_blocks)
-    integrate_color_cuda(*chans, tsdf_distance, tsdf_weight, slots, bidx,
-                         color_image, depth, T_L_C, camera=camera,
-                         voxel_size_m=voxel_size_m, params=params)
-    set_rows_drop(dirty, slots, True)
+    with Timer("mapper/color/fuse"):
+        grid, origin = view_ops.touched_block_grid(
+            torch.full((camera.height, camera.width),
+                       params.max_integration_distance_m,
+                       device=dirty.device),
+            T_L_C, camera=camera, voxel_size_m=voxel_size_m,
+            max_distance_m=params.max_integration_distance_m,
+            truncation_m=params.truncation_m(voxel_size_m))
+        slots, bidx, _ = wg.view_batch(state, grid, origin,
+                                       max_blocks=max_blocks)
+        integrate_color_cuda(*chans, tsdf_distance, tsdf_weight, slots, bidx,
+                             color_image, depth, T_L_C, camera=camera,
+                             voxel_size_m=voxel_size_m, params=params)
+        set_rows_drop(dirty, slots, True)
 
 
 @torch.no_grad()
@@ -232,19 +254,21 @@ def _integrate_occupancy_frame(state, log_odds, observed, dirty, esdf_dirty,
     """`_integrate_frame` for the occupancy layer (kernel occupancy_fuse).
     The view grid takes the occupancy params' max distance, with the
     occupied half width as its truncation band."""
-    depth = _masked_depth(depth, mask, mask_mode)
-    state, slots, bidx = _allocate_view(
-        state, view_ops.touched_block_grid(
-            depth, T_L_C, camera=camera, voxel_size_m=voxel_size_m,
-            max_distance_m=float(params.max_integration_distance_m),
-            truncation_m=float(params.occupied_region_half_width_m)),
-        voxel_size_m=voxel_size_m, max_blocks=max_blocks,
-        view_params=view_params)
-    integrate_occupancy_cuda(log_odds, observed, slots, bidx, depth, T_L_C,
-                             camera=camera, voxel_size_m=voxel_size_m,
-                             params=params)
-    set_rows_drop(dirty, slots, True)
-    set_rows_drop(esdf_dirty, slots, True)
+    with Timer("mapper/depth/blocks"):
+        depth = _masked_depth(depth, mask, mask_mode)
+        state, slots, bidx = _allocate_view(
+            state, view_ops.touched_block_grid(
+                depth, T_L_C, camera=camera, voxel_size_m=voxel_size_m,
+                max_distance_m=float(params.max_integration_distance_m),
+                truncation_m=float(params.occupied_region_half_width_m)),
+            voxel_size_m=voxel_size_m, max_blocks=max_blocks,
+            view_params=view_params)
+    with Timer("mapper/depth/fuse"):
+        integrate_occupancy_cuda(log_odds, observed, slots, bidx, depth,
+                                 T_L_C, camera=camera,
+                                 voxel_size_m=voxel_size_m, params=params)
+        set_rows_drop(dirty, slots, True)
+        set_rows_drop(esdf_dirty, slots, True)
     return state
 
 
@@ -255,18 +279,20 @@ def _integrate_lidar_frame(state, distance, weight, dirty, esdf_dirty,
     """lidar grid -> allocate -> view batch -> spherical TSDF fusion
     (kernel tsdf_lidar_fuse) -> dirty bits. The workspace bounds apply as
     on the camera path."""
-    state, slots, bidx = _allocate_view(
-        state, view_ops.touched_block_grid_lidar(
-            range_image, T_L_S, lidar=lidar, voxel_size_m=voxel_size_m,
-            max_distance_m=params.max_integration_distance_m,
-            truncation_m=params.truncation_m(voxel_size_m)),
-        voxel_size_m=voxel_size_m, max_blocks=max_blocks,
-        view_params=view_params)
-    integrate_tsdf_lidar_cuda(distance, weight, slots, bidx, range_image,
-                              T_L_S, lidar=lidar, voxel_size_m=voxel_size_m,
-                              params=params)
-    set_rows_drop(dirty, slots, True)
-    set_rows_drop(esdf_dirty, slots, True)
+    with Timer("mapper/lidar/blocks"):
+        state, slots, bidx = _allocate_view(
+            state, view_ops.touched_block_grid_lidar(
+                range_image, T_L_S, lidar=lidar, voxel_size_m=voxel_size_m,
+                max_distance_m=params.max_integration_distance_m,
+                truncation_m=params.truncation_m(voxel_size_m)),
+            voxel_size_m=voxel_size_m, max_blocks=max_blocks,
+            view_params=view_params)
+    with Timer("mapper/lidar/fuse"):
+        integrate_tsdf_lidar_cuda(distance, weight, slots, bidx, range_image,
+                                  T_L_S, lidar=lidar,
+                                  voxel_size_m=voxel_size_m, params=params)
+        set_rows_drop(dirty, slots, True)
+        set_rows_drop(esdf_dirty, slots, True)
     return state
 
 
@@ -872,7 +898,8 @@ class DeviceMapper:
 
     def refresh_count(self) -> int:
         """The live block count (one scalar device->host read)."""
-        return int(self.state.alloc_count) - int(self.state.free_count)
+        return (int(to_host(self.state.alloc_count))
+                - int(to_host(self.state.free_count)))
 
     def block_count(self) -> int:
         return self.refresh_count()
@@ -909,10 +936,12 @@ class DeviceMapper:
             self._touch_region(np.asarray(T_L_C), camera)
         else:
             self._region_unknown = True
-        depth = self._tensor(depth, torch.float32)
-        T_L_C = self._tensor(T_L_C, torch.float32)
+        with _upload_span("mapper/depth/upload", depth):
+            depth = self._tensor(depth, torch.float32)
+            T_L_C = self._tensor(T_L_C, torch.float32)
+            mask_t = None if mask is None else self._tensor(mask,
+                                                            torch.uint8)
         mm = 0 if mask is None else int(mask_mode)
-        mask_t = None if mask is None else self._tensor(mask, torch.uint8)
         if self._is_occupancy:
             self.state = _integrate_occupancy_frame(
                 self.state, self.channels["occupancy_log_odds"],
@@ -982,18 +1011,20 @@ class DeviceMapper:
             self._touch_lidar_region(np.asarray(T_L_S), lidar)
         else:
             self._region_unknown = True
-        points = self._tensor(points, torch.float32)
-        T_L_S = self._tensor(T_L_S, torch.float32)
-        if timestamps_s is not None and T_L_S_end is not None:
-            T_L_S_end = self._tensor(T_L_S_end, torch.float32)
-            points = motion_compensate_pointcloud(
-                points, self._tensor(timestamps_s, torch.float32), T_L_S,
-                T_L_S_end, lidar)
-            T_L_S = T_L_S_end
+        with Timer("mapper/lidar/upload"):
+            points = self._tensor(points, torch.float32)
+            T_L_S = self._tensor(T_L_S, torch.float32)
+            if timestamps_s is not None and T_L_S_end is not None:
+                T_L_S_end = self._tensor(T_L_S_end, torch.float32)
+                points = motion_compensate_pointcloud(
+                    points, self._tensor(timestamps_s, torch.float32), T_L_S,
+                    T_L_S_end, lidar)
+                T_L_S = T_L_S_end
+            range_image = pointcloud_to_range_image(points, lidar)
         self.state = _integrate_lidar_frame(
             self.state, self.channels["tsdf_distance"],
             self.channels["tsdf_weight"], self.dirty, self.esdf_dirty,
-            pointcloud_to_range_image(points, lidar), T_L_S, lidar=lidar,
+            range_image, T_L_S, lidar=lidar,
             voxel_size_m=self.voxel_size_m, params=self.params.projective,
             max_blocks=self.max_blocks_per_frame,
             view_params=self._view_bounds())
@@ -1093,10 +1124,11 @@ class DeviceMapper:
         occluded. A mapper without color channels ignores the frame."""
         if not self.color_enabled:
             return
-        T_L_C = self._tensor(T_L_C, torch.float32)
-        color_image = self._image(color_image)
-        depth = (torch.zeros((1, 1), device=self.device) if depth is None
-                 else self._tensor(depth, torch.float32))
+        with Timer("mapper/color/upload"):
+            T_L_C = self._tensor(T_L_C, torch.float32)
+            color_image = self._image(color_image)
+            depth = (torch.zeros((1, 1), device=self.device) if depth is None
+                     else self._tensor(depth, torch.float32))
         _integrate_color_frame(
             self._color_channels(), self.dirty,
             self.channels["tsdf_distance"], self.channels["tsdf_weight"],
@@ -1147,7 +1179,7 @@ class DeviceMapper:
     def _refresh_region_from_device(self) -> bool:
         """One device->host read of the allocated AABB (used only when
         poses arrived as device tensors). Returns False if empty."""
-        stats = [t.cpu().numpy() for t in
+        stats = [to_host(t) for t in
                  _esdf_stats(self.state, self.esdf_dirty)]
         if int(stats[0]) == 0:
             return False
@@ -1241,12 +1273,13 @@ class DeviceMapper:
 
     def _solve_esdf_2d(self, frame) -> None:
         ox, oy, dims_b, lo, hi = frame
-        field = _esdf2d_solve(
-            self.state, *self._esdf_layers(),
-            device_ints((ox, oy), torch.int32, self.device), lo, hi,
-            dims_b=dims_b, band=self.esdf_band_vox,
-            voxel_size_m=self.voxel_size_m, esdf_params=self.params.esdf,
-            sites_from="occupancy" if self._is_occupancy else "tsdf")
+        with Timer("mapper/esdf2d/solve"):
+            field = _esdf2d_solve(
+                self.state, *self._esdf_layers(),
+                device_ints((ox, oy), torch.int32, self.device), lo, hi,
+                dims_b=dims_b, band=self.esdf_band_vox,
+                voxel_size_m=self.voxel_size_m, esdf_params=self.params.esdf,
+                sites_from="occupancy" if self._is_occupancy else "tsdf")
         self.esdf_2d = ((ox, oy), *field)
         self.esdf_2d_frame_heights = (lo, hi)
         self._esdf2d_frame = frame
@@ -1294,11 +1327,13 @@ class DeviceMapper:
         if self._aabb_lo is None:
             return False
         frame = self._esdf2d_frame_of(min_height_m, max_height_m)
-        T = self._tensor(T_L_C, torch.float32)
+        with _upload_span("mapper/depth/upload", depth):
+            depth = self._tensor(depth, torch.float32)
+            T = self._tensor(T_L_C, torch.float32)
         self.state = _integrate_frame(
             self.state, self.channels["tsdf_distance"],
             self.channels["tsdf_weight"], self.dirty, self.esdf_dirty,
-            self._tensor(depth, torch.float32), T, camera=camera,
+            depth, T, camera=camera,
             voxel_size_m=self.voxel_size_m, params=self.params.projective,
             max_blocks=self.max_blocks_per_frame,
             view_params=self._view_bounds())
@@ -1432,7 +1467,7 @@ class DeviceMapper:
         sb = self._slot_bucket_pending
         if not sb:
             return
-        hw = int(self.state.alloc_count)
+        hw = int(to_host(self.state.alloc_count))
         if hw > sb:
             raise AssertionError(
                 f"slot_bucket {sb} exceeded: alloc high-water {hw}; ESDF "
@@ -1476,7 +1511,7 @@ class DeviceMapper:
         pending, self._mesh_clear_pending = self._mesh_clear_pending, []
         keys = []
         for bidx, rows in pending:
-            bidx_np, rows_np = bidx.cpu().numpy(), rows.cpu().numpy()
+            bidx_np, rows_np = to_host(bidx), to_host(rows)
             keys.extend(tuple(int(v) for v in bidx_np[i])
                         for i in np.nonzero(rows_np)[0])
         return keys
@@ -1503,7 +1538,7 @@ class DeviceMapper:
         path). Returns a generator of (verts, colors, valid, block indices)
         per chunk of `chunk` slots, built lazily; the dirty and pending
         bookkeeping is cleared at once (one scalar readback)."""
-        count = int(self.state.alloc_count)
+        count = int(to_host(self.state.alloc_count))
         self.dirty.zero_()
         self.mesh_pending.zero_()
         return self._mesh_chunks_lazy(count, chunk)
@@ -1519,8 +1554,8 @@ class DeviceMapper:
         """Full-map mesh to the host (cold path): welded (vertices f32[V, 3],
         colors u8[V, 3], triangles i32[T, 3]) from the mesh layer."""
         for verts, colors, valid, bidx in self.update_mesh_device():
-            verts, colors = verts.cpu().numpy(), colors.cpu().numpy()
-            valid, bidx_np = valid.cpu().numpy(), bidx.cpu().numpy()
+            verts, colors = to_host(verts), to_host(colors)
+            valid, bidx_np = to_host(valid), to_host(bidx)
             for i in range(bidx_np.shape[0]):
                 m = valid[i].reshape(-1)
                 if not m.any():

@@ -43,6 +43,7 @@ from isaac_ros_nvblox_tpu_torch.ops.ground_plane import (GroundPlaneEstimator,
                                                          Plane)
 from isaac_ros_nvblox_tpu_torch.ops.masking import (
     mask_overlay, remove_small_connected_components_device)
+from isaac_ros_nvblox_tpu_torch.utils.timing import Timer, to_host
 
 
 def _default_world(capacity: int) -> wg.WorldGridConfig:
@@ -137,10 +138,14 @@ class MultiMapper:
         return self.dynamic_mapper
 
     def _depth(self, depth) -> torch.Tensor:
-        d = self.static_mapper._tensor(depth, torch.float32)
-        sp = self.params.static_mapper
-        if sp.do_depth_preprocessing:
-            d = dilate_invalid_depth(d, sp.depth_preprocessing_num_dilations)
+        """The depth image on the device, preprocessed: the frame's
+        `mapper/depth/upload` span."""
+        with Timer("mapper/depth/upload"):
+            d = self.static_mapper._tensor(depth, torch.float32)
+            sp = self.params.static_mapper
+            if sp.do_depth_preprocessing:
+                d = dilate_invalid_depth(
+                    d, sp.depth_preprocessing_num_dilations)
         return d
 
     # ------------------------------------------------------------ integrate
@@ -313,22 +318,23 @@ class MultiMapper:
     def last_dynamic_mask(self) -> Optional[np.ndarray]:
         if self._last_dynamic_mask_dev is None:
             return None
-        return self._last_dynamic_mask_dev.cpu().numpy()
+        return to_host(self._last_dynamic_mask_dev)
 
     @property
     def last_depth_foreground(self) -> Optional[np.ndarray]:
         if self._last_dynamic_mask_dev is None:
             return None
         d = self._last_depth_dev
-        return torch.where(self._last_dynamic_mask_dev > 0, d,
-                           torch.zeros_like(d)).cpu().numpy()
+        return to_host(torch.where(self._last_dynamic_mask_dev > 0, d,
+                                   torch.zeros_like(d)))
 
     @property
     def last_mask_overlay(self) -> Optional[np.ndarray]:
         if self._last_dynamic_mask_dev is None:
             return None
-        return mask_overlay(torch.clamp(self._last_depth_dev * 50.0, 0, 255),
-                            self._last_dynamic_mask_dev).cpu().numpy()
+        return to_host(mask_overlay(
+            torch.clamp(self._last_depth_dev * 50.0, 0, 255),
+            self._last_dynamic_mask_dev))
 
     @property
     def last_dynamic_pointcloud(self) -> Optional[np.ndarray]:
@@ -341,7 +347,7 @@ class MultiMapper:
         T = self.static_mapper._tensor(self._last_T_L_C, torch.float32)
         pts = Transform.apply(T, pts)
         keep = (self._last_dynamic_mask_dev > 0).reshape(-1) & valid
-        return pts[keep].cpu().numpy()
+        return to_host(pts[keep])
 
     # --------------------------------------------------------------- update
     def update_esdf(self) -> None:

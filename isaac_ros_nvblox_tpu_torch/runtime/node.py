@@ -55,7 +55,7 @@ from isaac_ros_nvblox_tpu_torch.runtime.transformer import Transformer
 from isaac_ros_nvblox_tpu_torch.runtime.visualization import (aabb_marker,
                                                               plane_marker)
 from isaac_ros_nvblox_tpu_torch.utils.timing import (Delays, Rates, Timer,
-                                                     Timing)
+                                                     Timing, to_host)
 
 
 @dataclasses.dataclass
@@ -438,7 +438,7 @@ class NvbloxNode:
             sm._tensor(item.depth, torch.float32), camera=item.camera,
             max_depth_m=self.params.max_back_projection_distance)
         pts_g = transform_pointcloud(pts, sm._tensor(T, torch.float32))
-        pts_g = pts_g[valid].cpu().numpy()
+        pts_g = to_host(pts_g[valid])
         self.last_host_bytes["back_projected_depth"] = pts_g.nbytes
         self.bus.publish("~/back_projected_depth",
                          (Header(stamp_s=item.stamp_s,
@@ -589,13 +589,20 @@ class NvbloxNode:
                     unknown_value=p.distance_map_unknown_value_pessimistic))
 
     def _process_mesh(self) -> None:
-        static_mapper = self.multi_mapper.static_mapper
         subs = self.bus.subscriber_ids("~/mesh")
         if not subs:
             return
         with Timer("node/mesh/update"):
             self.multi_mapper.update_mesh()
         Rates.tick("node/mesh")
+        with Timer("node/mesh/publish"):
+            self._publish_mesh(subs)
+
+    def _publish_mesh(self, subs) -> None:
+        """The mesh layer to each `~/mesh` subscriber in `subs`, after an
+        update: the removals, the layer streamer's budgeted selection and
+        each late subscriber's catch-up."""
+        static_mapper = self.multi_mapper.static_mapper
         self.last_host_bytes["mesh"] = static_mapper.last_mesh_host_bytes
         mesh_layer = static_mapper.mesh_layer
         # Forward removals this update drained to the voxel-layer publisher,
@@ -707,7 +714,7 @@ class NvbloxNode:
             # them (the mesh path owns them): still-dirty blocks re-queue
             # each publish, which the bandwidth budget rate-limits.
             dirty_slots = torch.nonzero(m.dirty).squeeze(1)
-            bidx = m.state.block_index_of_slot[dirty_slots].cpu().numpy()
+            bidx = to_host(m.state.block_index_of_slot[dirty_slots])
             host_bytes += 8 * dirty_slots.numel() + bidx.nbytes
             updated |= {tuple(int(x) for x in k) for k in bidx}
         # Drain the device removal log and merge whatever the mesh path
@@ -729,8 +736,8 @@ class NvbloxNode:
                 return []
             cells = torch.as_tensor(np.asarray(inside, np.int64) - origin,
                                     device=self.device)
-            slots = m.state.slot_grid[cells[:, 0], cells[:, 1],
-                                      cells[:, 2]].cpu().numpy()
+            slots = to_host(m.state.slot_grid[cells[:, 0], cells[:, 1],
+                                              cells[:, 2]])
             nonlocal host_bytes
             host_bytes += slots.nbytes
             return [(k, int(s)) for k, s in zip(inside, slots) if s >= 0]
@@ -782,9 +789,9 @@ class NvbloxNode:
                     occupied &= d2 <= r * r
                 # Only the published voxels cross to the host, block by
                 # block in key order.
-                counts = occupied.sum(dim=1).cpu().numpy()
-                centers = centers[occupied].cpu().numpy()
-                values = values[occupied].cpu().numpy()
+                counts = to_host(occupied.sum(dim=1))
+                centers = to_host(centers[occupied])
+                values = to_host(values[occupied])
                 host_bytes += counts.nbytes + centers.nbytes + values.nbytes
                 if channel.startswith("color") and \
                         self.params.layer_visualization_undo_gamma_correction:

@@ -6,10 +6,19 @@ hierarchical spans, `timing::Rates` tick meters, `timing::Delays`
 message-stamp latency meters, each printable and dumpable through the
 node's services, with an injectable clock for deterministic tests.
 
-A span measures host wall time. `Timer.set_block(value)` makes the span
-wait, before it closes, until the device work behind `value` (a tensor or
-a nest of them) is done: a CUDA event recorded on the current stream and
-synchronized. Without it the span stays host-only and adds no sync.
+A span measures host wall time and adds no device sync. While a
+torch.profiler profile records the process, `Timing` also logs each
+closed span (`SpanRecord`): its name, its start and end on
+`time.perf_counter` (the clock a profile's device activities are set
+against), its id and its parent's (the span open when it began; None for
+a root such as `node/tick` or `fuser/frame`), and the counters added
+while it was the innermost open span. The log is bounded, cleared by
+`reset()` and read through `span_log()`; with no profile recording a
+span pays one check for it.
+
+Counters (`Timing.add`) keep a running total and the number of adds.
+`to_host` is the mapping and publish paths' one way to read the device:
+each call is a host sync, counted as `host/reads` and `host/read_bytes`.
 """
 
 from __future__ import annotations
@@ -17,9 +26,15 @@ from __future__ import annotations
 import collections
 import math
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
+
+# True while a torch.profiler profile records this thread.
+_profiling = torch._C._autograd._profiler_enabled
+# Closed spans the log keeps, newest last.
+LOG_SIZE = 1 << 18
 
 
 class _SpanStats:
@@ -51,11 +66,39 @@ class _SpanStats:
         return math.sqrt(max(var, 0.0))
 
 
+class _CounterStats:
+    __slots__ = ("count", "total")
+
+    def __init__(self):
+        self.count = 0
+        self.total = 0.0
+
+
+class SpanRecord:
+    """One closed span of the log. `counters` maps a counter's name to
+    [total, adds] of what was added while this span was the innermost
+    open one."""
+    __slots__ = ("name", "start", "end", "id", "parent", "counters")
+
+    def __init__(self, name: str, id: int, parent: Optional[int]):
+        self.name = name
+        self.id = id
+        self.parent = parent
+        self.start = self.end = 0.0
+        self.counters: Dict[str, List[float]] = {}
+
+
 class TimingRegistry:
-    """Hierarchical span timing (parity: nvblox timing::Timing)."""
+    """Hierarchical span timing (parity: nvblox timing::Timing), its
+    counters and, while a profile records, its span log."""
 
     def __init__(self):
         self._stats: Dict[str, _SpanStats] = collections.defaultdict(_SpanStats)
+        self._counters: Dict[str, _CounterStats] = collections.defaultdict(
+            _CounterStats)
+        self._log: collections.deque = collections.deque(maxlen=LOG_SIZE)
+        self._open: List[SpanRecord] = []
+        self._next_id = 0
 
     def record(self, name: str, dt_s: float) -> None:
         self._stats[name].add(dt_s)
@@ -63,8 +106,43 @@ class TimingRegistry:
     def get(self, name: str) -> _SpanStats:
         return self._stats[name]
 
+    def add(self, name: str, value: float = 1.0) -> None:
+        """Add `value` to counter `name` (and to the innermost open span
+        of the log, if any)."""
+        c = self._counters[name]
+        c.count += 1
+        c.total += value
+        if self._open:
+            tc = self._open[-1].counters.setdefault(name, [0.0, 0])
+            tc[0] += value
+            tc[1] += 1
+
+    def counter(self, name: str) -> _CounterStats:
+        return self._counters[name]
+
+    def span_log(self) -> List[SpanRecord]:
+        """The logged spans, in the order they closed."""
+        return list(self._log)
+
+    def _open_span(self, name: str) -> SpanRecord:
+        rec = SpanRecord(name, self._next_id,
+                         self._open[-1].id if self._open else None)
+        self._next_id += 1
+        self._open.append(rec)
+        return rec
+
+    def _close_span(self, rec: SpanRecord, start: float, end: float) -> None:
+        rec.start, rec.end = start, end
+        # Spans close innermost first; a reset may have dropped the stack.
+        if self._open and self._open[-1] is rec:
+            self._open.pop()
+        self._log.append(rec)
+
     def reset(self) -> None:
         self._stats.clear()
+        self._counters.clear()
+        self._log.clear()
+        self._open.clear()
 
     def to_string(self) -> str:
         lines = ["NVbloxTPU Timing",
@@ -78,6 +156,11 @@ class TimingRegistry:
                 f"{s.std * 1e3:>9.2f}"
                 f"{(0.0 if s.count == 0 else s.min) * 1e3:>9.2f}"
                 f"{s.max * 1e3:>9.2f}")
+        if self._counters:
+            lines.append(f"{'counter':<48}{'count':>8}{'total':>16}")
+            for name in sorted(self._counters):
+                c = self._counters[name]
+                lines.append(f"{name:<48}{c.count:>8}{c.total:>16.0f}")
         return "\n".join(lines)
 
 
@@ -151,49 +234,33 @@ Rates = RatesRegistry()
 Delays = DelaysRegistry()
 
 
-def wait_for(value) -> None:
-    """Block the host until the device work that produced `value` (a
-    tensor, or a list, tuple or dict of them) is done: one CUDA event per
-    card, recorded on its current stream and synchronized. Tensors on the
-    CPU are ready already."""
-    stack, devices = [value], set()
-    while stack:
-        v = stack.pop()
-        if isinstance(v, torch.Tensor):
-            if v.device.type == "cuda":
-                devices.add(v.device)
-        elif isinstance(v, dict):
-            stack.extend(v.values())
-        elif isinstance(v, (list, tuple)):
-            stack.extend(v)
-    for dev in devices:
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(dev))
-        event.synchronize()
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """`t` copied to the host: a device-to-host read, which waits for the
+    work behind `t`. Counted as one `host/reads` and its bytes as
+    `host/read_bytes` (a CPU tensor's too, so that a CPU run counts what
+    a card run reads)."""
+    Timing.add("host/reads")
+    Timing.add("host/read_bytes", t.nbytes)
+    return t.cpu().numpy()
 
 
 class Timer:
-    """Context manager recording a span into the global Timing registry.
+    """Context manager recording a span into the global Timing registry
+    (and into its log while a profile records)."""
 
-    `block_until_ready` may be a tensor (or a nest of them) to wait on
-    before closing the span, so device work is included in the
-    measurement.
-    """
-
-    def __init__(self, name: str, block_until_ready=None):
+    def __init__(self, name: str):
         self.name = name
-        self._block = block_until_ready
         self._t0 = 0.0
+        self._rec: Optional[SpanRecord] = None
 
     def __enter__(self):
+        self._rec = Timing._open_span(self.name) if _profiling() else None
         self._t0 = time.perf_counter()
         return self
 
-    def set_block(self, value) -> None:
-        self._block = value
-
     def __exit__(self, *exc):
-        if self._block is not None:
-            wait_for(self._block)
-        Timing.record(self.name, time.perf_counter() - self._t0)
+        t1 = time.perf_counter()
+        Timing.record(self.name, t1 - self._t0)
+        if self._rec is not None:
+            Timing._close_span(self._rec, self._t0, t1)
         return False

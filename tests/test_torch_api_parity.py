@@ -107,6 +107,12 @@ LEFT_OUT = {
     "parallel/distributed.py::put_sharded(spec)":
         "a jax PartitionSpec; the port's SpatialMesh shards the leading "
         "axis only",
+    "utils/timing.py::Timer.__init__(block_until_ready)":
+        "a span that waits on the card; the port's spans never sync, so "
+        "that the span log names the host's gaps as they are",
+    "utils/timing.py::Timer.set_block":
+        "a span that waits on the card; the port's spans never sync, so "
+        "that the span log names the host's gaps as they are",
 }
 
 

@@ -214,16 +214,27 @@ def test_registries_print_as_reference():
         assert a.to_string() == b.to_string()
 
 
-def test_timer_waits_only_when_blocked():
-    """A Timer records a span; `set_block` takes tensors (a nest of them)
-    and CPU tensors need no wait."""
+def test_timer_waits_only_when_blocked(monkeypatch):
+    """A Timer records its span and never waits on the device: it takes
+    no value to block on, and neither a synchronize nor an event wait
+    runs while it opens and closes."""
+    waits = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: waits.append("synchronize"))
+    monkeypatch.setattr(torch.cuda.Event, "synchronize",
+                        lambda *a, **k: waits.append("event"))
     ttiming.Timing.reset()
     with Timer("t/plain"):
-        pass
-    with Timer("t/blocked") as tm:
-        tm.set_block({"a": [torch.zeros(3)], "b": (torch.ones(2), None)})
+        torch.zeros(3).add_(1)
+    with pytest.raises(TypeError):
+        Timer("t/blocked", torch.zeros(3))
+    assert not hasattr(Timer, "set_block")
+    assert not hasattr(ttiming, "wait_for")
     assert ttiming.Timing.get("t/plain").count == 1
-    assert ttiming.Timing.get("t/blocked").count == 1
+    assert ttiming.Timing.get("t/plain").total > 0
+    assert "t/blocked" not in ttiming.Timing._stats
+    assert waits == []
+    ttiming.Timing.reset()
 
 
 # ----------------------------------------------------------------- costmap
