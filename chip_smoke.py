@@ -157,9 +157,13 @@ per kernel check (printed once every path has run, each with the kernel's
 launches on every path, `launches_by_path`; the marching_cubes line also
 times the same batch with every row padding, `ms_all_padding`, and three
 torch fills of its outputs, `fill_ms`, the dilate_dense line a clone of
-its grid, `copy_ms`; the lines of the fusion kernels (tsdf_fuse,
-tsdf_lidar_fuse, occupancy_fuse, tsdf_color_fuse, color_fuse) time the
-batch's real entries alone and its first real entry alone,
+its grid, `copy_ms`; the mesh_compact line, on the soup of the
+pipeline's first mesh step, the host wall and bytes of the padded
+readback it replaced and of its own, `readback_padded_ms`,
+`readback_compact_ms`, `padded_host_bytes`, `host_bytes`; the lines of
+the fusion kernels (tsdf_fuse, tsdf_lidar_fuse, occupancy_fuse,
+tsdf_color_fuse, color_fuse) time the batch's real entries alone and its
+first real entry alone,
 `ms_real_entries` and `ms_one_entry`, the occupancy_fuse line also the
 batch that the dynamic path's frame builds, `ms_dynamic_batch`, with its
 bound `bound_ms_dynamic_batch`, the color_fuse line an all-zero occlusion
@@ -1675,7 +1679,8 @@ def publish_phase(dev, smi, camera, poses_np, depths_r, voxel, world,
     want = {"tsdf_fuse": n_steps,
             "edt_pass1": n_steps // PUBLISH_ESDF_EVERY,
             "edt_pass": n_steps // PUBLISH_ESDF_EVERY,
-            "marching_cubes": n_steps // PUBLISH_MESH_EVERY}
+            "marching_cubes": n_steps // PUBLISH_MESH_EVERY,
+            "mesh_offsets": n_steps // PUBLISH_MESH_EVERY}
     for name, n in want.items():
         if launches[name] != n:
             fail(f"{name} launched {launches[name]} times on the publish "
@@ -2259,7 +2264,8 @@ def node_phase(dev, smi, camera, scene, voxel, world, depths, intr):
     if min(st["counts"].values()) == 0 or not st["costmap"]:
         fail(f"a subscribed topic was never published: {st['counts']}")
     for name in ("tsdf_fuse", "edt_pass1", "edt_pass", "color_fuse",
-                 "marching_cubes", "tsdf_lidar_fuse"):
+                 "marching_cubes", "tsdf_lidar_fuse", "mesh_offsets",
+                 "mesh_compact"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the node path")
     if st["scans"] != n_scans:
@@ -2868,7 +2874,8 @@ def fuser_phase(dev, smi, scene, voxel):
     n_updates = -(-FUSER_FRAMES // 4) + 1
     want = {"tsdf_fuse": FUSER_FRAMES, "color_fuse": FUSER_FRAMES,
             "edt_pass1": n_updates, "edt_pass": 2 * n_updates,
-            "marching_cubes": n_updates}
+            "marching_cubes": n_updates, "mesh_offsets": n_updates,
+            "mesh_compact": n_updates}
     n_blocks = m.block_count()
     v, c, tri = m.mesh_layer.as_arrays()
     tsdf_mae, esdf_mae, esdf_split = map_errors(m, scene, voxel)
@@ -4654,6 +4661,83 @@ def esdf_less_phase(dev, smi, camera, depths_r, poses_r, params,
             "bound_by": trow["bound_by"], "library_ms": None}
 
 
+def mesh_compact_check(soup, bidx, n_live: int, voxel: float):
+    """mesh_row_offsets + mesh_compact (kernel mesh_compact) on a mesh
+    step's resolved soup, against their plain versions bit for bit: the
+    kernels' device time beside their bound and the plain versions', and
+    the host wall of the readback it replaced (`local_to_world_verts`,
+    then the padded rows copied to the host) beside its own (offsets, the
+    counts read, the compaction, the two reads). Appends the kernel_check
+    line and returns the kernel table's row."""
+    import torch
+    from isaac_ros_nvblox_tpu_torch.ops import mesh_cuda as mc
+    verts, colors = soup
+    off_k = mc.mesh_row_offsets(verts)
+    off_p = mc.mesh_row_offsets_plain(verts)
+    total = int(off_k[n_live])
+    args = (verts, colors, bidx)
+    got = mc.mesh_compact(*args, off_k, n_live, total, voxel)
+    want = mc.mesh_compact_plain(*args, off_p, n_live, total, voxel)
+    torch.cuda.synchronize()
+    exact = (torch.equal(off_k, off_p) and torch.equal(got[0], want[0])
+             and torch.equal(got[1].view(torch.int32),
+                             want[1].view(torch.int32)))
+
+    def run_k():
+        return mc.mesh_compact(*args, mc.mesh_row_offsets(verts), n_live,
+                               total, voxel)
+
+    def run_p():
+        return mc.mesh_compact_plain(*args, mc.mesh_row_offsets_plain(verts),
+                                     n_live, total, voxel)
+
+    def readback_padded():
+        world, mask = mc.local_to_world_verts(verts[:n_live], bidx[:n_live],
+                                              voxel)
+        return [t.cpu() for t in (world, mask, bidx[:n_live],
+                                  colors[:n_live].float())]
+
+    def readback_compact():
+        off = mc.mesh_row_offsets(verts)
+        return [t.cpu() for t in mc.mesh_compact(*args, off, n_live,
+                                                 int(off[n_live]), voxel)]
+
+    ms = plain_device_ms(run_k)
+    plain = cuda_ms(run_p)
+    plain_dev = plain_device_ms(run_p)
+    n_rows = verts.shape[0]
+    # Inputs: every row's x plane (the live test), the y and z planes and
+    # the colors of live slots, the block indices and offsets; outputs:
+    # the offsets, the CSR ints and 24 bytes a live vertex.
+    n_bytes = (n_rows * 16 * 512 * 2 + total * (2 * 2 + 3 * 2)
+               + n_rows * 12 + 2 * (n_rows + 1) * 8 + (4 * n_live + 1) * 8
+               + total * 24)
+    b, b_by = bound_ms(n_bytes, 0)
+    row = {"phase": "kernel_check", "name": "mesh_compact",
+           "batch_blocks": n_rows, "live_rows": n_live,
+           "live_vertices": total, "bit_exact": exact, "ms": ms,
+           "ms_timing": "profiler: mesh_count, mesh_scan, mesh_compact",
+           "plain_ms": plain, "plain_device_ms": plain_dev, "bound_ms": b,
+           "bound_by": b_by,
+           "host_bytes": int(got[0].nbytes + got[1].nbytes),
+           "padded_host_bytes": int(sum(t.nbytes for t in readback_padded())),
+           "readback_padded_ms": cuda_ms(readback_padded),
+           "readback_compact_ms": cuda_ms(readback_compact),
+           "ptxas": (ptxas_rows("mesh_compact", 512, "count_kernel")
+                     + ptxas_rows("mesh_compact", 1024, "scan_kernel")
+                     + ptxas_rows("mesh_compact", 512, "compact_kernel"))}
+    CHECKS.append(row)
+    if not exact or total == 0 or ms is None:
+        fail(f"mesh_compact differs from its plain version: {row}")
+    return {"name": "mesh_compact", "route": "cuda",
+            "source": "isaac_ros_nvblox_tpu_torch/csrc/mesh_compact.cu",
+            "replaces": "none: the host's native CSR pass and the padded "
+                        "copy (mapper/device_io.py)",
+            "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain, "bound_ms": b, "bound_by": b_by,
+            "library_ms": None}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5268,7 +5352,7 @@ def main() -> None:
     # marching_cubes on the surface batch of the pipeline's first mesh step
     # (every block dirty after the first 8 frames; the default budgets).
     live = wg.live_slot_mask(pm.state)
-    nbr8, valid, *_ = _surface_batch(
+    nbr8, valid, surf_bidx, *_ = _surface_batch(
         pm.state, live, torch.zeros_like(live), pch["tsdf_distance"],
         pch["tsdf_weight"], min_weight=float(params.mesh.min_weight),
         max_blocks=2048, slot_bucket=slot_bucket)
@@ -5331,6 +5415,8 @@ def main() -> None:
                     "launches": launches_pipe["marching_cubes"],
                     "max_abs_err": err4, "ms": ms4, "plain_ms": plain4,
                     "bound_ms": b4, "bound_by": b4_by, "library_ms": None})
+    results.append(mesh_compact_check(
+        mc.resolve_edge_soup(*got), surf_bidx, int(valid.sum()), voxel))
     del pm, rows_k, rows_p, base, got, want
     torch.cuda.empty_cache()
 

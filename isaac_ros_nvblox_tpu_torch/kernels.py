@@ -40,7 +40,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 PROJECTIVE = ("tsdf_fuse", "color_fuse", "tsdf_color_fuse", "occupancy_fuse",
               "tsdf_lidar_fuse", "detect_dynamic")
 EXTRA_FLAGS = {name: ["-fmad=false"]
-               for name in PROJECTIVE + ("marching_cubes",)}
+               for name in PROJECTIVE + ("marching_cubes", "mesh_compact")}
 # Headers a source includes (part of its build hash).
 HEADERS = {name: ["projective.cuh"]
            for name in PROJECTIVE + ("marching_cubes",)}
@@ -95,13 +95,19 @@ SIGNATURES = {
                             _I, _I, _P], _I),
         "detect_dynamic_error_string": ([_I], ctypes.c_char_p),
     },
+    "mesh_compact": {
+        "mesh_compact_offsets": ([_P, _P, _I, _P], _I),
+        "mesh_compact": ([_P, _P, _P, _P, _I, _F, _P, _P, _P, _P], _I),
+        "mesh_compact_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 LAUNCHES: Dict[str, int] = {"tsdf_fuse": 0, "edt_pass1": 0, "edt_pass": 0,
                             "color_fuse": 0, "tsdf_color_fuse": 0,
                             "marching_cubes": 0, "occupancy_fuse": 0,
                             "tsdf_lidar_fuse": 0, "dilate_dense": 0,
-                            "detect_dynamic": 0}
+                            "detect_dynamic": 0, "mesh_offsets": 0,
+                            "mesh_compact": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

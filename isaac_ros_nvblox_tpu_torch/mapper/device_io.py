@@ -13,10 +13,12 @@ cadence (the reference serializes the same way, layer_publishing.cpp:
   * `esdf_and_gradients_device`: a dense signed ESDF grid over an AABB and
     its central-difference gradients.
   * `update_mesh_layer`: the dirty blocks through marching cubes (kernel
-    marching_cubes), one readback of the live-row count and the deferred
-    count, then meters, the native CSR compaction and the weld into the
-    host `MeshLayer`, with the no-crossing and removed blocks dropped;
-    spans `mapper/mesh/march`, `mapper/mesh/readback`, `mapper/mesh/layer`.
+    marching_cubes), the soup compacted per block into world meters on
+    the card (kernel mesh_compact), three reads (the live-row, deferred
+    and live-vertex counts; the CSR ints; the vertices and colors), then
+    the weld into the host `MeshLayer`, with the no-crossing and removed
+    blocks dropped; spans `mapper/mesh/march`, `mapper/mesh/readback`,
+    `mapper/mesh/layer`.
   * `save_map_device` / `load_map_device`: the live blocks' channels in
     an npz file (format 2, the reference's keys and metadata: a map saved
     by either package loads in the other).
@@ -34,14 +36,14 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from isaac_ros_nvblox_tpu_torch import native
 from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
 from isaac_ros_nvblox_tpu_torch.core.types import VOXELS_PER_SIDE, sqrt32
 from isaac_ros_nvblox_tpu_torch.mapper.device_mapper import _CHANNEL_RESET
 from isaac_ros_nvblox_tpu_torch.ops.dense_grid import (central_gradients,
                                                        gather_dense)
 from isaac_ros_nvblox_tpu_torch.ops.esdf_slicer import SliceSpec
-from isaac_ros_nvblox_tpu_torch.ops.mesh_cuda import local_to_world_verts
+from isaac_ros_nvblox_tpu_torch.ops.mesh_cuda import (mesh_compact,
+                                                      mesh_row_offsets)
 from isaac_ros_nvblox_tpu_torch.utils.timing import Timer, Timing, to_host
 
 B = VOXELS_PER_SIDE
@@ -232,42 +234,47 @@ def update_mesh_layer(m, max_blocks: int = 2048) -> List[Tuple[int, int, int]]:
     the serialized mesh blocks + the cleared-block removals
     (layer_publishing.cpp:675-826).
 
-    Marching cubes runs on the device (kernel marching_cubes); one small
-    readback gives the live rows, so that only they cross to the host, and
-    the blocks the budget left for a later update (dirty or pending after
-    this one), counted as `mapper/mesh/deferred_blocks`."""
+    Marching cubes runs on the device (kernel marching_cubes), and so does
+    the per-block CSR compaction of its soup into world meters (kernel
+    mesh_compact), so that only live vertices cross to the host. Three
+    reads: the counts (live rows; the blocks the budget left for a later
+    update, dirty or pending after this one, counted as
+    `mapper/mesh/deferred_blocks`; the live vertices, counted as
+    `mapper/mesh/live_vertices`), then the CSR ints (offsets and block
+    indices) and the f32 vertices and colors, each at its exact size."""
     cap = m.capacity
     with Timer("mapper/mesh/march"):
         verts, colors, _, bidx, slots = m.update_mesh_dirty_device(
             max_blocks=max_blocks, return_slots=True)
     with Timer("mapper/mesh/readback"):
-        # The dirty compaction puts the live rows first.
-        counts = to_host(torch.stack([(slots < cap).sum(),
-                                      (m.dirty | m.mesh_pending).sum()]))
-        n_live = int(counts[0])
+        # The dirty compaction puts the live rows first; the rows past
+        # them are all sentinel.
+        offsets = mesh_row_offsets(verts)
+        n_live_t = (slots < cap).sum().view(1)
+        counts = to_host(torch.cat([
+            n_live_t, (m.dirty | m.mesh_pending).sum().view(1),
+            offsets.index_select(0, n_live_t)]))
+        n_live, total = int(counts[0]), int(counts[2])
         Timing.add("mapper/mesh/deferred_blocks", int(counts[1]))
-        world, mask = local_to_world_verts(verts[:n_live], bidx[:n_live],
-                                           m.voxel_size_m)
-        host = [to_host(t) for t in (world, mask, bidx[:n_live])]
-        cols = (to_host(colors[:n_live].float()) if colors is not None
-                else None)
+        Timing.add("mapper/mesh/live_vertices", total)
+        csr, flat = (to_host(t) for t in mesh_compact(
+            verts, colors, bidx, offsets, n_live, total, m.voxel_size_m))
     with Timer("mapper/mesh/layer"):
-        meshed = _weld_mesh_rows(m, n_live, *host, cols)
-    # The mesh rows' bytes this update copied to the host (the counts,
-    # soup, mask, colors, block indices; not the clear keys or the ring).
-    m.last_mesh_host_bytes = counts.nbytes + sum(a.nbytes for a in host) + (
-        0 if cols is None else cols.nbytes)
+        meshed = _weld_mesh_rows(
+            m, csr[:n_live + 1], csr[n_live + 1:].reshape(n_live, 3),
+            flat[0], flat[1] if colors is not None else None)
+    # The mesh rows' bytes this update copied to the host (the counts, the
+    # CSR ints, the vertices and colors; not the clear keys or the ring).
+    m.last_mesh_host_bytes = counts.nbytes + csr.nbytes + flat.nbytes
     return meshed
 
 
-def _weld_mesh_rows(m, n_live: int, world_np, mask_np, bidx_np, cols):
-    """The host half of `update_mesh_layer`: the native CSR compaction of
-    the copied rows, each block into the `MeshLayer`, then the cleared
-    blocks and the removal ring. Returns the keys re-serialized."""
-    offsets, v_flat, c_flat = native.compact_mesh_blocks(world_np, cols,
-                                                         mask_np)
+def _weld_mesh_rows(m, offsets, bidx_np, v_flat, c_flat):
+    """The host half of `update_mesh_layer`: each compacted block into the
+    `MeshLayer`, then the cleared blocks and the removal ring. Returns the
+    keys re-serialized."""
     meshed = []
-    for i in range(n_live):
+    for i in range(len(bidx_np)):
         key = tuple(int(v) for v in bidx_np[i])
         a, b = int(offsets[i]), int(offsets[i + 1])
         v = v_flat[a:b].reshape(-1, 3, 3)

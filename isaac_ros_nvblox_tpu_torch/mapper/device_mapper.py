@@ -1484,7 +1484,9 @@ class DeviceMapper:
         Returns (verts bf16[Ns, 3, 16, 512] block-local voxel units with
         SENTINEL in empty slots, colors bf16 | None, mask bool[Ns, 16, 512],
         block indices i32[Ns, 3]) and, with `return_slots`, the slots.
-        `ops.mesh_cuda.local_to_world_verts` gives meters. Batched blocks
+        `ops.mesh_cuda.local_to_world_verts` gives meters;
+        `mesh_row_offsets` + `mesh_compact` the live vertices' per-block
+        CSR in meters, on the card. Batched blocks
         without a surface crossing are queued for take_mesh_clear_keys().
         """
         (verts_e, colors_e, table, bidx, slots, clear_bidx, clear_rows,

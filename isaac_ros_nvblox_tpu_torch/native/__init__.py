@@ -10,6 +10,10 @@ the plain versions the tests hold the libraries against.
 
   * `compact_mesh_blocks`: per-block CSR compaction of the device mesh
     soup (`f32[N, 3, K, V]` planes + mask) in v-major, then slot, order.
+    It now serves only the sharded mapper's mesh
+    (`parallel/sharded_mapper.py`): `update_mesh_layer` compacts on the
+    card (kernel mesh_compact, `ops/mesh_cuda.py::mesh_compact`), and
+    the tests hold that kernel's plain version against this pass.
   * `compact_triangles`: the valid triangles of a soup, packed.
   * `weld_mesh`: one vertex per quantized position, in order of first
     appearance, with the triangles as indices.

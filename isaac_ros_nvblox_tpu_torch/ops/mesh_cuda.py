@@ -11,6 +11,9 @@ helpers.
   * `resolve_edge_soup`: per-edge planes + table -> the slot-indexed
     triangle soup, at publish cadence.
   * `local_to_world_verts`: block-local bf16 soup -> meters + mask.
+  * `mesh_row_offsets` + `mesh_compact`: the soup's per-block CSR in
+    meters on the card (kernel mesh_compact), so that only live vertices
+    cross to the host; `mesh_compact_plain` for CPU tensors.
 
 A build or launch failure raises; nothing falls back.
 """
@@ -257,3 +260,119 @@ def local_to_world_verts(verts_local, block_indices, voxel_size_m: float):
     world = (verts_local.to(torch.float32)
              + origin[:, :, None, None]) * voxel_size_m
     return world, mask
+
+
+# ------------------------------------------------------------- compaction
+def _live_slots(verts):
+    """bool[N, 512, 16]: the soup's live slots in v-major, then slot,
+    order (`local_to_world_verts`' mask, transposed)."""
+    return (verts[:, 0] >= 0.0).transpose(1, 2)
+
+
+def mesh_row_offsets_plain(verts) -> torch.Tensor:
+    """Plain version of `mesh_row_offsets`."""
+    counts = _live_slots(verts).reshape(verts.shape[0], -1).sum(1)
+    return torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+
+
+@torch.no_grad()
+def mesh_row_offsets(verts) -> torch.Tensor:
+    """i64[N + 1]: row i's live vertices of the bf16 soup
+    `[N, 3, 16, 512]` start at offsets[i] (an exclusive scan of each
+    row's live slots, x >= 0). On the card: kernel mesh_compact's count
+    and scan, no host sync."""
+    if verts.device.type == "cpu":
+        return mesh_row_offsets_plain(verts)
+    what = "mesh_row_offsets"
+    dev = verts.device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    N = verts.shape[0]
+    if verts.shape[1:] != (3, K_PAD, V):
+        raise ValueError(f"{what}: verts bf16[N, 3, 16, 512]")
+    kernels.check_tensors(what, dev, [("verts", verts, (torch.bfloat16,))])
+    offsets = torch.empty((N + 1,), dtype=torch.int64, device=dev)
+    lib = kernels.library("mesh_compact")
+    err = lib.mesh_compact_offsets(verts.data_ptr(), offsets.data_ptr(), N,
+                                   kernels.stream_handle(verts))
+    kernels.LAUNCHES["mesh_offsets"] += 1
+    kernels.check("mesh_compact", err, "mesh_compact_offsets launch")
+    return offsets
+
+
+def mesh_compact_plain(verts, colors, block_indices, offsets, n_live: int,
+                       total: int, voxel_size_m: float):
+    """Plain version of `mesh_compact`: `local_to_world_verts` on the
+    live rows, their live slots gathered in v-major, then slot, order."""
+    world, _ = local_to_world_verts(verts[:n_live], block_indices[:n_live],
+                                    voxel_size_m)
+    live = _live_slots(verts[:n_live])
+
+    def pack(planes):
+        return planes.permute(0, 3, 2, 1)[live]            # [total, 3]
+
+    flat = [pack(world)]
+    if colors is not None:
+        flat.append(pack(colors[:n_live].to(torch.float32)))
+    csr = torch.cat([offsets[:n_live + 1],
+                     block_indices[:n_live].reshape(-1).to(torch.int64)])
+    return csr, torch.stack(flat)
+
+
+@torch.no_grad()
+def mesh_compact(verts, colors, block_indices, offsets, n_live: int,
+                 total: int, voxel_size_m: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first `n_live` rows of the soup as per-block CSR, meters on
+    the device: what `native.compact_mesh_blocks` makes of
+    `local_to_world_verts`' output, bit for bit.
+
+    Args:
+      verts, colors: bf16 `[N, 3, 16, 512]` (`update_mesh_dirty_device`;
+        colors None without color).
+      block_indices: `i32[N, 3]`.
+      offsets: `i64[N + 1]` from `mesh_row_offsets`; `total` =
+        offsets[n_live], the live rows' vertices.
+
+    Returns:
+      csr: `i64[n_live + 1 + 3 n_live]`, the live rows' offsets, then
+        their block indices.
+      flat: `f32[C, total, 3]`, the world vertices, then (C = 2) the
+        colors; block i's at [offsets[i], offsets[i + 1]) in v-major, then
+        slot, order.
+    """
+    dev = verts.device
+    if dev.type == "cpu":
+        return mesh_compact_plain(verts, colors, block_indices, offsets,
+                                  n_live, total, voxel_size_m)
+    what = "mesh_compact"
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    N = verts.shape[0]
+    planes = [("verts", verts, (torch.bfloat16,))]
+    if colors is not None:
+        planes.append(("colors", colors, (torch.bfloat16,)))
+    if (any(t.shape != (N, 3, K_PAD, V) for _, t, _ in planes)
+            or block_indices.shape != (N, 3) or offsets.shape != (N + 1,)
+            or not 0 <= n_live <= N):
+        raise ValueError(f"{what}: verts and colors bf16[N, 3, 16, 512], "
+                         "block_indices i32[N, 3], offsets i64[N + 1], "
+                         "0 <= n_live <= N")
+    kernels.check_tensors(what, dev, planes + [
+        ("block_indices", block_indices, I32),
+        ("offsets", offsets, (torch.int64,))])
+    flat = torch.empty((1 + (colors is not None), total, 3),
+                       dtype=torch.float32, device=dev)
+    if n_live == 0:
+        return torch.zeros((1,), dtype=torch.int64, device=dev), flat
+    csr = torch.empty((4 * n_live + 1,), dtype=torch.int64, device=dev)
+    lib = kernels.library("mesh_compact")
+    err = lib.mesh_compact(
+        verts.data_ptr(), None if colors is None else colors.data_ptr(),
+        block_indices.data_ptr(), offsets.data_ptr(), n_live,
+        float(np.float32(voxel_size_m)), flat[0].data_ptr(),
+        flat[1].data_ptr() if colors is not None else None, csr.data_ptr(),
+        kernels.stream_handle(verts))
+    kernels.LAUNCHES["mesh_compact"] += 1
+    kernels.check("mesh_compact", err, "mesh_compact launch")
+    return csr, flat

@@ -495,6 +495,69 @@ def test_marching_cubes_batch_layouts(dev, layout, with_color):
             assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
+def _random_soup(n, n_live, share, g):
+    """A bf16 soup `[n, 3, 16, 512]` with `share` of the first n_live rows'
+    slots live (vertices in [0, 8), colors in [0, 255)), every other slot
+    the sentinel -1 with zero color."""
+    live = torch.rand(n, 16, 512, generator=g) < share
+    live[n_live:] = False
+    verts = torch.where(live[:, None],
+                        torch.rand(n, 3, 16, 512, generator=g) * 8.0, -1.0)
+    colors = torch.where(live[:, None],
+                         torch.rand(n, 3, 16, 512, generator=g) * 255.0, 0.0)
+    return verts.to(torch.bfloat16), colors.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["pipeline", "color_off", "no_live_rows",
+                                  "one_row", "full_rows",
+                                  "longer_than_scan"])
+def test_mesh_compact_matches_plain(dev, case):
+    """mesh_row_offsets and mesh_compact on the mesh step's soup and edge
+    layouts: one launch each, the offsets, CSR ints, f32 vertices and
+    colors bit for bit the plain versions'."""
+    g = torch.Generator(device="cpu").manual_seed(9)
+    if case in ("pipeline", "color_off", "no_live_rows", "one_row"):
+        d, w, cols, nbr8, valid = _mc_batch(
+            {"no_live_rows": "all_padding", "one_row": "one_row"}.get(
+                case, "pipeline"), g)
+        ve, ce, table = mc.marching_cubes_fused(
+            d.to(dev), w.to(dev), tuple(c.to(dev) for c in cols),
+            nbr8.to(dev), valid.to(dev), min_weight=1e-4, with_color=True)
+        verts, colors = mc.resolve_edge_soup(ve, ce, table)
+        n_live = int(valid.sum())
+        if case == "color_off":
+            colors = None
+    else:
+        n, n_live, share = ((64, 64, 1.0) if case == "full_rows"
+                            else (2600, 2500, 0.02))
+        verts, colors = (t.to(dev) for t in _random_soup(n, n_live, share,
+                                                         g))
+    n = verts.shape[0]
+    bidx = torch.randint(-300, 300, (n, 3), generator=g, dtype=torch.int32)
+    bidx[n_live:] = 0
+    bidx = bidx.to(dev)
+    before = dict(kernels.LAUNCHES)
+    offsets = mc.mesh_row_offsets(verts)
+    want_off = mc.mesh_row_offsets_plain(verts)
+    total = int(offsets[n_live])
+    csr, flat = mc.mesh_compact(verts, colors, bidx, offsets, n_live, total,
+                                VOXEL)
+    want = mc.mesh_compact_plain(verts, colors, bidx, want_off, n_live,
+                                 total, VOXEL)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mesh_offsets"] == before["mesh_offsets"] + 1
+    assert kernels.LAUNCHES["mesh_compact"] == (
+        before["mesh_compact"] + (n_live > 0))
+    assert torch.equal(offsets, want_off)
+    assert int(offsets[-1]) == total
+    assert (total == 0) == (case == "no_live_rows")
+    if case == "full_rows":
+        assert total == 64 * 16 * 512
+    assert torch.equal(csr, want[0])
+    assert flat.shape == want[1].shape
+    assert torch.equal(flat.view(torch.int32), want[1].view(torch.int32))
+
+
 def _block_mask(shape, kind, g):
     blocks = tuple((d + 7) // 8 for d in shape)
     if kind == "none":

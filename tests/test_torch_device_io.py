@@ -26,7 +26,7 @@ from isaac_ros_nvblox_tpu.models import camera as jc
 from isaac_ros_nvblox_tpu.models import scene as js
 from isaac_ros_nvblox_tpu.ops import esdf_dense as jed
 from isaac_ros_nvblox_tpu.ops import mesh_pallas as jmp
-from isaac_ros_nvblox_tpu_torch import kernels
+from isaac_ros_nvblox_tpu_torch import kernels, native
 from isaac_ros_nvblox_tpu_torch.core import world_grid as twg
 from isaac_ros_nvblox_tpu_torch.mapper import device_io as tdio
 from isaac_ros_nvblox_tpu_torch.mapper import device_mapper as tdm
@@ -35,6 +35,9 @@ from isaac_ros_nvblox_tpu_torch.mapper import params as tp
 from isaac_ros_nvblox_tpu_torch.models import camera as tc
 from isaac_ros_nvblox_tpu_torch.ops import esdf as tesdf
 from isaac_ros_nvblox_tpu_torch.ops import esdf_dense as ted
+from isaac_ros_nvblox_tpu_torch.ops import mesh as tmesh
+from isaac_ros_nvblox_tpu_torch.ops import mesh_cuda as tmc
+from isaac_ros_nvblox_tpu_torch.utils.timing import Timing
 from test_torch_dynamics import CAM120, _small, _sphere_pop_frames
 
 torch.set_num_threads(2)
@@ -606,6 +609,55 @@ def test_mesh_layer_matches_reference_kernel_branch(color_map):
     assert len(t.last_removed_keys) > 0
     assert not set(t.last_removed_keys) & set(t.mesh_layer.blocks)
     assert len(t.mesh_layer.blocks) < n0
+
+
+def test_mesh_layer_matches_host_csr(color_map):
+    """update_mesh_layer, its soup compacted on the device, against the
+    host CSR it replaces on a copy of the same map (local_to_world_verts,
+    the full padded rows copied, native.compact_mesh_blocks): the same
+    MeshLayer block for block. Its readback makes three reads, two fewer
+    than the padded copy's five (counts, vertices, mask, block indices,
+    colors), and copies the counts, the CSR ints and the live vertices'
+    positions and colors alone."""
+    t, old = _port_mapper(), _port_mapper()
+    for m in (t, old):
+        m.load_state_arrays(color_map.state_arrays())
+        m.dirty.copy_(twg.live_slot_mask(m.state))
+        m._removed_read = int(m.removed_count)
+    Timing.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        keys = tdio.update_mesh_layer(t, max_blocks=512)
+    spans = {r.name: r for r in Timing.span_log()}
+    Timing.reset()
+
+    verts, colors, _, bidx, slots = old.update_mesh_dirty_device(
+        max_blocks=512, return_slots=True)
+    n_live = int((slots < old.capacity).sum())
+    world, mask = tmc.local_to_world_verts(verts[:n_live], bidx[:n_live],
+                                           VOXEL)
+    offsets, v_flat, c_flat = native.compact_mesh_blocks(
+        world.numpy(), colors[:n_live].float().numpy(), mask.numpy())
+    want = tmesh.MeshLayer(VOXEL, old.params.mesh)
+    want_keys = [tuple(int(v) for v in b) for b in bidx[:n_live].numpy()]
+    for i, key in enumerate(want_keys):
+        a, b = int(offsets[i]), int(offsets[i + 1])
+        want.update_block(key, v_flat[a:b].reshape(-1, 3, 3),
+                          c_flat[a:b].reshape(-1, 3, 3))
+    assert keys[:n_live] == want_keys and n_live > 50
+    assert t.mesh_layer.blocks.keys() == want.blocks.keys()
+    for key, blk in want.blocks.items():
+        got = t.mesh_layer.blocks[key]
+        for f in ("vertices", "colors", "triangles"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(blk, f))
+
+    readback = spans["mapper/mesh/readback"].counters
+    total = int(offsets[-1])
+    assert readback["host/reads"] == [3.0, 3]
+    assert readback["mapper/mesh/live_vertices"] == [float(total), 1]
+    assert t.last_mesh_host_bytes == 3 * 8 + (4 * n_live + 1) * 8 \
+        + 2 * total * 3 * 4
+    assert t.last_mesh_host_bytes * 10 < world.numel() * 4
 
 
 def test_no_kernel_launch_on_cpu(base):

@@ -27,8 +27,9 @@ from isaac_ros_nvblox_tpu_torch.ops.tsdf import (TsdfIntegratorParams,
 from isaac_ros_nvblox_tpu_torch.ops.color import (integrate_color_planar,
                                                   integrate_tsdf_color)
 from isaac_ros_nvblox_tpu_torch.ops.color_cuda import integrate_color_cuda
-from isaac_ros_nvblox_tpu_torch.ops.mesh_cuda import (marching_cubes_fused,
-                                                      marching_cubes_plain)
+from isaac_ros_nvblox_tpu_torch.ops.mesh_cuda import (
+    marching_cubes_fused, marching_cubes_plain, mesh_compact,
+    mesh_compact_plain, mesh_row_offsets, mesh_row_offsets_plain)
 from isaac_ros_nvblox_tpu_torch.ops.tsdf_cuda import integrate_tsdf_cuda
 from isaac_ros_nvblox_tpu_torch.ops.tsdf_color_cuda import (
     integrate_tsdf_color_cuda)
@@ -247,13 +248,22 @@ def test_wrappers_take_plain_versions_on_cpu():
                                       voxel_size_m=0.05, max_depth_m=5.0,
                                       subsample=s)[0].to(torch.uint8))
     assert int(b[-1].sum()) > 0 and float(a[-3].max()) > 0
+    soup = torch.where(torch.rand(4, 1, 16, 512) < 0.05,
+                       torch.rand(4, 3, 16, 512) * 8.0, -1.0).to(torch.bfloat16)
+    a.append(mesh_row_offsets(soup))
+    b.append(mesh_row_offsets_plain(soup))
+    total = int(b[-1][3])
+    assert total > 0
+    a += mesh_compact(soup, soup, bidx[:4], a[-1], 3, total, 0.05)
+    b += mesh_compact_plain(soup, soup, bidx[:4], b[-1], 3, total, 0.05)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert set(kernels.LAUNCHES) == {"tsdf_fuse", "edt_pass1", "edt_pass",
                                      "color_fuse", "tsdf_color_fuse",
                                      "marching_cubes", "occupancy_fuse",
                                      "tsdf_lidar_fuse", "dilate_dense",
-                                     "detect_dynamic"}
+                                     "detect_dynamic", "mesh_offsets",
+                                     "mesh_compact"}
     assert not any(kernels.LAUNCHES.values())
 
 

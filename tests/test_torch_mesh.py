@@ -1,7 +1,8 @@
 """Port vs reference: mesh tables, halo gathering, marching cubes (the plain
 version of the marching_cubes kernel against the reference's Pallas kernel
 in interpret mode, and the full-map XLA mirror), soup resolution, the mesh
-layer and its weld (CPU)."""
+layer and its weld; the plain version of the mesh_compact kernel against
+the host CSR it replaces (CPU)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +16,7 @@ from isaac_ros_nvblox_tpu.ops import halo as jhalo
 from isaac_ros_nvblox_tpu.ops import mesh as jmesh
 from isaac_ros_nvblox_tpu.ops import mesh_pallas as jmp
 from isaac_ros_nvblox_tpu.ops import mesh_tables as jtab
+from isaac_ros_nvblox_tpu_torch import native
 from isaac_ros_nvblox_tpu_torch.core import world_grid as twg
 from isaac_ros_nvblox_tpu_torch.ops import halo as thalo
 from isaac_ros_nvblox_tpu_torch.ops import mesh as tmesh
@@ -258,3 +260,67 @@ def test_marching_cubes_blocks_and_halo_match_reference():
     assert len(v_b) < 3 * len(t_b) / 2            # welded
     np.testing.assert_allclose(np.sort(v_b, 0), np.sort(v_a, 0), atol=1e-5)
     np.testing.assert_allclose(v_b[t_b], v_a[t_a], atol=1e-5)
+
+
+def _compact_soup(case, n=12, seed=11):
+    """A bf16 soup `[n, 3, 16, 512]` for `case` (vertices in [0, 8) where
+    live, the sentinel elsewhere; a few -0.0 and 0.0 vertices, live),
+    colors or None, block indices and the live rows' count; the rows past
+    the live ones are all sentinel, as the dirty compaction leaves them."""
+    rng = np.random.default_rng(seed)
+    verts = rng.uniform(0.0, 8.0, (n, 3, 16, 512)).astype(np.float32)
+    live = rng.random((n, 16, 512)) < 0.05
+    live[:, 15] = False                      # resolve_edge_soup's pad slot
+    verts[:, :, 0, :3] = -0.0
+    verts[:, :, 1, :3] = 0.0
+    live[:, 0:2, :3] = True
+    n_live = n
+    if case == "no_live_row":
+        live[4] = False
+    elif case == "full_row":
+        live[5] = True
+    elif case == "n_live_below_n":
+        n_live = n - 5
+    live[n_live:] = False
+    verts = np.where(live[:, None], verts, tmc.SENTINEL).astype(np.float32)
+    colors = rng.uniform(0.0, 255.0, (n, 3, 16, 512)).astype(np.float32)
+    colors = np.where(live[:, None], colors, 0.0).astype(np.float32)
+    bidx = rng.integers(-40, 40, (n, 3)).astype(np.int32)
+    return (torch.from_numpy(verts).to(torch.bfloat16),
+            None if case == "color_off"
+            else torch.from_numpy(colors).to(torch.bfloat16),
+            torch.from_numpy(bidx), n_live)
+
+
+@pytest.mark.parametrize("case", ["random", "no_live_row", "full_row",
+                                  "n_live_below_n", "color_off"])
+def test_mesh_compact_plain_matches_host_csr(case):
+    """mesh_row_offsets + mesh_compact (plain versions) equal the host CSR
+    they replace, native.compact_mesh_blocks of local_to_world_verts'
+    output, bit for bit: offsets, block indices, vertices, colors."""
+    verts, colors, bidx, n_live = _compact_soup(case)
+    world, mask = tmc.local_to_world_verts(verts[:n_live], bidx[:n_live],
+                                           VOXEL)
+    want_off, want_v, want_c = native.compact_mesh_blocks(
+        world.numpy(), None if colors is None
+        else colors[:n_live].float().numpy(), mask.numpy())
+    offsets = tmc.mesh_row_offsets(verts)
+    assert offsets.dtype == torch.int64 and offsets.shape == (13,)
+    total = int(offsets[n_live])
+    assert int(offsets[-1]) == total == want_v.shape[0] > 1000
+    csr, flat = tmc.mesh_compact(verts, colors, bidx, offsets, n_live,
+                                 total, VOXEL)
+    np.testing.assert_array_equal(csr[:n_live + 1].numpy(), want_off)
+    np.testing.assert_array_equal(csr[n_live + 1:].numpy(),
+                                  bidx[:n_live].numpy().reshape(-1))
+    assert flat.dtype == torch.float32
+    assert flat.shape == (1 if colors is None else 2, total, 3)
+    np.testing.assert_array_equal(flat[0].numpy().view(np.uint32),
+                                  want_v.view(np.uint32))
+    if colors is not None:
+        np.testing.assert_array_equal(flat[1].numpy(), want_c)
+    counts = np.diff(want_off)
+    if case == "no_live_row":
+        assert counts[4] == 0
+    if case == "full_row":
+        assert counts[5] == 16 * 512
