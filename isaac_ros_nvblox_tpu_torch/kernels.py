@@ -100,6 +100,10 @@ SIGNATURES = {
         "mesh_compact": ([_P, _P, _P, _P, _I, _F, _P, _P, _P, _P], _I),
         "mesh_compact_error_string": ([_I], ctypes.c_char_p),
     },
+    "mask_components": {
+        "mask_components": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+        "mask_components_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 LAUNCHES: Dict[str, int] = {"tsdf_fuse": 0, "edt_pass1": 0, "edt_pass": 0,
@@ -107,7 +111,7 @@ LAUNCHES: Dict[str, int] = {"tsdf_fuse": 0, "edt_pass1": 0, "edt_pass": 0,
                             "marching_cubes": 0, "occupancy_fuse": 0,
                             "tsdf_lidar_fuse": 0, "dilate_dense": 0,
                             "detect_dynamic": 0, "mesh_offsets": 0,
-                            "mesh_compact": 0}
+                            "mesh_compact": 0, "mask_components": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -172,9 +172,13 @@ def slice_esdf_2d_device(m, *, max_distance_m: float,
                          spec: Optional[SliceSpec] = None
                          ) -> Optional[Tuple[SliceSpec, np.ndarray]]:
     """The 2-D ESDF (`DeviceMapper.update_esdf_2d`) as a distance image
-    `f32[H = y, W = x]`, with its spec (by default the field's own frame;
-    a given spec is returned as it is). None before the first 2-D solve.
-    The image is made on the device; one copy of it reaches the host."""
+    `f32[H = y, W = x]`, with its spec (by default the field's own frame).
+    A given spec is returned as it is, with the field placed in its frame:
+    cropped where the field reaches past it, `unknown_value` where the
+    field does not cover it (so that the dynamic mapper's field lines up
+    with the static slice it is combined with). None before the first 2-D
+    solve. The image is made on the device; one copy of it reaches the
+    host."""
     if m.esdf_2d is None:
         return None
     origin_b, sq2d, inside2d, observed2d = m.esdf_2d
@@ -186,9 +190,19 @@ def slice_esdf_2d_device(m, *, max_distance_m: float,
                          width=X, height=Y, slice_height_m=0.0,
                          voxel_size_m=vs)
     dist = _signed_distance(sq2d, inside2d, vs, max_distance_m)
-    img = torch.where(observed2d, dist,
-                      torch.full((), float(unknown_value),
-                                 device=dist.device))
+    fill = torch.full((), float(unknown_value), device=dist.device)
+    img = torch.where(observed2d, dist, fill)
+    # The field's first cell in the spec's frame.
+    dx = int(origin_b[0]) * B - int(round(spec.origin_x_m / vs))
+    dy = int(origin_b[1]) * B - int(round(spec.origin_y_m / vs))
+    W, H = int(spec.width), int(spec.height)
+    if (dx, dy, X, Y) != (0, 0, W, H):
+        out = fill.expand(W, H).clone()
+        x0, y0 = max(dx, 0), max(dy, 0)
+        x1, y1 = min(dx + X, W), min(dy + Y, H)
+        if x1 > x0 and y1 > y0:
+            out[x0:x1, y0:y1] = img[x0 - dx:x1 - dx, y0 - dy:y1 - dy]
+        img = out
     return spec, to_host(img.t())
 
 

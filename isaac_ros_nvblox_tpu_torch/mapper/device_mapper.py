@@ -1149,10 +1149,13 @@ class DeviceMapper:
 
     def _touch_region(self, T_L_C_np: np.ndarray, camera: Camera) -> None:
         """Fold one view's frustum block-AABB into the host-side dirty and
-        allocated-high-water AABBs (no device work)."""
+        allocated-high-water AABBs (no device work). The frustum reaches
+        as far as the layer's fusion allocates: the occupancy params' max
+        distance for an occupancy layer, the projective one otherwise."""
+        p = self.params.occupancy if self._is_occupancy \
+            else self.params.projective
         lo, hi = view_ops.frustum_block_aabb(
-            T_L_C_np, camera,
-            self.params.projective.max_integration_distance_m,
+            T_L_C_np, camera, p.max_integration_distance_m,
             self.voxel_size_m)
         w_lo, w_hi = self._world_bounds()
         self._touch_block_aabb(np.maximum(lo, w_lo), np.minimum(hi, w_hi))

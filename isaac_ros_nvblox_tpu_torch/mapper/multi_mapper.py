@@ -6,7 +6,9 @@ the dynamic and human modes, a foreground occupancy mapper fed with the
 masked depth:
 
   * human modes: the mask comes from a people-segmentation network,
-    possibly seen from another camera (`T_CM_CD` and the mask camera);
+    possibly seen from another camera (`T_CM_CD` and the mask camera),
+    and loses its components under the size threshold (nvblox's exact
+    8-connected filter, kernel mask_components);
   * dynamic mode: the mask comes from the freespace layer. Depth points
     inside high-confidence freespace are dynamic (kernel detect_dynamic);
     the static TSDF takes the other pixels, the dynamic occupancy mapper
@@ -42,8 +44,8 @@ from isaac_ros_nvblox_tpu_torch.ops.detect_cuda import detect_dynamic
 from isaac_ros_nvblox_tpu_torch.ops.ground_plane import (GroundPlaneEstimator,
                                                          Plane)
 from isaac_ros_nvblox_tpu_torch.ops.masking import (
-    mask_overlay, remove_small_connected_components_device)
-from isaac_ros_nvblox_tpu_torch.utils.timing import Timer, to_host
+    mask_overlay, remove_small_connected_components_exact)
+from isaac_ros_nvblox_tpu_torch.utils.timing import Timer, Timing, to_host
 
 
 def _default_world(capacity: int) -> wg.WorldGridConfig:
@@ -99,6 +101,9 @@ class MultiMapper:
             MappingType.DYNAMIC, MappingType.HUMAN_WITH_STATIC_TSDF,
             MappingType.HUMAN_WITH_STATIC_OCCUPANCY)
         self.uses_freespace = p.mapping_type == MappingType.DYNAMIC
+        # The foreground mapper's spans: `mapper/human/*` in the human
+        # modes, `mapper/dynamic/*` in the dynamic mode.
+        self._foreground = "dynamic" if self.uses_freespace else "human"
         world = world or _default_world(p.block_capacity)
         self.static_mapper = dm.DeviceMapper(
             p.voxel_size_m, params=p.static_mapper, world=world,
@@ -156,9 +161,17 @@ class MultiMapper:
         modes split it by `mask` (u8[H, W], > 0 = foreground; reprojected
         from `mask_camera` through `T_CM_CD` when given); the dynamic mode
         derives the mask from high-confidence freespace (kernel
-        detect_dynamic) and then updates the freespace at `time_ms`. The
-        background goes to the static mapper, the foreground to the
-        dynamic occupancy mapper. No host sync."""
+        detect_dynamic) and then updates the freespace at `time_ms`. With
+        `remove_small_connected_components` the mask first loses its
+        8-connected components under the size threshold (kernel
+        mask_components). The background goes to the static mapper, the
+        foreground to the dynamic occupancy mapper. No host sync.
+
+        Spans: `mapper/mask/reproject` (a given mask's upload and
+        reprojection; counter `mapper/mask/frames` counts those frames),
+        `mapper/mask/filter`, and the foreground mapper's blocks and
+        fusion, `mapper/human/integrate` (`mapper/dynamic/integrate` in
+        the dynamic mode)."""
         depth_t = self._depth(depth)
         sm = self.static_mapper
         if not self.is_dynamic_mode:
@@ -170,18 +183,22 @@ class MultiMapper:
             mask_t = torch.zeros(depth_t.shape, dtype=torch.uint8,
                                  device=self.device)
         else:
-            mask_t = sm._tensor(mask, torch.uint8)
-            if mask_camera is not None and T_CM_CD is not None:
-                mask_t = reproject_mask(
-                    depth_t, mask_t, sm._tensor(T_CM_CD, torch.float32),
-                    depth_camera=camera, mask_camera=mask_camera)
+            with Timer("mapper/mask/reproject"):
+                mask_t = sm._tensor(mask, torch.uint8)
+                if mask_camera is not None and T_CM_CD is not None:
+                    mask_t = reproject_mask(
+                        depth_t, mask_t, sm._tensor(T_CM_CD, torch.float32),
+                        depth_camera=camera, mask_camera=mask_camera)
+            Timing.add("mapper/mask/frames")
         sp = self.params.static_mapper
         if sp.remove_small_connected_components:
-            mask_t = remove_small_connected_components_device(
-                mask_t, sp.connected_mask_component_size_threshold)
+            with Timer("mapper/mask/filter"):
+                mask_t = remove_small_connected_components_exact(
+                    mask_t, sp.connected_mask_component_size_threshold)
         sm.integrate_depth(depth_t, T_L_C, camera, mask=mask_t, mask_mode=1)
-        self.dynamic_mapper.integrate_depth(depth_t, T_L_C, camera,
-                                            mask=mask_t, mask_mode=2)
+        with Timer(f"mapper/{self._foreground}/integrate"):
+            self.dynamic_mapper.integrate_depth(depth_t, T_L_C, camera,
+                                                mask=mask_t, mask_mode=2)
         if self.uses_freespace:
             sm.update_freespace(time_ms, T_L_C, camera)
         self._last_dynamic_mask_dev = mask_t
@@ -393,7 +410,8 @@ class MultiMapper:
     def decay_dynamic(self) -> None:
         """Decay of the dynamic occupancy layer."""
         if self.dynamic_mapper is not None:
-            self.dynamic_mapper.decay()
+            with Timer(f"mapper/{self._foreground}/decay"):
+                self.dynamic_mapper.decay()
 
     def decay(self) -> None:
         self.decay_static()

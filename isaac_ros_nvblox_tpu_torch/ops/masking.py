@@ -4,9 +4,15 @@ isaac_ros_nvblox_tpu/ops/masking.py).
 nvblox's mask preprocessing for the human and dynamic mapping modes:
 connected-component filtering of a mask (`remove_small_connected_components`
 and `connected_mask_component_size_threshold`), the foreground /
-background depth split and the debug overlay. The filter exists twice: on
-the host through scipy, and on the device at a coarser granularity (no
-host sync).
+background depth split and the debug overlay.
+
+The filter the mapping path takes is `remove_small_connected_components_
+exact`: nvblox's rule (8-connected components at full resolution, those
+under the threshold dropped), on the card through kernel mask_components
+(`csrc/mask_components.cu`, union-find labelling; no host sync), on the
+CPU through its plain version. The reference's host form stays for
+parity (scipy, 4-connected); its pooled device approximation has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ from typing import Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from isaac_ros_nvblox_tpu_torch import kernels
 
 
 def remove_small_connected_components(mask, size_threshold: int
@@ -36,59 +44,70 @@ def remove_small_connected_components(mask, size_threshold: int
 
 
 @torch.no_grad()
-def remove_small_connected_components_device(mask, size_threshold: int,
-                                             downsample: int = 4,
-                                             iters: int = 48
-                                             ) -> torch.Tensor:
-    """Small-component removal on the mask's device, without a host sync,
-    at `downsample` granularity: (1) max-pool the mask `downsample`x;
-    (2) `iters` rounds of 3x3 min-label propagation (8-connected; labels
-    converge to each component's smallest linear index, and a component
-    wider than `iters` cells stays split and is kept piecewise); (3)
-    component sizes by sorting the labels and differencing run starts; (4)
-    keep the components of at least size_threshold / downsample^2 cells,
-    upsample and AND with the input. Returns u8[H, W].
-    """
+def remove_small_connected_components_plain(mask, size_threshold: int
+                                            ) -> torch.Tensor:
+    """Plain version of kernel mask_components: each foreground pixel
+    (mask > 0) takes the smallest linear index of its 8-connected
+    component (3 x 3 minimum rounds, each followed by a pointer jump
+    through the labels, to convergence), the components are counted and
+    those of at least `size_threshold` pixels kept. Returns u8[H, W]
+    (0 / 1)."""
     H, W = mask.shape
-    m = mask > 0
-    ds = int(downsample)
-    Hp, Wp = -(-H // ds) * ds, -(-W // ds) * ds
-    mp = F.pad(m.float()[None, None], (0, Wp - W, 0, Hp - H))
-    small = F.max_pool2d(mp, ds, stride=ds)[0, 0] > 0.5
-    h, w = small.shape
-    n = h * w
+    n = H * W
+    fg = mask > 0
     dev = mask.device
-    # The labels run through max_pool2d (it has no integer CUDA path) as
-    # float32: they are below n = (H/ds)*(W/ds), 19 200 for a VGA mask at
-    # ds = 4, far below 2^24, so float32 holds them exactly.
-    big = torch.full((), float(n), device=dev)
-    labels = torch.where(small, torch.arange(n, device=dev, dtype=torch.float32)
-                         .reshape(h, w), big)
-    for _ in range(int(iters)):
-        # 3x3 minimum; out-of-image neighbours (the reference's `n` fill)
-        # never win.
-        prop = -F.max_pool2d(-labels[None, None], 3, stride=1, padding=1)[0, 0]
-        labels = torch.where(small, prop, big)
-    # Sizes by sorted run length: each element's component size is the
-    # next run start minus its own run start.
-    flat = labels.reshape(-1).to(torch.int32)
-    s, order = torch.sort(flat, stable=True)
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
-    is_start = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev),
-                          s[1:] != s[:-1]])
-    start_pos = torch.cummax(torch.where(is_start, idx, 0), 0).values
-    nxt = torch.where(is_start, idx, n)
-    nxt = torch.cat([nxt[1:], torch.full((1,), n, dtype=torch.int32,
-                                         device=dev)])
-    next_start = torch.flip(torch.cummin(torch.flip(nxt, [0]), 0).values,
-                            [0])
-    keep_sorted = (s < n) & ((next_start - start_pos) * (ds * ds)
-                             >= size_threshold)
-    keep = torch.zeros((n,), dtype=torch.bool, device=dev)
-    keep[order] = keep_sorted
-    keep = keep.reshape(h, w)
-    keep_full = keep.repeat_interleave(ds, 0).repeat_interleave(ds, 1)[:H, :W]
-    return (m & keep_full).to(torch.uint8)
+    big = torch.full((), n, dtype=torch.int64, device=dev)
+    labels = torch.where(fg, torch.arange(n, device=dev).reshape(H, W), big)
+    while True:
+        p = F.pad(labels, (1, 1, 1, 1), value=n)
+        m = labels
+        for dy in range(3):
+            for dx in range(3):
+                m = torch.minimum(m, p[dy:dy + H, dx:dx + W])
+        m = torch.where(fg, m, big)
+        # A label is a pixel of the same component: jump to its label.
+        ext = torch.cat([m.reshape(-1), big[None]])
+        m = torch.where(fg, ext[m], big)
+        if torch.equal(m, labels):
+            break
+        labels = m
+    flat = labels.reshape(-1)
+    sizes = torch.bincount(flat[flat < n], minlength=n)
+    keep = torch.cat([sizes >= int(size_threshold),
+                      torch.zeros((1,), dtype=torch.bool, device=dev)])
+    return keep[flat].reshape(H, W).to(torch.uint8)
+
+
+@torch.no_grad()
+def remove_small_connected_components_exact(mask, size_threshold: int
+                                            ) -> torch.Tensor:
+    """nvblox's mask filter: the 8-connected components of `mask`
+    (u8[H, W], > 0 = foreground) with fewer than `size_threshold` pixels
+    dropped. Returns u8[H, W] (0 / 1) on the mask's device: on the card
+    through kernel mask_components (four launches, no host sync), on the
+    CPU through `remove_small_connected_components_plain`; both equal
+    scipy.ndimage.label's components with a 3 x 3 structure."""
+    if mask.device.type == "cpu":
+        return remove_small_connected_components_plain(mask, size_threshold)
+    what = "mask_components"
+    if mask.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {mask.device}")
+    if mask.dim() != 2:
+        raise ValueError(f"{what}: mask must be u8[H, W]")
+    if mask.dtype != torch.uint8:
+        mask = (mask > 0).to(torch.uint8)
+    mask = mask.contiguous()
+    H, W = mask.shape
+    out = torch.empty_like(mask)
+    work = torch.empty((2, H * W), dtype=torch.int32, device=mask.device)
+    lib = kernels.library(what)
+    err = lib.mask_components(mask.data_ptr(), out.data_ptr(),
+                              work[0].data_ptr(), work[1].data_ptr(), H, W,
+                              int(size_threshold),
+                              kernels.stream_handle(mask))
+    kernels.LAUNCHES[what] += 1
+    kernels.check(what, err, "mask_components launch")
+    return out
 
 
 def split_depth_by_mask(depth, mask) -> Tuple[torch.Tensor, torch.Tensor]:

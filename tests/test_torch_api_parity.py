@@ -67,6 +67,11 @@ LEFT_OUT = {
         "the port's kernel wrapper is ops/halo.py::dilate_dense_grid",
     "ops/lidar_pallas.py::integrate_tsdf_lidar_pallas(interpret)":
         _INTERPRET,
+    "ops/masking.py::remove_small_connected_components_device":
+        "the pooled, 48-round approximation of nvblox's mask filter; the "
+        "port's mapping path takes the exact filter "
+        "(ops/masking.py::remove_small_connected_components_exact, kernel "
+        "mask_components)",
     "ops/mesh_pallas.py::NB": "TPU layout: voxel blocks per Pallas program",
     "ops/mesh_pallas.py::marching_cubes_fused(interpret)": _INTERPRET,
     "ops/mesh_pallas.py::marching_cubes_fused(ablate)": _ABLATE,

@@ -438,6 +438,38 @@ def test_slicers_match_reference(base):
         is None
 
 
+@pytest.mark.parametrize("shift", [(0, 0, 0, 0), (-16, 8, 24, -40),
+                                   (40, -24, -72, 16)])
+def test_slice_2d_takes_a_given_frame(base, shift):
+    """slice_esdf_2d_device with another spec (origin moved by dx, dy
+    voxels, shape changed by dw, dh): the field placed in that frame,
+    cropped where it reaches past it and unknown where it does not cover
+    it, as the node combines the dynamic mapper's field with the static
+    slice."""
+    t, _ = base
+    m = _port_mapper(enable_color=False)
+    m.load_state_arrays(t.state_arrays())
+    _host_tracking(t, m)
+    m.update_esdf_2d(*BAND)
+    kw = dict(max_distance_m=2.0, unknown_value=7.0)
+    spec, img = tdio.slice_esdf_2d_device(m, **kw)
+    dx, dy, dw, dh = shift
+    vs = spec.voxel_size_m
+    other = dataclasses.replace(
+        spec, origin_x_m=spec.origin_x_m + dx * vs,
+        origin_y_m=spec.origin_y_m + dy * vs, width=spec.width + dw,
+        height=spec.height + dh)
+    got_spec, got = tdio.slice_esdf_2d_device(m, spec=other, **kw)
+    assert got_spec == other and got.shape == (other.height, other.width)
+    want = np.full(got.shape, np.float32(7.0))
+    ys, xs = np.mgrid[:img.shape[0], :img.shape[1]]
+    ty, tx = ys - dy, xs - dx
+    inside = (ty >= 0) & (ty < other.height) & (tx >= 0) & (tx < other.width)
+    want[ty[inside], tx[inside]] = img[inside]
+    np.testing.assert_array_equal(got, want)
+    assert (got != np.float32(7.0)).any()
+
+
 def test_dense_grid_and_gradients_match_reference(base):
     t, j = base
     for lo, hi in (((-1.0, -1.0, 0.5), (1.0, 1.0, 1.5)),

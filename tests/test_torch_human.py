@@ -58,6 +58,31 @@ SMALL_WORLD = dict(dims=(64, 64, 32), capacity=4096,
 SMALL_CC_THRESHOLD = 125          # 2000 px * (160 * 120) / (640 * 480)
 
 
+def _exact_mask_filter(mask, size_threshold, **_):
+    """nvblox's mask filter on the host: the 8-connected components of
+    `mask` with fewer than `size_threshold` pixels dropped, as a JAX
+    array (the port's mapping path takes this rule, kernel
+    mask_components)."""
+    import jax.numpy as jnp
+    from scipy import ndimage
+    labels, _ = ndimage.label(np.asarray(mask) > 0,
+                              structure=np.ones((3, 3)))
+    sizes = np.bincount(labels.reshape(-1))
+    keep = sizes >= size_threshold
+    keep[0] = False
+    return jnp.asarray(keep[labels].astype(np.uint8))
+
+
+@pytest.fixture
+def exact_jax_mask_filter(monkeypatch):
+    """Within a test, the JAX package's multi-mapper filters its masks
+    with nvblox's exact rule (as the port does) in place of its pooled,
+    48-round approximation, so that a parity test holds both packages to
+    one rule (tests/test_torch_node.py imports it too)."""
+    monkeypatch.setattr(jmm, "remove_small_connected_components_device",
+                        _exact_mask_filter)
+
+
 def person_center(k: int, n: int):
     """The person's box centre at frame k of n."""
     t = k / max(n - 1, 1)
@@ -163,7 +188,8 @@ def _arrays(m, n):
 
 @pytest.mark.parametrize("mode", ["human_with_static_tsdf",
                                   "human_with_static_occupancy"])
-def test_human_modes_match_reference(small_frames, mode):
+def test_human_modes_match_reference(small_frames, mode,
+                                     exact_jax_mask_filter):
     """chip_smoke.py's human_frames (a) and (b) at 160 x 120: each frame
     through `integrate_depth(depth, T, camera, mask, mask_camera,
     T_CM_CD)` (mask reprojection, the connected-component filter, the
@@ -242,7 +268,8 @@ def _human_node(nmod, mod, world_mod):
     return node, clock
 
 
-def test_human_node_with_ground_plane_matches_reference(node_frames):
+def test_human_node_with_ground_plane_matches_reference(
+        node_frames, exact_jax_mask_filter):
     """The node in the segmentation mode with the ground-plane estimator:
     masked depth frames (the mask from the segmentation camera) every
     50 ms, ticks every 10 ms. A masked tick takes the unfused path (integrate,

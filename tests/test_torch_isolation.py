@@ -44,6 +44,9 @@ from isaac_ros_nvblox_tpu_torch.ops.tsdf import integrate_tsdf_lidar
 from isaac_ros_nvblox_tpu_torch.core import world_grid as wg
 from isaac_ros_nvblox_tpu_torch.ops.detect import detect_dynamic_plain
 from isaac_ros_nvblox_tpu_torch.ops.detect_cuda import detect_dynamic
+from isaac_ros_nvblox_tpu_torch.ops.masking import (
+    remove_small_connected_components_exact,
+    remove_small_connected_components_plain)
 from isaac_ros_nvblox_tpu_torch.ops.halo import (dilate_dense_grid,
                                                  dilate_dense_grid_plain)
 from isaac_ros_nvblox_tpu_torch.runtime.node import NvbloxNode
@@ -256,6 +259,10 @@ def test_wrappers_take_plain_versions_on_cpu():
     assert total > 0
     a += mesh_compact(soup, soup, bidx[:4], a[-1], 3, total, 0.05)
     b += mesh_compact_plain(soup, soup, bidx[:4], b[-1], 3, total, 0.05)
+    mask = (torch.rand(24, 32) < 0.5).to(torch.uint8)
+    a.append(remove_small_connected_components_exact(mask, 5))
+    b.append(remove_small_connected_components_plain(mask, 5))
+    assert int(b[-1].sum()) > 0
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert set(kernels.LAUNCHES) == {"tsdf_fuse", "edt_pass1", "edt_pass",
@@ -263,7 +270,7 @@ def test_wrappers_take_plain_versions_on_cpu():
                                      "marching_cubes", "occupancy_fuse",
                                      "tsdf_lidar_fuse", "dilate_dense",
                                      "detect_dynamic", "mesh_offsets",
-                                     "mesh_compact"}
+                                     "mesh_compact", "mask_components"}
     assert not any(kernels.LAUNCHES.values())
 
 

@@ -27,21 +27,6 @@ def _mask(seed=0):
     return mask
 
 
-@pytest.mark.parametrize("threshold,downsample,iters",
-                         [(400, 4, 48), (16, 2, 8), (64, 4, 3)])
-def test_remove_small_components_device_matches_reference(threshold,
-                                                          downsample, iters):
-    mask = _mask()
-    mask[5:9, 0:40] = 255            # a thin strip wider than `iters` cells
-    want = np.asarray(jmask.remove_small_connected_components_device(
-        jnp.asarray(mask), threshold, downsample=downsample, iters=iters))
-    got = tmask.remove_small_connected_components_device(
-        torch.from_numpy(mask), threshold, downsample=downsample, iters=iters)
-    assert got.dtype == torch.uint8
-    np.testing.assert_array_equal(got.numpy(), want)
-    assert 0 < want.sum() < (mask > 0).sum()
-
-
 def test_remove_small_components_host_matches_reference():
     mask = _mask(1)
     for thr in (1, 5, 400):
@@ -53,6 +38,80 @@ def test_remove_small_components_host_matches_reference():
     np.testing.assert_array_equal(
         tmask.remove_small_connected_components(empty, 3),
         jmask.remove_small_connected_components(empty, 3))
+
+
+def _disk(mask, cy, cx, r):
+    yy, xx = np.mgrid[:mask.shape[0], :mask.shape[1]]
+    mask[(yy - cy) ** 2 + (xx - cx) ** 2 <= r * r] = 1
+
+
+def _filter_case(name):
+    """(mask u8[H, W], threshold) of an exact-filter case."""
+    m = np.zeros((240, 320), np.uint8)
+    if name == "wide":
+        # One component 300 px wide and a diagonal line (8-connected only),
+        # both far wider than the old filter's 192-pixel propagation.
+        m[100:104, 10:310] = 1
+        for i in range(200):
+            m[20 + i // 2, 40 + i] = 1
+        return m, 1000
+    if name == "under":
+        _disk(m, 60, 60, 25)             # 1961 pixels: dropped at 1962
+        _disk(m, 160, 200, 30)
+        return m, int(m[:120, :120].sum()) + 1
+    if name == "over":
+        _disk(m, 60, 60, 25)             # kept at exactly its size
+        _disk(m, 180, 250, 12)           # dropped
+        return m, int(m[:120, :120].sum())
+    if name == "touching":
+        # Two disks that meet only at a corner pixel: one component.
+        m[50:70, 50:70] = 1
+        m[70:90, 70:90] = 1
+        return m, 500
+    if name == "empty":
+        return m, 2000
+    if name == "full":
+        return np.full((240, 320), 255, np.uint8), 2000
+    raise ValueError(name)
+
+
+def _scipy_filter(mask, threshold):
+    from scipy import ndimage
+    labels, _ = ndimage.label(mask > 0, structure=np.ones((3, 3)))
+    sizes = np.bincount(labels.reshape(-1))
+    keep = sizes >= threshold
+    keep[0] = False
+    return keep[labels].astype(np.uint8)
+
+
+@pytest.mark.parametrize("name", ["wide", "under", "over", "touching",
+                                  "empty", "full"])
+def test_exact_filter_matches_scipy(name):
+    """The mapping path's filter: nvblox's 8-connected components at full
+    resolution, each kept where it holds at least the threshold."""
+    mask, threshold = _filter_case(name)
+    got = tmask.remove_small_connected_components_exact(
+        torch.from_numpy(mask), threshold)
+    want = _scipy_filter(mask, threshold)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    if name in ("wide", "over", "touching", "full"):
+        assert want.sum() > 0
+    if name == "under":
+        assert want[:120, :120].sum() == 0 and want.sum() > 0
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 5), (37, 53), (60, 80)])
+def test_exact_filter_random_masks_match_scipy(shape):
+    rng = np.random.default_rng(shape[0] * 100 + shape[1])
+    for _ in range(2):
+        for p in (0.2, 0.45, 0.6):
+            mask = (rng.random(shape) < p).astype(np.uint8)
+            thr = int(rng.integers(1, 40))
+            np.testing.assert_array_equal(
+                tmask.remove_small_connected_components_exact(
+                    torch.from_numpy(mask), thr).numpy(),
+                _scipy_filter(mask, thr))
 
 
 def test_split_depth_and_overlay_match_reference():

@@ -34,6 +34,7 @@ from isaac_ros_nvblox_tpu_torch.runtime.adapters import MeshLayerAdapter
 from isaac_ros_nvblox_tpu_torch.runtime.costmap import NvbloxCostmapLayer
 from isaac_ros_nvblox_tpu_torch.runtime.node import NodeParams, NvbloxNode
 from isaac_ros_nvblox_tpu_torch.utils.timing import Timing
+from test_torch_human import exact_jax_mask_filter  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -508,8 +509,8 @@ NODE_MODES = {
     "static_occupancy": ("static_occupancy", {}, {"use_lidar": False}, None,
                          LAYERS + ("~/occupancy_layer",)),
     "dynamic": ("dynamic", {}, {}, None,
-                LAYERS + ("~/mesh", "~/tsdf_layer", "~/color_layer",
-                          "~/freespace_layer")),
+                LAYERS + ("~/combined_map_slice", "~/mesh", "~/tsdf_layer",
+                          "~/color_layer", "~/freespace_layer")),
     "static_tsdf_esdf_3d": ("static", {"esdf_mode": "3d"}, {},
                             dict(dims=(16, 16, 10), origin_block=(-8, -8, -2)),
                             LAYERS + ("~/mesh", "~/tsdf_layer",
@@ -674,6 +675,33 @@ def _kernel_branch_mesh(monkeypatch):
     monkeypatch.setattr(jdio, "update_mesh_layer", kernel_branch)
 
 
+def _framed_jax_slices(monkeypatch):
+    """The reference's 2-D slicer with the port's rule for a given spec:
+    the mapper's field placed in the spec's frame, cropped where it
+    reaches past it and unknown where it does not cover it, so that the
+    dynamic mapper's field is combined with the static slice whatever
+    the two fields' frames."""
+    slice_2d = jdio.slice_esdf_2d_device
+
+    def framed(m, *, max_distance_m, unknown_value=1000.0, spec=None):
+        res = slice_2d(m, max_distance_m=max_distance_m,
+                       unknown_value=unknown_value, spec=spec)
+        if res is None or spec is None:
+            return res
+        img, vs = res[1], m.voxel_size_m
+        dx = int(m.esdf_2d[0][0]) * 8 - int(round(spec.origin_x_m / vs))
+        dy = int(m.esdf_2d[0][1]) * 8 - int(round(spec.origin_y_m / vs))
+        out = np.full((spec.height, spec.width), np.float32(unknown_value))
+        x0, y0 = max(dx, 0), max(dy, 0)
+        x1 = min(dx + img.shape[1], spec.width)
+        y1 = min(dy + img.shape[0], spec.height)
+        if x1 > x0 and y1 > y0:
+            out[y0:y1, x0:x1] = img[y0 - dy:y1 - dy, x0 - dx:x1 - dx]
+        return spec, out
+
+    monkeypatch.setattr(jdio, "slice_esdf_2d_device", framed)
+
+
 def _mode_nodes(mode):
     """The port's node (on the CPU) and the reference's in one of
     NODE_MODES' configurations, 8192 slots."""
@@ -691,12 +719,14 @@ def _mode_nodes(mode):
 
 
 @pytest.mark.parametrize("mode", list(NODE_MODES))
-def test_node_matches_reference(mode, node_frames, monkeypatch):
+def test_node_matches_reference(mode, node_frames, monkeypatch,
+                                exact_jax_mask_filter):
     """Both nodes in one configuration over the same frames, poses, scan
     and clock: the same maps (every mapper, every channel); then the
     port's maps go into the reference's mappers and one publishing tick
     gives the same messages on every topic."""
     _kernel_branch_mesh(monkeypatch)
+    _framed_jax_slices(monkeypatch)
     frames, scan = node_frames
     expected = NODE_MODES[mode][4]
     occupancy = mode == "static_occupancy"

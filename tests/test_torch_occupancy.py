@@ -286,6 +286,37 @@ def jax_mapper_arrays(m):
     return out
 
 
+@pytest.mark.parametrize("occ_m,proj_m", [(5.0, 2.0), (2.0, 5.0)])
+def test_occupancy_region_covers_its_blocks(occ_m, proj_m):
+    """An occupancy layer allocates out to the occupancy params' max
+    distance, whatever the projective one: the host-tracked AABB (the
+    frame of the ESDF solves) holds every block a frame allocated, and
+    no more than that distance's frustum."""
+    from isaac_ros_nvblox_tpu_torch.ops import view as tview
+    scene = js.default_test_scene()
+    T = js.orbit_pose(0.3, radius=1.8)
+    depth = np.array(js.render_depth(scene, JCAM, jnp.asarray(T)))
+    t = tdm.DeviceMapper(
+        VOXEL, params=tp.MapperParams(
+            projective=tp.TsdfIntegratorParams(
+                max_integration_distance_m=proj_m),
+            occupancy=tocc.OccupancyIntegratorParams(
+                max_integration_distance_m=occ_m)),
+        world=twg.WorldGridConfig(**WORLD),
+        projective_layer=tp.ProjectiveLayerType.OCCUPANCY,
+        max_blocks_per_frame=1024, device="cpu")
+    t.integrate_depth(depth, T, TCAM)
+    a = t.state_arrays()
+    blocks = a["block_index_of_slot"][:int(a["alloc_count"])]
+    assert len(blocks) > 0
+    assert (blocks >= t._aabb_lo).all() and (blocks <= t._aabb_hi).all()
+    lo, hi = tview.frustum_block_aabb(np.asarray(T), TCAM, occ_m, VOXEL)
+    w_lo = np.asarray(WORLD["origin_block"])
+    w_hi = w_lo + np.asarray(WORLD["dims"]) - 1
+    np.testing.assert_array_equal(t._aabb_lo, np.maximum(lo, w_lo))
+    np.testing.assert_array_equal(t._aabb_hi, np.minimum(hi, w_hi))
+
+
 def test_occupancy_mapper_matches_reference():
     """Two frames by the reference, loaded into the port; then on both
     sides: frame, decay (frees the blocks no frame updated), frame (which
